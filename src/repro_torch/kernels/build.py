@@ -1,0 +1,139 @@
+"""Build the CUDA kernels on first use and bind them through ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), under ``build/kernels/`` at the root of the checkout.  The
+library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  ``build_all``
+starts one ``nvcc`` per source, all at once, and waits for them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("paged_decode_attention", "flash_attention", "fused_sample")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or add it to PATH)")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _start(name: str):
+    out = lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every stale library in parallel; returns name -> path."""
+    jobs = {n: _start(n) for n in names}
+    failed = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        proc, tmp, out, log = job
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          + out.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: lib_path(n) for n in jobs}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library for ``csrc/<name>.cu``, built if stale."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's ``-Xptxas -v`` output of the last build of ``name``."""
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher returned a non-zero ``cudaGetLastError()``."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+# -- shared by the wrappers ---------------------------------------------------
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def all_on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def require_cuda(name: str, *tensors) -> torch.device:
+    """All tensors on one CUDA device (a CUDA wrapper never falls back)."""
+    devs = {t.device for t in tensors if t is not None}
+    require(len(devs) == 1 and next(iter(devs)).type == "cuda", name,
+            f"expects tensors on one CUDA device, got {sorted(map(str, devs))}")
+    return next(iter(devs))
+
+
+def dtype_code(name: str, *tensors) -> int:
+    dts = {t.dtype for t in tensors}
+    require(len(dts) == 1 and next(iter(dts)) in DTYPE_CODES, name,
+            f"expects one dtype of float32/bfloat16, got {dts}")
+    return DTYPE_CODES[next(iter(dts))]
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,56 @@
+// Helpers shared by the port's CUDA kernels: element conversion to and
+// from f32, vector loads, warp reductions, and the dtype codes the Python
+// wrappers pass (0 = float32, 1 = bfloat16).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace rt {
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// E consecutive elements as one aligned vector load (8 or 16 bytes for the
+// shapes the wrappers admit), converted to f32.
+template <typename T, int E>
+struct alignas(sizeof(T) * E) Vec {
+  T v[E];
+};
+
+template <typename T, int E>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[E]) {
+  Vec<T, E> x = *reinterpret_cast<const Vec<T, E>*>(p);
+#pragma unroll
+  for (int i = 0; i < E; ++i) out[i] = to_f(x.v[i]);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// (value desc, index asc): true when (v1, i1) ranks before (v2, i2), so
+// equal values keep the lowest index first, as argmax and lax.top_k do.
+__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
+  return v1 > v2 || (v1 == v2 && i1 < i2);
+}
+
+}  // namespace rt

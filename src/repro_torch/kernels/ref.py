@@ -1,0 +1,53 @@
+"""Plain PyTorch versions of the kernels (counterpart of
+``repro/kernels/ref.py``).  The wrappers use them for CPU tensors, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+
+
+def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """Dense per-slot view of a paged pool.
+
+    pages: (N, page, Kh, D); block_tables: (B, nb) -> (B, nb*page, Kh, D).
+    """
+    B, nb = block_tables.shape
+    g = pages[block_tables.reshape(-1).long()]
+    return g.reshape(B, nb * pages.shape[1], *pages.shape[2:])
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_len,
+                               softcap: float = 0.0, window: int = 0
+                               ) -> torch.Tensor:
+    """(B, H, D) x (N, page, Kh, D) x (B, nb) x (B,) -> (B, H, D)."""
+    return L.decode_attention(q, gather_pages(k_pages, block_tables),
+                              gather_pages(v_pages, block_tables),
+                              kv_len, softcap=softcap, window=window)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, seg_ids=None) -> torch.Tensor:
+    """(B, S, H, D) GQA causal attention (packed via seg_ids)."""
+    return L.full_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, seg_q=seg_ids, seg_k=seg_ids)
+
+
+def fused_sample_ref(x, w, top_k: int = 1, softcap: float = 0.0):
+    """Materialise the (B, V) logits in f32, then top-k + logsumexp.
+
+    Products accumulate in f32 from the working dtype's values, as the
+    Pallas kernel does.  Ties keep the lowest index first (a stable sort),
+    as ``lax.top_k`` and ``argmax`` do."""
+    logits = x.float() @ w.float()
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    if top_k == 1:
+        vals, idx = torch.max(logits, dim=-1, keepdim=True)
+    else:
+        vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        vals, idx = vals[:, :top_k], idx[:, :top_k]
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    return vals, idx.to(torch.int32), lse

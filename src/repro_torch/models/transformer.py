@@ -1,0 +1,263 @@
+"""Dense decoder-only transformer (counterpart of
+``repro/models/transformer.py``, non-pattern branch).
+
+Parameters keep the reference's tree, with the stacked leading layer
+axis: ``layers.attn.wq`` (L, d, H, hd), ``layers.mlp.w_in`` (L, d, ff),
+``layers.ln1.scale`` (L, d), ...  The layer loop is a Python loop over
+that axis (the reference scans it).
+
+Two departures from the reference, both for eager execution:
+* ``prefill`` computes the (B, S, V) logits only when asked
+  (``return_logits``); the engine discards them, and under ``jit`` the
+  reference's compiler drops them, but an eager run would pay for them
+  (5 GB in bf16 for Qwen3-0.6B at B=8, S=2048).
+* caches are written in place: ``prefill`` fills the cache it is given
+  and ``decode_step_paged`` writes the new token's K/V straight into the
+  page pool, then attends over the pool with the paged kernel.  The
+  reference gathers a dense view, decodes it and scatters the written
+  page back; the results are the same.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The configs this module serves (the reference's non-pattern,
+    rope branch of the dense family)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.attn.layer_pattern != "global":
+        raise NotImplementedError("local/global layer patterns not ported")
+    if cfg.pos_embedding not in ("rope", "none"):
+        raise NotImplementedError(f"pos_embedding {cfg.pos_embedding!r}")
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i``'s parameters out of the stacked tree (views)."""
+    def pick(t):
+        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return pick(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random weights with the reference's scales (``jax.random`` and
+    ``torch.Generator`` draw different numbers from one seed)."""
+    dtype = cfg.param_dtype
+    d = cfg.d_model
+    blocks = []
+    for _ in range(cfg.num_layers):
+        blocks.append({
+            "attn": L.init_attention(generator, cfg, dtype, device),
+            "mlp": L.init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
+                              cfg.num_layers, dtype, device),
+            "ln1": _init_norm(cfg, dtype, device),
+            "ln2": _init_norm(cfg, dtype, device),
+        })
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    params: Params = {
+        "embed": (torch.randn((cfg.vocab_size, d), generator=generator,
+                              device=device) / math.sqrt(d)).to(dtype),
+        "layers": stack(blocks),
+        "final_norm": _init_norm(cfg, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn(
+            (d, cfg.vocab_size), generator=generator, device=device)
+            / math.sqrt(d)).to(dtype)
+    return params
+
+
+def _init_norm(cfg, dtype, device):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm_type != "rmsnorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """(d, V) head in the compute dtype; a tied head is ``embed.T``, a
+    strided view (nothing is transposed in memory)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return w.to(cfg.compute_dtype)
+
+
+def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    x = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    logits = x @ head_weight(params, cfg)
+    if cfg.logit_softcap > 0:
+        logits = L._softcap(logits.float(), cfg.logit_softcap)
+    return logits
+
+
+def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor, attend) -> Tuple[torch.Tensor, ...]:
+    h = L.norm(x, bp["ln1"], cfg.norm_type, cfg.norm_eps)
+    q, k, v = L.qkv_project(bp["attn"], cfg, h, positions)
+    x = x + L.attn_output(bp["attn"], attend(q, k, v))
+    h = L.norm(x, bp["ln2"], cfg.norm_type, cfg.norm_eps)
+    x = x + L.mlp(bp["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
+    return x, k, v
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring): full sequence -> logits, plain attention
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Returns (logits (B, S, V), aux).  Attention is the plain
+    ``full_attention``, as in the reference's scoring path; it is the
+    independent check of the engine's kernel path."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+
+    def attend(q, k, v):
+        return L.full_attention(q, k, v, causal=True,
+                                window=cfg.attn.sliding_window,
+                                softcap=cfg.attn.attn_softcap)
+
+    for i in range(cfg.num_layers):
+        x, _, _ = _block(layer(params, i), cfg, x, positions, attend)
+    return lm_logits(params, cfg, x), dict(ZERO_AUX)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
+               ) -> Dict[str, torch.Tensor]:
+    """{"k", "v"}: (L, batch, max_len, Kh, D) zeros in the compute dtype.
+    The paged engine calls it with (num_pages, page_size) for its pool."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for n in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Dict[str, torch.Tensor], prompt_lens: torch.Tensor,
+            seg_ids: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            return_logits: bool = True):
+    """tokens (B, S) right-padded.  Fills ``cache[:, :, :S]`` in place and
+    returns (logits (B, S, V) or None, cache).  Padded positions are
+    masked downstream via kv_len.
+
+    Packed mode (``seg_ids`` given): each row holds several prompts back
+    to back, ``seg_ids`` (B, S) the row-local segment (-1 for padding) and
+    ``positions`` each token's position inside its segment.  Attention
+    goes through ``ops.flash_attention`` (the kernel on CUDA)."""
+    del prompt_lens
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    if seg_ids is not None:
+        seg_ids = seg_ids.to(torch.int32).contiguous()
+
+    def attend(q, k, v):
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), seg_ids=seg_ids,
+                                   window=cfg.attn.sliding_window,
+                                   softcap=cfg.attn.attn_softcap)
+
+    for i in range(cfg.num_layers):
+        x, k, v = _block(layer(params, i), cfg, x, positions, attend)
+        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+    logits = lm_logits(params, cfg, x) if return_logits else None
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged decode step: one token per slot, straight over the page pool
+# ---------------------------------------------------------------------------
+
+
+def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                      pool: Dict[str, torch.Tensor],
+                      block_tables: torch.Tensor, kv_len: torch.Tensor,
+                      return_hidden: bool = False):
+    """token (B,); pool {"k", "v"} (L, N, P, Kh, D); block_tables (B, nb)
+    int32; kv_len (B,) int32, the position of the new token.
+
+    Per layer, the new token's k/v are written in place at row
+    ``kv_len % P`` of page ``block_tables[b, kv_len // P]`` (exclusive to
+    the slot: the engine's copy-on-write planning made it so; inactive
+    slots have kv_len 0 and the garbage page 0), then the paged attention
+    reads the pool with ``kv_len + 1`` rows.  Returns (logits (B, V) or
+    the final-normed hidden (B, d) with ``return_hidden``, pool)."""
+    P = pool["k"].shape[2]
+    bt = block_tables.to(torch.int32).contiguous()
+    kv_len = kv_len.to(torch.int32)
+    x = embed_tokens(params, cfg, token[:, None])
+    b = torch.arange(token.shape[0], device=token.device)
+    page = bt[b, (kv_len // P).long()].long()
+    row = (kv_len % P).long()
+    positions = kv_len[:, None]
+    n_valid = (kv_len + 1).contiguous()
+
+    for i in range(cfg.num_layers):
+        kp, vp = pool["k"][i], pool["v"][i]
+
+        def attend(q, k, v, kp=kp, vp=vp):
+            kp[page, row] = k[:, 0].to(kp.dtype)
+            vp[page, row] = v[:, 0].to(vp.dtype)
+            o = ops.paged_decode_attention(
+                q[:, 0].contiguous(), kp, vp, bt, n_valid,
+                softcap=cfg.attn.attn_softcap,
+                window=cfg.attn.sliding_window)
+            return o[:, None]
+
+        x, _, _ = _block(layer(params, i), cfg, x, positions, attend)
+    if return_hidden:
+        hidden = L.norm(x[:, 0], params["final_norm"], cfg.norm_type,
+                        cfg.norm_eps)
+        return hidden, pool
+    return lm_logits(params, cfg, x[:, 0]), pool

@@ -1,0 +1,440 @@
+"""Paged slot-based rollout engine (counterpart of
+``repro/rollout/engine.py``, paged layout).
+
+A fixed slot count decodes one token per active slot per ``step()``;
+physical KV storage is a pool of fixed-size pages
+``(L, num_pages, page_size, Kh, D)`` and each sequence owns a refcounted
+page table (:mod:`repro_torch.core.kv_cache`), which buys GRPO prefix
+sharing (a group's shared prompt prefills once) and resume without
+re-prefill (interrupted sequences keep their pages resident).
+
+Where the reference gathers a dense per-slot view, decodes it and
+scatters the written page back, this engine's decode step writes the new
+token's K/V into its page in place and attends over the pool with the
+paged decode kernel (``kernels/paged_decode_attention``).  Prefill runs
+the flash kernel (``kernels/flash_attention``); greedy decode with
+``fused_sampling`` runs the fused head (``kernels/fused_sample``).  On
+CPU tensors the same code runs the kernels' plain versions.  Pool
+updates (prefill scatter, copy-on-write, decode writes, imports) are in
+place.
+
+``step()`` stays loop-free on the host for slot bookkeeping: EOS/budget
+masking, events and retirement are numpy array ops over the SlotTable.
+Prefill widths are bucketed as in the reference (powers of two, clamped
+to ``max_total_len``) so both engines see the same shapes.
+
+Not ported yet, and refused with ``NotImplementedError``: the dense
+``paged=False`` layout, ``kv_quant="int8"``, families other than dense,
+and windowed configs on CUDA (the decode kernel takes no window).
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine_api import SlotTable, StepEvent
+from repro_torch.core.kv_cache import PagedKVCache, PoolExhausted
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as TF
+from repro_torch.models.model import Model
+
+DEFAULT_PAGE_SIZE = 16
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
+
+
+class SlotEngine:
+    def __init__(self, model: Model, params_fn: Callable[[], Dict],
+                 capacity: int, max_total_len: int, max_gen_len: int,
+                 eos_id: int, pad_id: int = 0, temperature: float = 1.0,
+                 seed: int = 0, paged: Optional[bool] = None,
+                 page_size: int = DEFAULT_PAGE_SIZE,
+                 num_pages: Optional[int] = None,
+                 kv_retain_across_sync: bool = True,
+                 packed_prefill: bool = False,
+                 fused_sampling: bool = False,
+                 kv_quant: Optional[str] = None):
+        if paged is False:
+            raise NotImplementedError("the dense paged=False layout is not "
+                                      "ported yet")
+        if kv_quant is not None:
+            raise NotImplementedError(f"kv_quant={kv_quant!r} is not ported "
+                                      "yet")
+        cfg = model.cfg
+        self.device = model.device
+        if self.device.type == "cuda" and cfg.attn.sliding_window:
+            raise NotImplementedError(
+                "windowed configs: the CUDA paged decode kernel takes no "
+                "sliding window yet")
+        self.model = model
+        self.params_fn = params_fn
+        self.capacity = capacity
+        self.max_total_len = max_total_len
+        self.max_gen_len = max_gen_len
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.temperature = temperature
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._t0 = time.monotonic()
+        self.version = 0
+        self.packed_prefill = packed_prefill
+        self.fused_sampling = fused_sampling
+        self.prefill_launches = 0       # one per prefill launch
+        self.slots = SlotTable(capacity)
+        self.page_size = page_size
+        self._pages_per_seq = -(-max_total_len // page_size)
+        # default: dense-equivalent capacity + COW headroom + garbage page
+        self.num_pages = num_pages or (
+            capacity * self._pages_per_seq + capacity + 1)
+        self.cache = model.init_cache(self.num_pages, page_size)
+        self.kv = PagedKVCache(self.num_pages, page_size,
+                               retain_across_sync=kv_retain_across_sync)
+
+    # -- time / slot queries ------------------------------------------------
+
+    @property
+    def clock(self) -> float:
+        return time.monotonic() - self._t0
+
+    def free_slots(self) -> int:
+        return self.slots.free_count()
+
+    def active_uids(self) -> List[int]:
+        return self.slots.active_uids()
+
+    def sync_weights(self, version: int) -> None:
+        self.kv.sync_version(version)
+        self.version = version   # params_fn always reads the latest state
+
+    def cache_stats(self) -> Dict[str, float]:
+        """Page-pool gauges + prefix-sharing counters."""
+        d = self.kv.stats_dict()
+        d["prefill_launches"] = float(self.prefill_launches)
+        return d
+
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(arr), device=self.device)
+
+    # -- submit: prefill of unique prefixes into pages ----------------------
+
+    def submit(self, entries, version: int) -> None:
+        if not entries:
+            return
+        slots = self.slots.allocate(len(entries))
+        seqs = [list(e.prompt) + list(e.generated) for e in entries]
+        # prefill everything but the last token; it is fed on the next step
+        pre = [s[:-1] for s in seqs]
+        self._submit_paged(entries, slots, seqs, pre)
+
+    def _submit_paged(self, entries, slots, seqs, pre) -> None:
+        """Prefill only unique, non-resident prefixes; map everyone else
+        onto existing pages (prefix sharing / resume-without-reprefill)."""
+        kv = self.kv
+        leaders: List[int] = []
+        followers: List[Tuple[int, int]] = []   # (idx, leader idx)
+        key_leader: Dict[Tuple[int, ...], int] = {}
+        for i, e in enumerate(entries):
+            key = tuple(pre[i])
+            if kv.try_resume(e.uid, key):
+                continue                        # pages still resident
+            donor = kv.find_donor(key)
+            if donor is not None:
+                kv.share(e.uid, donor, key)     # cross-batch sharing
+                continue
+            li = key_leader.get(key)
+            if li is None:
+                key_leader[key] = i
+                leaders.append(i)
+            else:
+                followers.append((i, li))       # in-batch sharing
+        if leaders:
+            self._prefill_to_pages([entries[i] for i in leaders],
+                                   [pre[i] for i in leaders])
+        for i, li in followers:
+            kv.share(entries[i].uid, entries[li].uid, tuple(pre[i]))
+
+        t = self.slots
+        t.uid[slots] = [e.uid for e in entries]
+        t.active[slots] = True
+        t.next_token[slots] = [s[-1] for s in seqs]
+        t.kv_len[slots] = [len(p) for p in pre]
+        t.kv_start[slots] = 0
+        t.gen_count[slots] = [len(e.generated) for e in entries]
+        t.gen_budget[slots] = self.max_gen_len
+
+    def _prefill_to_pages(self, entries, pres) -> None:
+        """One bucketed prefill launch over the unique prefixes, scattered
+        into fresh pages (packed into rows with ``packed_prefill``)."""
+        if self.packed_prefill:
+            self._prefill_to_pages_packed(entries, pres)
+            return
+        params = self.params_fn()
+        P = self.page_size
+        width = self._bucket_width(max(1, max(len(p) for p in pres)))
+        kb = self._bucket_batch(len(entries))
+        cache_len = -(-width // P) * P
+        toks = np.full((kb, width), self.pad_id, np.int32)
+        plens = np.zeros(kb, np.int32)
+        for i, p in enumerate(pres):
+            plens[i] = len(p)
+            toks[i, :len(p)] = p                # paged => right padding
+        batch = {"tokens": self._tensor(toks),
+                 "prompt_lens": self._tensor(plens)}
+        sub_cache = self.model.init_cache(kb, cache_len)
+        _, sub_cache = self.model.prefill(params, batch, sub_cache,
+                                          return_logits=False)
+        self.prefill_launches += 1
+
+        rows, blks, phys = [], [], []
+        for i, (e, p) in enumerate(zip(entries, pres)):
+            table = self.kv.register_prefill(e.uid, tuple(p))
+            for j, page in enumerate(table):
+                rows.append(i)
+                blks.append(j)
+                phys.append(page)
+        self._scatter_pages(sub_cache, rows, blks, phys)
+
+    def _prefill_to_pages_packed(self, entries, pres) -> None:
+        """Packed ragged prefill: first-fit-decreasing packing of
+        page-aligned prefix spans into ``max_total_len``-column rows, one
+        segment-masked launch for the whole wave; positions restart per
+        segment, so each prefix's KV equals a solo prefill's."""
+        params = self.params_fn()
+        P = self.page_size
+        span = [-(-max(len(p), 1) // P) * P for p in pres]
+        order = sorted(range(len(pres)), key=lambda i: -span[i])
+        row_of = [0] * len(pres)
+        offset = [0] * len(pres)
+        fill: List[int] = []                    # columns used per row
+        for i in order:
+            for r, used in enumerate(fill):
+                if used + span[i] <= self.max_total_len:
+                    row_of[i], offset[i] = r, used
+                    fill[r] = used + span[i]
+                    break
+            else:
+                row_of[i], offset[i] = len(fill), 0
+                fill.append(span[i])
+        width = self._bucket_width(max(fill))
+        kb = self._bucket_batch(len(fill))
+        cache_len = -(-width // P) * P
+
+        toks = np.full((kb, width), self.pad_id, np.int32)
+        seg = np.full((kb, width), -1, np.int32)
+        pos = np.zeros((kb, width), np.int32)
+        plens = np.zeros(kb, np.int32)
+        for i, p in enumerate(pres):
+            r, o = row_of[i], offset[i]
+            toks[r, o:o + len(p)] = p
+            seg[r, o:o + span[i]] = i           # pad tail shares the segment
+            pos[r, o:o + span[i]] = np.arange(span[i])
+            plens[r] = max(plens[r], o + len(p))
+        batch = {"tokens": self._tensor(toks),
+                 "prompt_lens": self._tensor(plens),
+                 "seg_ids": self._tensor(seg),
+                 "positions": self._tensor(pos)}
+        sub_cache = self.model.init_cache(kb, cache_len)
+        _, sub_cache = self.model.prefill_packed(params, batch, sub_cache,
+                                                 return_logits=False)
+        self.prefill_launches += 1
+
+        rows, blks, phys = [], [], []
+        for i, (e, p) in enumerate(zip(entries, pres)):
+            table = self.kv.register_prefill(e.uid, tuple(p))
+            for j, page in enumerate(table):
+                rows.append(row_of[i])
+                blks.append(offset[i] // P + j)
+                phys.append(page)
+        self._scatter_pages(sub_cache, rows, blks, phys)
+
+    def _scatter_pages(self, sub_cache, rows, blks, phys) -> None:
+        """Copy prefilled KV page blocks into the pool at ``phys``."""
+        P = self.page_size
+        rows, blks, phys = (self._tensor(np.asarray(a, np.int64))
+                            for a in (rows, blks, phys))
+        for name in ("k", "v"):
+            sub = sub_cache[name]               # (L, kb, cache_len, Kh, D)
+            nl, nb_, ns = sub.shape[:3]
+            blocks = sub.reshape(nl, nb_, ns // P, P, *sub.shape[3:])
+            pool = self.cache[name]
+            pool[:, phys] = blocks[:, rows, blks].to(pool.dtype)
+
+    def _bucket_width(self, width: int) -> int:
+        assert width <= self.max_total_len, (width, self.max_total_len)
+        # padded positions beyond prompt_lens are masked via kv_len
+        return min(next_pow2(width), self.max_total_len)
+
+    def _bucket_batch(self, k: int) -> int:
+        return min(next_pow2(k), self.capacity)
+
+    # -- decode ---------------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor):
+        logits = logits.float()
+        if self.temperature > 0:
+            probs = torch.softmax(logits / self.temperature, dim=-1)
+            sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        else:
+            sampled = torch.argmax(logits, dim=-1)   # first index on ties
+        logprobs = torch.log_softmax(logits, dim=-1)
+        lp = torch.gather(logprobs, 1, sampled[:, None])[:, 0]
+        return sampled.to(torch.int32), lp
+
+    def _fused_greedy(self, params, hidden: torch.Tensor):
+        """Greedy token and its logprob from the fused head kernel: top-1
+        (lowest index on ties, as argmax) and the logsumexp, with no (B, V)
+        logits.  A tied head passes ``embed.T`` as a strided view."""
+        cfg = self.model.cfg
+        vals, idx, lse = ops.fused_sample(
+            hidden.contiguous(), TF.head_weight(params, cfg), top_k=1,
+            softcap=cfg.logit_softcap)
+        return idx[:, 0], vals[:, 0] - lse[:, 0]
+
+    def _copy_pages(self, copies: List[Tuple[int, int]]) -> None:
+        """Host-planned copy-on-write page copies, on the device."""
+        src = self._tensor(np.asarray([s for s, _ in copies], np.int64))
+        dst = self._tensor(np.asarray([d for _, d in copies], np.int64))
+        for arr in self.cache.values():
+            arr[:, dst] = arr[:, src]
+
+    def step(self) -> List[StepEvent]:
+        t = self.slots
+        act = t.active_indices()
+        if act.size == 0:
+            return []
+        params = self.params_fn()
+        kv_len = np.where(t.active, t.kv_len, 0).astype(np.int32)
+        uids_act = t.uid[act].tolist()
+        copies = self.kv.prepare_step(uids_act, t.kv_len[act].tolist())
+        if copies:
+            self._copy_pages(copies)
+        nb = min(next_pow2(max(1, self.kv.max_blocks(uids_act))),
+                 self._pages_per_seq)
+        bt = self._tensor(self.kv.block_table(t.uid.tolist(), nb))
+        token = self._tensor(t.next_token)
+        kv_len_d = self._tensor(kv_len)
+        if self.fused_sampling and self.temperature == 0:
+            hidden, _ = self.model.decode_step_paged(
+                params, token, self.cache, bt, kv_len_d, return_hidden=True)
+            sampled, lp = self._fused_greedy(params, hidden)
+        else:
+            logits, _ = self.model.decode_step_paged(
+                params, token, self.cache, bt, kv_len_d)
+            sampled, lp = self._sample(logits)
+        self.kv.append_tokens(uids_act, t.next_token[act].tolist())
+        sampled = sampled.cpu().numpy()
+        lp = lp.float().cpu().numpy()
+
+        # vectorized bookkeeping over the active slots (ascending order)
+        t.kv_len[act] += 1
+        t.gen_count[act] += 1
+        toks = sampled[act]
+        eos = toks == self.eos_id
+        over = ((t.gen_count[act] >= t.gen_budget[act])
+                | (t.kv_len[act] >= self.max_total_len - 1))
+        done = eos | over
+        reasons = np.where(eos, "eos", np.where(over, "length", None))
+
+        uids = t.uid[act].tolist()          # read before batched release
+        self.kv.release_many(t.uid[act[done]].tolist())
+        t.release(act[done])
+        cont = act[~done]
+        t.next_token[cont] = toks[~done]
+
+        return [StepEvent(uid=u, token=tk, logprob=l, done=d, finish_reason=r)
+                for u, tk, l, d, r in zip(uids, toks.tolist(), lp[act].tolist(),
+                                          done.tolist(), reasons.tolist())]
+
+    def interrupt(self, uids: Optional[Sequence[int]] = None) -> List[int]:
+        sel = self.slots.select(uids)
+        out = [int(u) for u in self.slots.uid[sel]]
+        self.slots.release(sel)
+        self.kv.deactivate_many(out)   # keep pages resident for resume
+        return out
+
+    def shutdown(self) -> None:
+        """Fence the engine: release every slot and purge the page pool.
+        Counters survive."""
+        self.slots.release(self.slots.active_indices())
+        self.kv.purge()
+
+    # -- migration capability (export -> import -> discard) ----------------
+    #
+    # The handle layout is the reference's (``engine.py`` export_entry):
+    # page-table bookkeeping plus the physical KV rows as numpy arrays
+    # (L, n_pages, P, Kh, D), so a handle exported by the reference engine
+    # imports here and continues token-identically.  bf16 rows travel as
+    # f32 arrays (exact).
+
+    def export_entry(self, uid: int) -> Optional[Dict]:
+        if uid not in self.kv.tables:
+            return None
+        ex = self.kv.export_pages(uid)
+        pages = self._tensor(np.asarray(ex.pages, np.int64))
+
+        def rows(name):
+            r = self.cache[name][:, pages].cpu()
+            return (r.float() if r.dtype == torch.bfloat16 else r).numpy()
+
+        handle = {"engine": "slot", "uid": uid, "active": ex.active,
+                  "kv": ex, "kv_quant": None,
+                  "pages_k": rows("k"), "pages_v": rows("v")}
+        if ex.active:
+            sel = np.flatnonzero((self.slots.uid == uid) & self.slots.active)
+            assert sel.size == 1, (uid, sel)
+            i = int(sel[0])
+            t = self.slots
+            handle["slot"] = {"next_token": int(t.next_token[i]),
+                              "kv_len": int(t.kv_len[i]),
+                              "kv_start": int(t.kv_start[i]),
+                              "gen_count": int(t.gen_count[i]),
+                              "gen_budget": int(t.gen_budget[i])}
+        return handle
+
+    def import_entry(self, handle: Dict) -> bool:
+        """Land a migrated entry with its KV; False (engine unchanged) when
+        it cannot accept: int8 pages, stale KV under strict sync, no free
+        slot, or an exhausted pool."""
+        if handle.get("engine") != "slot":
+            return False
+        if handle.get("kv_quant") is not None:
+            return False    # int8 and fp pools do not mix page bytes
+        ex = handle["kv"]
+        if not self.kv.retain_across_sync and ex.version != self.kv.version:
+            return False
+        if ex.active and self.free_slots() <= 0:
+            return False
+        try:
+            pages = self.kv.import_pages(ex)
+        except PoolExhausted:
+            return False
+        idx = self._tensor(np.asarray(pages, np.int64))
+        for name in ("k", "v"):
+            rows = np.asarray(handle[f"pages_{name}"], np.float32)
+            pool = self.cache[name]
+            pool[:, idx] = self._tensor(rows).to(pool.dtype)
+        if ex.active:
+            s = handle["slot"]
+            slot = self.slots.allocate(1)
+            t = self.slots
+            t.uid[slot] = ex.uid
+            t.active[slot] = True
+            t.next_token[slot] = s["next_token"]
+            t.kv_len[slot] = s["kv_len"]
+            t.kv_start[slot] = s["kv_start"]
+            t.gen_count[slot] = s["gen_count"]
+            t.gen_budget[slot] = s["gen_budget"]
+        return True
+
+    def discard_entry(self, uid: int) -> None:
+        """Drop every local trace of a migrated-away uid (slot + pages)."""
+        sel = self.slots.select([uid])
+        if sel.size:
+            self.slots.release(sel)
+        self.kv.release_seq(uid)

@@ -1,0 +1,214 @@
+"""Kernels of the PyTorch port (``repro_torch.kernels``) on the CPU.
+
+* Each plain version against the reference package's ``kernels/ref.py``
+  on the same numpy inputs, f32, atol = rtol = 1e-5.
+* One small case of each against the Pallas kernel in interpret mode,
+  through ``repro.kernels.ops`` as ``tests/test_kernels.py`` runs them.
+* The CUDA wrappers' guards: a CUDA-only argument and a non-CPU tensor
+  raise instead of falling back (checked on meta tensors).
+* The CUDA kernels against their plain versions run on the card in
+  ``chip_smoke.py``; the CUDA wrappers' guards on a real card are in
+  ``test_torch_kernels_gpu.py`` (no JAX there, so it runs on the card's
+  host).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, ops, ref
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+def _paged(rng, B, H, Kh, D, P, N, nb, lens=None):
+    q = rng.randn(B, H, D).astype(np.float32)
+    kp = rng.randn(N, P, Kh, D).astype(np.float32)
+    vp = rng.randn(N, P, Kh, D).astype(np.float32)
+    bt = rng.randint(0, N, size=(B, nb)).astype(np.int32)
+    kv = (np.asarray(lens, np.int32) if lens is not None
+          else rng.randint(0, nb * P + 1, size=B).astype(np.int32))
+    return q, kp, vp, bt, kv
+
+
+def _packed_seg(rng, B, S, P):
+    seg = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        off, i = 0, 0
+        while True:
+            span = int(rng.randint(1, 4)) * P
+            if off + span > S - P // 2:
+                break
+            seg[b, off:off + span] = i
+            off, i = off + span, i + 1
+    return seg
+
+
+# -- plain versions against the reference's refs -----------------------------
+
+def test_gather_pages_matches_reference():
+    rng = np.random.RandomState(0)
+    _, kp, _, bt, _ = _paged(rng, 3, 4, 2, 8, 16, 7, 3)
+    np.testing.assert_array_equal(
+        ref.gather_pages(_t(kp), _t(bt)).numpy(),
+        np.asarray(jref.gather_pages(jnp.asarray(kp), jnp.asarray(bt))))
+
+
+@pytest.mark.parametrize("B,H,Kh,D,P,N,nb,softcap", [
+    (4, 8, 2, 64, 16, 9, 4, 0.0),
+    (2, 16, 8, 128, 16, 11, 5, 0.0),
+    (3, 4, 4, 32, 16, 6, 2, 30.0),
+    (2, 4, 1, 16, 8, 5, 3, 0.0),
+])
+def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
+    rng = np.random.RandomState(B * 100 + D)
+    q, kp, vp, bt, kv = _paged(rng, B, H, Kh, D, P, N, nb)
+    kv[0] = 0                                   # empty slot -> zeros
+    out = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(kv),
+                                     softcap=softcap)
+    want = jref.paged_decode_attention_ref(*map(jnp.asarray, (q, kp, vp, bt,
+                                                              kv)),
+                                           softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("B,S,H,Kh,D,window,softcap,packed", [
+    (2, 32, 4, 2, 16, 0, 0.0, False),
+    (1, 37, 4, 1, 32, 0, 0.0, True),            # ragged S, packed with pad
+    (2, 64, 8, 2, 16, 16, 0.0, False),          # sliding window
+    (1, 48, 4, 4, 16, 0, 30.0, True),           # softcap + segments
+    (3, 1, 2, 2, 8, 0, 0.0, False),             # S = 1
+])
+def test_flash_plain_matches_reference(B, S, H, Kh, D, window, softcap,
+                                       packed):
+    rng = np.random.RandomState(S * 10 + H)
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k = rng.randn(B, S, Kh, D).astype(np.float32)
+    v = rng.randn(B, S, Kh, D).astype(np.float32)
+    seg = _packed_seg(rng, B, S, 8) if packed else None
+    out = ops.flash_attention(_t(q), _t(k), _t(v),
+                              seg_ids=None if seg is None else _t(seg),
+                              window=window, softcap=softcap)
+    want = jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, softcap=softcap,
+        seg_ids=None if seg is None else jnp.asarray(seg))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,Dm,V,top_k,softcap,tied", [
+    (4, 32, 1000, 1, 0.0, False),
+    (2, 64, 515, 4, 0.0, True),
+    (3, 16, 300, 8, 30.0, False),
+])
+def test_fused_sample_plain_matches_reference(B, Dm, V, top_k, softcap,
+                                              tied):
+    rng = np.random.RandomState(V)
+    x = rng.randn(B, Dm).astype(np.float32)
+    w = (rng.randn(Dm, V) / np.sqrt(Dm)).astype(np.float32)
+    w[:, 7] = w[:, 400 % V] = w[:, 5]          # exact ties across blocks
+    tw = _t(w.T.copy()).T if tied else _t(w)   # tied: a strided (Dm, V) view
+    vals, idx, lse = ops.fused_sample(_t(x), tw, top_k=top_k,
+                                      softcap=softcap)
+    rv, ri, rl = jref.fused_sample_ref(jnp.asarray(x), jnp.asarray(w),
+                                       top_k=top_k, softcap=softcap)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(rv), **TOL)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(rl), **TOL)
+    assert idx.dtype == torch.int32 and lse.shape == (B, 1)
+
+
+# -- against the Pallas kernels in interpret mode -----------------------------
+
+def test_flash_plain_matches_pallas_interpret():
+    rng = np.random.RandomState(3)
+    B, S, H, Kh, D = 2, 32, 4, 2, 16
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k = rng.randn(B, S, Kh, D).astype(np.float32)
+    v = rng.randn(B, S, Kh, D).astype(np.float32)
+    seg = _packed_seg(rng, B, S, 8)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), seg_ids=jnp.asarray(seg),
+                                block_q=16, block_k=16)
+    out = ops.flash_attention(_t(q), _t(k), _t(v), seg_ids=_t(seg))
+    real = seg >= 0                             # pad rows are garbage
+    np.testing.assert_allclose(out.numpy()[real], np.asarray(want)[real],
+                               **TOL)
+
+
+def test_paged_decode_plain_matches_pallas_interpret():
+    rng = np.random.RandomState(4)
+    q, kp, vp, bt, kv = _paged(rng, 3, 4, 2, 32, 16, 6, 3, lens=[1, 20, 48])
+    want = jops.paged_decode_attention(*map(jnp.asarray, (q, kp, vp, bt, kv)))
+    out = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(kv))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
+def test_fused_sample_plain_matches_pallas_interpret():
+    rng = np.random.RandomState(5)
+    B, Dm, V = 2, 16, 300
+    x = rng.randn(B, Dm).astype(np.float32)
+    w = (rng.randn(Dm, V) / 4).astype(np.float32)
+    w[:, 290] = w[:, 3] = w[:, 140] = 1.0       # a tie across vocab blocks
+    x[:, :] = np.abs(x)
+    vals, idx, lse = jops.fused_sample(jnp.asarray(x), jnp.asarray(w),
+                                       top_k=4, block_v=128)
+    tv, ti, tl = ops.fused_sample(_t(x), _t(w), top_k=4)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(idx))
+    assert ti[0, :3].tolist() == [3, 140, 290]
+    np.testing.assert_allclose(tv.numpy(), np.asarray(vals), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(lse), **TOL)
+
+
+# -- the CUDA wrappers never fall back ----------------------------------------
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_paged_decode_window_on_device_raises():
+    """The decode kernel has no window: on a non-CPU tensor the wrapper
+    raises instead of ignoring it (the CPU plain version applies it)."""
+    args = (_meta(2, 4, 64), _meta(5, 16, 2, 64), _meta(5, 16, 2, 64),
+            _meta(2, 3, dtype=torch.int32), _meta(2, dtype=torch.int32))
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.paged_decode_attention(*args, window=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(*args)
+    assert ops.launch_counts() == before
+
+
+def test_wrappers_refuse_non_cuda_devices():
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(_meta(1, 8, 4, 64), _meta(1, 8, 2, 64),
+                            _meta(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_sample(_meta(2, 16), _meta(16, 40))
+    # mixed CPU and non-CPU inputs are not "CPU tensors" either
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_sample(torch.zeros(2, 16), _meta(16, 40))
+
+
+def test_plain_path_counts_no_launch():
+    rng = np.random.RandomState(6)
+    ops.reset_launch_counts()
+    ops.fused_sample(_t(rng.randn(2, 8).astype(np.float32)),
+                     _t(rng.randn(8, 20).astype(np.float32)))
+    assert ops.launch_counts() == {"paged_decode_attention": 0,
+                                   "flash_attention": 0, "fused_sample": 0}
+
+
+def test_build_names_libraries_by_source_hash():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
+        path = build.lib_path(name)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
