@@ -6,20 +6,27 @@
 
 Phases, each printing one JSON line:
 
-1. ``kernels``: build the CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` and hold each against its plain PyTorch version on the card, at
-   the serve phase's shapes and at edge shapes, with the tolerance stated
-   beside each case; time kernel, plain version and a PyTorch yardstick
-   (``library_ms``, never called by the port) with CUDA events.
+1. ``kernels``: build the five CUDA kernels from ``src/repro_torch/
+   kernels/csrc`` and hold each against its plain PyTorch version on the
+   card, at the serve phase's shapes and at edge shapes, with the
+   tolerance stated beside each case; time kernel, plain version and a
+   PyTorch yardstick (``library_ms``, never called by the port) with
+   CUDA events.
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
-   weights from a seed) behind the paged ``SlotEngine``: 96 requests (24
-   GRPO groups of 4 sharing a prompt of 64-1024 tokens), continuous
-   batching as in ``examples/serve_batch.py``; then one packed-prefill
-   wave and a few sampled steps.  Kernel launch counts are read around
-   each path.
+   weights from a seed) behind the ``SlotEngine``, continuous batching as
+   in ``examples/serve_batch.py``, one path after another, each with the
+   launch counts zeroed just before it and checked just after against
+   the kernels that path must launch (and no other):
+   ``main`` (paged fp pool, fused greedy head; 96 requests as 24 GRPO
+   groups of 4 sharing a prompt of 64-1024 tokens), ``dense``
+   (``paged=False``; 32 requests, 8 groups), ``int8`` (``kv_quant=
+   "int8"``, fused head; 48 requests, 12 groups, through 32 slots),
+   ``packed`` (one packed-prefill wave) and ``sampled`` (8 steps at
+   temperature 1).
 3. ``e2e``: greedy engine tokens and logprobs against the port's plain
    full-sequence ``forward`` (plain attention, no kernels): 4 layers in
-   f32, and 4 requests of phase 2 in bf16.
+   f32 on the paged, dense and int8 engines, and 4 requests each of the
+   main and dense paths in bf16.
 
 Then the ``kernels`` summary line, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any failed
@@ -95,6 +102,29 @@ def paged_inputs(torch, dev, dtype, kv_lens, H, Kh, D, P=16, seed=0):
     vp = torch.randn((N, P, Kh, D), generator=g, device=dev).to(dtype)
     return (q, kp, vp, torch.from_numpy(bt).to(dev),
             torch.tensor(list(kv_lens), dtype=torch.int32, device=dev))
+
+
+def dense_inputs(torch, dev, dtype, kv_lens, S, H, Kh, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(kv_lens)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
+    return q, k, v, torch.tensor(list(kv_lens), dtype=torch.int32,
+                                 device=dev)
+
+
+def int8_inputs(ref, args):
+    """int8 pages (``quantize_pages_ref``) of fp ``paged_inputs``."""
+    q, kp, vp, bt, kvl = args
+    (k8, ks), (v8, vs) = ref.quantize_pages_ref(kp), ref.quantize_pages_ref(vp)
+    return q, k8, v8, ks, vs, bt, kvl
+
+
+def bound(nbytes, flops, kind="bfloat16"):
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[kind]
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def flash_inputs(torch, dev, dtype, B, S, H, Kh, D, seg=False, seed=0):
@@ -228,11 +258,155 @@ def phase_kernels(torch, dev, report):
         plain_ms=cuda_ms(torch, lambda: ref.paged_decode_attention_ref(*args),
                          reps=5, inner=3),
         library_ms=cuda_ms(torch, library, reps=5, inner=3),
-        bound_ms=1e3 * max(nbytes / PEAK_BYTES_S,
-                           flops / PEAK_FLOPS["bfloat16"]),
-        bound_by="bytes" if nbytes / PEAK_BYTES_S
-        >= flops / PEAK_FLOPS["bfloat16"] else "operations",
+        **bound(nbytes, flops),
         shape=dict(B=B, H=H, Kh=Kh, D=D, P=16, live_rows=live))
+
+    # -- ragged_decode_attention (dense cache) -------------------------------
+    # tolerance: as for the paged kernel, whose body it shares: f32 1e-4,
+    # bf16 2e-2 (the plain version rounds q/sqrt(D) and the weights to
+    # bf16 as the reference's jnp decode does, the kernel keeps f32).
+    # The serve shape is the dense engine's cache (S = max_total_len
+    # 2048) at the paged serve lengths; S = 64 and 300 are not multiples
+    # of 128, kv_len > S reads all S rows.
+    rd_cases = [
+        ("serve_b32_s2048_bf16", bf16, serve_lens.tolist(), 2048, 16, 8, 128,
+         0.0),
+        ("serve_b32_s2048_f32", f32, serve_lens.tolist(), 2048, 16, 8, 128,
+         0.0),
+        ("kvlen_0_1_37_s64_bf16", bf16, [0, 1, 37], 64, 16, 8, 128, 0.0),
+        ("kvlen_0_1_37_s64_f32", f32, [0, 1, 37], 64, 16, 8, 128, 0.0),
+        ("s300_kvlen_over_s_f32", f32, [400, 299, 5, 300], 300, 16, 8, 128,
+         0.0),
+        ("d64_g4_softcap_s64_f32", f32, [5, 16, 33, 64], 64, 8, 2, 64, 30.0),
+        ("d64_g1_s300_bf16", bf16, [17, 129, 1], 300, 4, 4, 64, 0.0),
+        ("d128_g8_softcap_bf16", bf16, [100, 256, 31], 300, 8, 1, 128, 30.0),
+    ]
+    serve_rd = None
+    for name, dt, lens, S, H, Kh, D, cap in rd_cases:
+        args = dense_inputs(torch, dev, dt, lens, S, H, Kh, D)
+        out = ops.ragged_decode_attention(*args, softcap=cap)
+        want = ref.ragged_decode_attention_ref(*args, softcap=cap)
+        torch.cuda.synchronize()
+        row = record("ragged_decode_attention", name, maxerr(out, want),
+                     1e-4 if dt == f32 else 2e-2)
+        if 0 in lens:
+            zero = out[[i for i, n in enumerate(lens) if n == 0]]
+            check(bool((zero == 0).all()), f"ragged/{name}: kv_len 0 not zero")
+        if name == "serve_b32_s2048_bf16":
+            serve_rd = (args, row)
+        del args, out, want
+    args, row = serve_rd
+    q, kc, vc, kvl = args
+    B, H, D = q.shape
+    S, Kh = kc.shape[1], kc.shape[2]
+    G = H // Kh
+    es = q.element_size()
+    live = int(kvl.clamp(max=S).sum())
+    nbytes = 2 * q.numel() * es + 2 * live * Kh * D * es + kvl.numel() * 4
+    # yardstick: SDPA with a key mask over the dense cache, in the
+    # head-major GQA-expanded layout it needs, prepared outside the timer
+    kt = kc.transpose(1, 2).repeat_interleave(G, 1)
+    vt = vc.transpose(1, 2).repeat_interleave(G, 1)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < kvl[:, None])[:, None, None, :]
+    report["ragged_decode_attention"] = dict(
+        max_abs_err=row["max_abs_err"], tol=row["tol"],
+        ms=cuda_ms(torch, lambda: ops.ragged_decode_attention(*args)),
+        plain_ms=cuda_ms(torch,
+                         lambda: ref.ragged_decode_attention_ref(*args),
+                         reps=5, inner=3),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask), reps=5, inner=3),
+        **bound(nbytes, 4 * live * H * D),
+        shape=dict(B=B, H=H, Kh=Kh, D=D, S=S, live_rows=live,
+                   library="SDPA, key mask, cache pre-transposed"))
+    del args, q, kc, vc, kt, vt, mask
+
+    # -- paged_decode_attention over int8 pages -------------------------------
+    # Inputs: int8 pages and per-page f32 scales from quantize_pages_ref of
+    # random fp pages.  The plain version dequantises the pool to f32 and
+    # runs the plain decode in f32; the kernel dequantises the same values
+    # (float(q) * scale) in registers and computes in f32.  f32 q: only
+    # the order of the f32 sums differs, 1e-4.  bf16 q: 2e-2, the paged
+    # kernel's bf16 bound, for the same reason: the plain decode, as the
+    # reference's oracle, rounds q/sqrt(D) to q's dtype before its f32
+    # products, the kernel keeps it in f32 as the Pallas body does; a
+    # relative 2^-9 on every score moves O(1) outputs by a few bf16 steps
+    # (0.0039 and 0.0078 seen on the card against a 1e-3 + 2^-7*|want|
+    # bound that allowed one step).
+    i8_cases = [
+        ("serve_b32_bf16", bf16, serve_lens.tolist(), 16, 8, 128, 0.0, None),
+        ("serve_b32_f32", f32, serve_lens.tolist(), 16, 8, 128, 0.0, None),
+        ("kvlen_0_1_37_bf16", bf16, [0, 1, 37], 16, 8, 128, 0.0, None),
+        ("d64_g4_softcap_f32", f32, [5, 16, 33, 300], 8, 2, 64, 30.0, None),
+        ("d64_g1_bf16", bf16, [17, 129, 1], 4, 4, 64, 0.0, None),
+        ("zero_page_f32", f32, [40, 20, 33], 16, 8, 128, 0.0, "zero"),
+        ("cow_shared_scale_bf16", bf16, [40, 37, 20], 16, 8, 128, 0.0, "cow"),
+    ]
+    serve_i8 = None
+    for name, dt, lens, H, Kh, D, cap, special in i8_cases:
+        q, kp, vp, bt, kvl = paged_inputs(torch, dev, dt, lens, H, Kh, D)
+        if special == "zero":
+            # slot 0's second page all zero: scale 1e-8/127, cells 0
+            kp[bt[0, 1]] = 0
+            vp[bt[0, 1]] = 0
+        args = int8_inputs(ref, (q, kp, vp, bt, kvl))
+        if special == "cow":
+            # slots 0 and 1 share slot 0's first page, as a GRPO prefix
+            # does, and slot 2's first page is a copy-on-write copy of it:
+            # one scale read by rows of three slots, and copied with its
+            # page
+            _, k8, v8, ks, vs, bt, _ = args
+            src, dst = int(bt[0, 0]), int(bt[2, 0])
+            bt[1, 0] = src
+            for pages, scales in ((k8, ks), (v8, vs)):
+                pages[dst] = pages[src]
+                scales[dst] = scales[src]
+        out = ops.paged_decode_attention_int8(*args, softcap=cap)
+        want = ref.paged_decode_attention_int8_ref(*args, softcap=cap)
+        torch.cuda.synchronize()
+        row = record("paged_decode_attention_int8", name, maxerr(out, want),
+                     1e-4 if dt == f32 else 2e-2)
+        if special == "zero":
+            check(abs(float(args[3][bt[0, 1]]) * 127 - 1e-8) < 1e-12,
+                  "int8 zero page: scale not at its 1e-8 floor")
+        if 0 in lens:
+            zero = out[[i for i, n in enumerate(lens) if n == 0]]
+            check(bool((zero == 0).all()), f"int8/{name}: kv_len 0 not zero")
+        if name == "serve_b32_bf16":
+            serve_i8 = (args, row)
+        del q, kp, vp, args, out, want
+    args, row = serve_i8
+    q, k8, v8, ks, vs, bt, kvl = args
+    B, H, D = q.shape
+    P, Kh = k8.shape[1], k8.shape[2]
+    G = H // Kh
+    live = int(kvl.sum())
+    live_pages = sum(-(-int(n) // P) for n in kvl.tolist())
+    nbytes = 2 * q.numel() * q.element_size() + 2 * live * Kh * D \
+        + 2 * live_pages * 4 + bt.numel() * 4 + kvl.numel() * 4
+    mask = (torch.arange(bt.shape[1] * P, device=dev)[None, :]
+            < kvl[:, None])[:, None, None, :]
+
+    def library():
+        # gather + dequantise + SDPA
+        def deq(pages, scales):
+            g = ref.gather_pages(pages, bt).float() * scales[bt.long()] \
+                .repeat_interleave(P, 1)[:, :, None, None]
+            return g.to(q.dtype).transpose(1, 2).repeat_interleave(G, 1)
+        return F.scaled_dot_product_attention(q[:, :, None], deq(k8, ks),
+                                              deq(v8, vs), attn_mask=mask)
+    report["paged_decode_attention_int8"] = dict(
+        max_abs_err=row["max_abs_err"], tol=row["tol"],
+        ms=cuda_ms(torch, lambda: ops.paged_decode_attention_int8(*args)),
+        plain_ms=cuda_ms(
+            torch, lambda: ref.paged_decode_attention_int8_ref(*args),
+            reps=5, inner=3),
+        library_ms=cuda_ms(torch, library, reps=5, inner=3),
+        **bound(nbytes, 4 * live * H * D),
+        shape=dict(B=B, H=H, Kh=Kh, D=D, P=P, live_rows=live,
+                   live_pages=live_pages, q="bfloat16"))
+    del args, q, k8, v8, mask
 
     # -- flash_attention ------------------------------------------------------
     # tolerance: f32 1e-4 (only the order of f32 sums differs).  bf16:
@@ -285,10 +459,7 @@ def phase_kernels(torch, dev, report):
                          reps=3, inner=2),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), reps=5, inner=3),
-        bound_ms=1e3 * max(nbytes / PEAK_BYTES_S,
-                           flops / PEAK_FLOPS["bfloat16"]),
-        bound_by="bytes" if nbytes / PEAK_BYTES_S
-        >= flops / PEAK_FLOPS["bfloat16"] else "operations",
+        **bound(nbytes, flops),
         shape=dict(B=B, S=S, H=H, Kh=Kh, D=D, causal_flops=flops))
     del qt, kt, vt
 
@@ -352,10 +523,7 @@ def phase_kernels(torch, dev, report):
         plain_ms=cuda_ms(torch, lambda: ref.fused_sample_ref(x, w),
                          reps=5, inner=3),
         library_ms=cuda_ms(torch, library, reps=5, inner=3),
-        bound_ms=1e3 * max(nbytes / PEAK_BYTES_S,
-                           flops / PEAK_FLOPS["bfloat16"]),
-        bound_by="bytes" if nbytes / PEAK_BYTES_S
-        >= flops / PEAK_FLOPS["bfloat16"] else "operations",
+        **bound(nbytes, flops),
         shape=dict(B=B, Dm=Dm, V=V, w="embed.T (strided)"))
     del embed, x, w
     torch.cuda.empty_cache()
@@ -435,6 +603,45 @@ def profile_steps(engine, n, outputs):
                 r.key[:60]: r.self_device_time_total / 1e3 / n for r in top}}
 
 
+def check_launches(path, counts, expected):
+    """Every kernel in ``expected`` launched exactly that many times on
+    the path, and no other kernel launched at all."""
+    want = {name: expected.get(name, 0) for name in counts}
+    check(counts == want, f"{path}: launches {counts} != expected {want}")
+
+
+def run_path(torch, ops, engine, reqs, profile=None):
+    """Serve ``reqs`` with launch counts zeroed just before and read just
+    after; returns (outputs, summary)."""
+    outputs, step_ms = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = serve_loop(engine, list(reqs), outputs, step_ms, profile)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tokens = sum(len(v) for v in outputs.values())
+    ms = sorted(step_ms)
+    return outputs, {
+        "requests": len(outputs), "tokens": tokens, "steps": steps,
+        "prefill_launches": engine.prefill_launches, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "decode_step_ms_median": statistics.median(ms),
+        "decode_step_ms_p90": ms[int(0.9 * (len(ms) - 1))],
+        "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_answers(path, outputs, n, vocab):
+    check(len(outputs) == n and all(len(v) >= 1 for v in outputs.values()),
+          f"{path}: not every request answered")
+    check(all(math.isfinite(lp) and 0 <= t < vocab
+              for v in outputs.values() for t, lp in v),
+          f"{path}: token out of range or non-finite logprob")
+
+
 def phase_serve(torch, dev, launches, keep):
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
@@ -445,81 +652,117 @@ def phase_serve(torch, dev, launches, keep):
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     eos = 151645
+    nl = cfg.num_layers
     kw = dict(capacity=32, max_total_len=2048, max_gen_len=128, eos_id=eos,
               pad_id=0)
+    paths = {}
 
+    # main path: paged fp pool, fused greedy head
     engine = SlotEngine(model, lambda: params, fused_sampling=True,
                         temperature=0.0, **kw)
     reqs = make_requests(24, 4, 64, 1024, cfg.vocab_size, seed=1)
     prompts = {e.uid: list(e.prompt) for e in reqs}
-    outputs, step_ms = {}, []
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    steps = serve_loop(engine, list(reqs), outputs, step_ms)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches["main"] = ops.launch_counts()
+    outputs, main = run_path(torch, ops, engine, reqs)
+    launches["main"] = main["launches"]
     stats = engine.cache_stats()
-    tokens = sum(len(v) for v in outputs.values())
-    check(len(outputs) == 96 and all(len(v) >= 1 for v in outputs.values()),
-          "serve: not every request answered")
-    check(all(math.isfinite(lp) and 0 <= t < cfg.vocab_size
-              for v in outputs.values() for t, lp in v),
-          "serve: token out of range or non-finite logprob")
-    check(all(n > 0 for n in launches["main"].values()),
-          f"serve: a kernel was never launched: {launches['main']}")
+    check_answers("serve", outputs, 96, cfg.vocab_size)
+    check_launches("serve", main["launches"], {
+        "paged_decode_attention": nl * main["steps"],
+        "flash_attention": nl * engine.prefill_launches,
+        "fused_sample": main["steps"]})
     check(stats["prefill_tokens_saved"] > 0, "serve: no prefix sharing")
     keep["serve"] = {u: (prompts[u], outputs[u]) for u in range(4)}
+    main["cache_stats"] = stats
+    paths["main"] = main
     del engine
     torch.cuda.empty_cache()
 
-    # one packed-prefill wave (segment-masked flash prefill); after the
-    # main path's timing, 4 of its decode steps are traced
+    # the dense layout: one (L, 32, 2048, Kh, D) cache, no sharing
+    dense = SlotEngine(model, lambda: params, paged=False, temperature=0.0,
+                       **kw)
+    reqs = make_requests(8, 4, 64, 1024, cfg.vocab_size, seed=4,
+                         start_uid=3000)
+    prompts = {e.uid: list(e.prompt) for e in reqs}
+    out_d, summ = run_path(torch, ops, dense, reqs)
+    launches["dense"] = summ["launches"]
+    check_answers("serve_dense", out_d, 32, cfg.vocab_size)
+    check_launches("serve_dense", summ["launches"], {
+        "ragged_decode_attention": nl * summ["steps"],
+        "flash_attention": nl * dense.prefill_launches})
+    check(dense.cache_stats() is None, "serve_dense: cache_stats not None")
+    summ["cache_gb"] = sum(a.numel() * a.element_size()
+                           for a in dense.cache.values()) / 1e9
+    keep["serve_dense"] = {u: (prompts[u], out_d[u])
+                           for u in sorted(out_d)[:4]}
+    paths["dense"] = summ
+    del dense
+    torch.cuda.empty_cache()
+
+    # int8 KV pages, oversubscribed: 48 requests through 32 slots
+    q8 = SlotEngine(model, lambda: params, kv_quant="int8",
+                    fused_sampling=True, temperature=0.0, **kw)
+    reqs = make_requests(12, 4, 64, 1024, cfg.vocab_size, seed=5,
+                         start_uid=4000)
+    out_8, summ = run_path(torch, ops, q8, reqs)
+    launches["int8"] = summ["launches"]
+    st8 = q8.cache_stats()
+    check_answers("serve_int8", out_8, 48, cfg.vocab_size)
+    check_launches("serve_int8", summ["launches"], {
+        "paged_decode_attention_int8": nl * summ["steps"],
+        "flash_attention": nl * q8.prefill_launches,
+        "fused_sample": summ["steps"]})
+    check(st8["cow_copies"] > 0, "serve_int8: no copy-on-write")
+    check(st8["prefill_tokens_saved"] > 0, "serve_int8: no prefix sharing")
+    pool = sum(a.numel() * a.element_size() for a in q8.cache.values())
+    scales = sum(a.numel() * a.element_size() for a in q8.kv_scales.values())
+    bf16_pool = sum(a.numel() for a in q8.cache.values()) * 2
+    summ.update(cache_stats=st8, num_pages=q8.num_pages,
+                pool_gb={"int8": pool / 1e9, "scales": scales / 1e9,
+                         "bf16_same_pages": bf16_pool / 1e9})
+    paths["int8"] = summ
+    del q8
+    torch.cuda.empty_cache()
+
+    # one packed-prefill wave (segment-masked flash prefill); 4 of its
+    # decode steps are traced
     packed = SlotEngine(model, lambda: params, fused_sampling=True,
                         temperature=0.0, packed_prefill=True, **kw)
     wave = make_requests(8, 4, 64, 1024, cfg.vocab_size, seed=2,
                          start_uid=1000)
-    out_p, ms_p = {}, []
     prof = {"at": 64, "steps": 4}
-    ops.reset_launch_counts()
-    serve_loop(packed, wave, out_p, ms_p, prof)
-    torch.cuda.synchronize()
-    launches["packed"] = ops.launch_counts()
+    out_p, summ = run_path(torch, ops, packed, wave, prof)
+    launches["packed"] = summ["launches"]
     check(packed.prefill_launches == 1 and len(out_p) == 32,
           f"packed wave: {packed.prefill_launches} prefill launches")
+    check_launches("packed", summ["launches"], {
+        "paged_decode_attention": nl * summ["steps"],
+        "flash_attention": nl, "fused_sample": summ["steps"]})
+    summ["decode_profile"] = prof
+    paths["packed"] = summ
     del packed
     torch.cuda.empty_cache()
 
     # a few sampled steps (temperature 1.0: the plain head + multinomial)
     sampled = SlotEngine(model, lambda: params, fused_sampling=True,
                          temperature=1.0, seed=5, **kw)
+    ops.reset_launch_counts()
     sampled.submit(make_requests(2, 4, 64, 512, cfg.vocab_size, seed=3,
                                  start_uid=2000), 0)
-    ops.reset_launch_counts()
     evs = [ev for _ in range(8) for ev in sampled.step()]
     torch.cuda.synchronize()
     launches["sampled"] = ops.launch_counts()
     check(len(evs) == 64 and all(math.isfinite(ev.logprob)
                                  and 0 <= ev.token < cfg.vocab_size
                                  for ev in evs), "sampled steps")
+    check_launches("sampled", launches["sampled"], {
+        "paged_decode_attention": nl * 8,
+        "flash_attention": nl * sampled.prefill_launches})
     del sampled
     torch.cuda.empty_cache()
 
-    decode_ms = sorted(step_ms)
     emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": "bfloat16",
-          "requests": len(outputs), "tokens": tokens, "steps": steps,
-          "wall_s": wall, "tokens_per_s": tokens / wall,
-          "decode_step_ms_median": statistics.median(decode_ms),
-          "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
-          "cache_stats": stats, "launches": launches,
-          "packed_wave": {"requests": len(out_p),
-                          "tokens": sum(len(v) for v in out_p.values()),
-                          "decode_step_ms_median": statistics.median(ms_p),
-                          "decode_profile": prof},
-          "sampled_steps": {"events": len(evs)},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "paths": paths, "sampled_steps": {"events": len(evs)}})
     return model, params
 
 
@@ -542,6 +785,31 @@ def score(torch, model, params, prompt, gen):
             lp.max(-1).values.tolist())
 
 
+def near_tie_check(torch, model, params, served, tol):
+    """Served (prompt, [(token, logprob)]) against the plain forward: max
+    logprob error, argmax flips, and flips beyond a near-tie of ``tol``
+    (the forward's best token ahead of the served one by more than tol)."""
+    err, total, flips, bad, n = 0.0, 0.0, 0, 0, 0
+    for prompt, gen in served.values():
+        am, lp, mx = score(torch, model, params, prompt, gen)
+        for a, l, m, (t, lt) in zip(am, lp, mx, gen):
+            n += 1
+            err = max(err, abs(l - lt))
+            total += abs(l - lt)
+            if a != t:
+                flips += 1
+                bad += (m - l) > tol
+    return {"requests": len(served), "tokens": n, "argmax_flips": flips,
+            "flips_beyond_tol": bad, "max_logprob_err": err,
+            "mean_logprob_err": total / max(n, 1), "tol": tol}
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def phase_e2e(torch, dev, keep, bf16_model, bf16_params):
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import build_model
@@ -553,66 +821,139 @@ def phase_e2e(torch, dev, keep, bf16_model, bf16_params):
         num_layers=4, param_dtype=torch.float32, compute_dtype=torch.float32)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(7))
-    eng = SlotEngine(model, lambda: params, capacity=8, max_total_len=2048,
-                     max_gen_len=24, eos_id=-1, fused_sampling=True,
-                     temperature=0.0)
     reqs = make_requests(3, 2, 20, 700, cfg.vocab_size, seed=4)
     prompts = {e.uid: list(e.prompt) for e in reqs}
-    outs, ms = {}, []
-    serve_loop(eng, list(reqs), outs, ms)
-    f32_tok_mismatch, f32_lp_err = 0, 0.0
-    for uid, gen in outs.items():
-        am, lp, _ = score(torch, model, params, prompts[uid], gen)
-        f32_tok_mismatch += sum(a != t for a, (t, _) in zip(am, gen))
-        f32_lp_err = max(f32_lp_err, max(abs(a - l) for a, (_, l)
-                                         in zip(lp, gen)))
-    check(f32_tok_mismatch == 0, f"e2e f32: {f32_tok_mismatch} tokens differ")
-    check(f32_lp_err <= 1e-3, f"e2e f32: logprob err {f32_lp_err}")
-    del eng, params
+    kw = dict(capacity=8, max_total_len=2048, max_gen_len=24, eos_id=-1,
+              temperature=0.0)
+    outs = {}
+    for name, opts in (("paged", {"fused_sampling": True}),
+                       ("dense", {"paged": False}),
+                       ("int8", {"kv_quant": "int8", "fused_sampling": True})):
+        eng = SlotEngine(model, lambda: params, **kw, **opts)
+        outs[name] = {}
+        serve_loop(eng, list(reqs), outs[name], [])
+        del eng
+        torch.cuda.empty_cache()
+
+    # fp engines, paged and dense: greedy tokens identical to each other and
+    # to the plain forward's argmax, logprobs within 1e-3 of the forward
+    f32 = {}
+    for name in ("paged", "dense"):
+        mism, err = 0, 0.0
+        for uid, gen in outs[name].items():
+            am, lp, _ = score(torch, model, params, prompts[uid], gen)
+            mism += sum(a != t for a, (t, _) in zip(am, gen))
+            err = max(err, max(abs(a - l) for a, (_, l) in zip(lp, gen)))
+        check(mism == 0, f"e2e f32 {name}: {mism} tokens differ")
+        check(err <= 1e-3, f"e2e f32 {name}: logprob err {err}")
+        f32[name] = {"requests": len(outs[name]),
+                     "tokens": sum(len(v) for v in outs[name].values()),
+                     "token_mismatches": mism, "max_logprob_err": err,
+                     "tol": 1e-3}
+    same = all([t for t, _ in outs["dense"][u]] == [t for t, _ in g]
+               for u, g in outs["paged"].items())
+    check(same, "e2e f32: dense and paged greedy streams differ")
+    f32["dense_equals_paged"] = same
+
+    # int8 pages are lossy by design, so the fp forward bounds them only
+    # loosely; the tight check is the same engine on CPU tensors, i.e. the
+    # plain versions (held against the reference's int8 engine in
+    # tests/test_torch_engine.py), on the same weights and requests:
+    # - the first generated token of every request equals the fp engine's
+    #   (it decodes off freshly quantised prefill pages);
+    # - card against CPU: tokens equal up to a first divergence, and there
+    #   only at a near-tie of the fp forward (0.05 nats); logprobs before
+    #   it within 0.05 nats, the CPU tests' bound between the reference's
+    #   and the port's int8 engines (the two compute K/V a rounding apart,
+    #   which can tip a cell to the next int8 step);
+    # - against the fp forward: no farther than the CPU run of the same
+    #   engine, plus those 0.05 nats.
+    first = sum(outs["int8"][u][0][0] == g[0][0]
+                for u, g in outs["paged"].items())
+    check(first == len(reqs), f"e2e f32 int8: first token differs from fp "
+          f"in {len(reqs) - first} of {len(reqs)} requests")
+    cpu_eng = SlotEngine(build_model(cfg, device="cpu"),
+                         lambda p=to_cpu(params): p, kv_quant="int8",
+                         fused_sampling=True, **kw)
+    outs["int8_cpu"] = {}
+    t0 = time.perf_counter()
+    serve_loop(cpu_eng, list(reqs), outs["int8_cpu"], [])
+    cpu_s = time.perf_counter() - t0
+    del cpu_eng
+    agree, diverged, bad, lp_gap = 0, 0, 0, 0.0
+    for uid, want in outs["int8_cpu"].items():
+        got = outs["int8"][uid]
+        n = next((i for i, (a, b) in enumerate(zip(want, got))
+                  if a[0] != b[0]), None)
+        same = len(want) if n is None else n
+        lp_gap = max([lp_gap] + [abs(a[1] - b[1]) for a, b
+                                 in zip(want[:same], got[:same])])
+        if n is None:
+            agree += len(want) == len(got)
+            continue
+        diverged += 1
+        _, lps, _ = score(torch, model, params, prompts[uid], got[:n + 1])
+        _, lpw, _ = score(torch, model, params, prompts[uid], want[:n + 1])
+        bad += abs(lps[n] - lpw[n]) > 0.05
+    check(agree + diverged == len(reqs) and bad == 0 and lp_gap <= 0.05,
+          f"e2e f32 int8 card vs CPU: {bad} divergences beyond a near-tie, "
+          f"logprob gap {lp_gap}")
+    i8 = near_tie_check(torch, model, params,
+                        {u: (prompts[u], g) for u, g in outs["int8"].items()},
+                        0.05)
+    i8_cpu = near_tie_check(
+        torch, model, params,
+        {u: (prompts[u], g) for u, g in outs["int8_cpu"].items()}, 0.05)
+    tol = i8_cpu["max_logprob_err"] + 0.05
+    check(i8["max_logprob_err"] <= tol,
+          f"e2e f32 int8: logprob err {i8['max_logprob_err']} > {tol}")
+    i8.update(tol=tol, first_token_equal_fp=first,
+              cpu={"max_logprob_err": i8_cpu["max_logprob_err"],
+                   "mean_logprob_err": i8_cpu["mean_logprob_err"],
+                   "streams_equal": agree, "diverged_at_near_tie": diverged,
+                   "max_logprob_gap_to_card": lp_gap, "seconds": cpu_s})
+    f32["int8"] = i8
+    del params
     torch.cuda.empty_cache()
 
-    # bf16, 28 layers, 4 requests of the serve phase.  Tolerance 0.1 nats:
-    # the engine's cached K/V, its f32-softmax kernels and its fused head
-    # round at other points than one bf16 forward over the whole sequence
-    # (each bf16 rounding is 2^-9 relative, over 28 layers of residual
-    # updates); a token may differ from the forward's argmax only where the
-    # forward itself has a near-tie within that tolerance.
-    tol = 0.1
-    bf_lp_err, flips, bad_flips, n = 0.0, 0, 0, 0
-    for uid, (prompt, gen) in keep["serve"].items():
-        am, lp, mx = score(torch, bf16_model, bf16_params, prompt, gen)
-        for a, l, m, (t, lt) in zip(am, lp, mx, gen):
-            n += 1
-            bf_lp_err = max(bf_lp_err, abs(l - lt))
-            if a != t:
-                flips += 1
-                bad_flips += (m - l) > tol
-    check(bf_lp_err <= tol, f"e2e bf16: logprob err {bf_lp_err} > {tol}")
-    check(bad_flips == 0, f"e2e bf16: {bad_flips} tokens differ beyond a "
-          f"near-tie of {tol}")
-    emit({"phase": "e2e",
-          "f32_4layer": {"requests": len(outs),
-                         "tokens": sum(len(v) for v in outs.values()),
-                         "token_mismatches": f32_tok_mismatch,
-                         "max_logprob_err": f32_lp_err, "tol": 1e-3},
-          "bf16_28layer": {"requests": len(keep["serve"]), "tokens": n,
-                           "argmax_flips": flips, "flips_beyond_tol":
-                           bad_flips, "max_logprob_err": bf_lp_err,
-                           "tol": tol}})
+    # bf16, 28 layers, 4 requests each of the main and the dense serve
+    # paths.  Tolerance 0.1 nats: the engine's cached K/V, its f32-softmax
+    # kernels and its fused head round at other points than one bf16
+    # forward over the whole sequence (each bf16 rounding is 2^-9
+    # relative, over 28 layers of residual updates); a token may differ
+    # from the forward's argmax only where the forward itself has a
+    # near-tie within that tolerance.
+    bf = {}
+    for name in ("serve", "serve_dense"):
+        bf[name] = near_tie_check(torch, bf16_model, bf16_params, keep[name],
+                                  0.1)
+        check(bf[name]["max_logprob_err"] <= 0.1,
+              f"e2e bf16 {name}: logprob err {bf[name]['max_logprob_err']}")
+        check(bf[name]["flips_beyond_tol"] == 0,
+              f"e2e bf16 {name}: {bf[name]['flips_beyond_tol']} tokens "
+              "differ beyond a near-tie of 0.1")
+    emit({"phase": "e2e", "f32_4layer": f32, "bf16_28layer": bf})
 
 
 # ---------------------------------------------------------------------------
 
+# kernel -> (source, TPU kernel it replaces, the serve path it belongs to)
 KERNEL_META = {
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-        "src/repro/kernels/ragged_decode_attention.py:174"),
+        "src/repro/kernels/ragged_decode_attention.py:174", "main"),
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:87"),
+        "src/repro/kernels/flash_attention.py:87", "main"),
     "fused_sample": (
         "src/repro_torch/kernels/csrc/fused_sample.cu",
-        "src/repro/kernels/ragged_decode_attention.py:308"),
+        "src/repro/kernels/ragged_decode_attention.py:308", "main"),
+    "ragged_decode_attention": (
+        "src/repro_torch/kernels/csrc/ragged_decode_attention.cu",
+        "src/repro/kernels/ragged_decode_attention.py:137", "dense"),
+    "paged_decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/ragged_decode_attention.py:120", "int8"),
 }
 
 
@@ -640,10 +981,11 @@ def main() -> int:
     if args.phase == "all":
         model, params = phase_serve(torch, dev, launches, keep)
         phase_e2e(torch, dev, keep, model, params)
-    main_counts = launches.get("main", {})
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=main_counts.get(name, 0),
+             launches=launches.get(path, {}).get(name, 0), path=path,
+             launches_per_path={p: c.get(name, 0)
+                                for p, c in launches.items()},
              max_abs_err=report[name]["max_abs_err"], tol=report[name]["tol"],
              rtol=report[name].get("rtol", 0.0),
              ms=report[name]["ms"], kernel_ms=report[name]["ms"],
@@ -652,7 +994,7 @@ def main() -> int:
              bound_by=report[name]["bound_by"],
              library_ms=report[name]["library_ms"],
              shape=report[name]["shape"])
-        for name, (src, rep) in KERNEL_META.items()]})
+        for name, (src, rep, path) in KERNEL_META.items()]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

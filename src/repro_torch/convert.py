@@ -19,6 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 _NUMPY_NATIVE = {np.dtype(t) for t in (np.float32, np.float64, np.float16,
                                        np.int32, np.int64, np.int8,
                                        np.uint8, np.bool_)}
@@ -34,11 +36,17 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
 
 
-def from_jax_params(tree: Any, device="cpu") -> Any:
-    """Nested dict of numpy arrays -> the same tree of torch tensors."""
-    if isinstance(tree, dict):
-        return {k: from_jax_params(v, device) for k, v in tree.items()}
-    return _leaf_to_torch(tree, device)
+def from_jax_params(tree: Any, device=None) -> Any:
+    """Nested dict of numpy arrays -> the same tree of torch tensors, on
+    the card unless the caller passes ``device="cpu"``
+    (``repro_torch.resolve_device``)."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _leaf_to_torch(t, dev)
+    return walk(tree)
 
 
 def to_numpy(params: Any) -> Any:

@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_decode_attention", "flash_attention", "fused_sample")
+SOURCES = ("paged_decode_attention", "ragged_decode_attention",
+           "flash_attention", "fused_sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +110,7 @@ def check(rc: int, name: str) -> None:
 # -- shared by the wrappers ---------------------------------------------------
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KV_INT8 = 2             # code of int8 KV storage (q and out stay f32/bf16)
 
 
 def all_on_cpu(*tensors) -> bool:
@@ -133,6 +135,15 @@ def dtype_code(name: str, *tensors) -> int:
     require(len(dts) == 1 and next(iter(dts)) in DTYPE_CODES, name,
             f"expects one dtype of float32/bfloat16, got {dts}")
     return DTYPE_CODES[next(iter(dts))]
+
+
+def kv_dtype_code(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> int:
+    """Code of the KV storage, which is q's own dtype or int8 pages."""
+    require(k.dtype == v.dtype and k.dtype in (q.dtype, torch.int8), name,
+            f"K/V storage must be q's dtype ({q.dtype}) or int8, got "
+            f"{k.dtype}/{v.dtype}")
+    return KV_INT8 if k.dtype == torch.int8 else dtype_code(name, q)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: element conversion to and
 // from f32, vector loads, warp reductions, and the dtype codes the Python
-// wrappers pass (0 = float32, 1 = bfloat16).
+// wrappers pass (0 = float32, 1 = bfloat16, 2 = int8 KV storage).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,10 +10,11 @@
 
 namespace rt {
 
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -21,7 +22,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// E consecutive elements as one aligned vector load (8 or 16 bytes for the
+// E consecutive elements as one aligned vector load (2 to 16 bytes for the
 // shapes the wrappers admit), converted to f32.
 template <typename T, int E>
 struct alignas(sizeof(T) * E) Vec {

@@ -21,7 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 NAME = "flash_attention"
-launches = 0            # kernel launches since the last reset
+launches = {NAME: 0}    # kernel launches since the last reset
 _fn = None
 
 
@@ -43,7 +43,6 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
     ``seg_ids`` (B, S) int32: packed prefill; a query attends only keys of
     its own segment id (pad columns carry -1 and match each other, so
     their rows are garbage the caller discards)."""
-    global launches
     if build.all_on_cpu(q, k, v, seg_ids):
         return flash_attention_ref(q, k, v, causal=True, window=window,
                                    softcap=softcap, seg_ids=seg_ids)
@@ -72,5 +71,5 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
                  out.data_ptr(), B, S, H, Kh, D, int(window), float(softcap),
                  code, build.stream_ptr(dev))
     build.check(rc, NAME)
-    launches += 1
+    launches[NAME] += 1
     return out

@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import fused_sample_ref
 
 NAME = "fused_sample"
-launches = 0            # kernel launches since the last reset
+launches = {NAME: 0}    # kernel launches since the last reset
 _lib = None
 
 
@@ -48,7 +48,6 @@ def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
     Returns (vals (B, top_k) f32, idx (B, top_k) int32, lse (B, 1) f32):
     the top-k softcapped logits, their vocab indices (lowest first on
     ties) and the logsumexp over the whole vocab."""
-    global launches
     if build.all_on_cpu(x, w):
         return fused_sample_ref(x, w, top_k=top_k, softcap=softcap)
     dev = build.require_cuda(NAME, x, w)
@@ -79,5 +78,5 @@ def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
         psum.data_ptr(), ptv.data_ptr(), pti.data_ptr(), B, Dm, V, top_k,
         float(softcap), code, build.stream_ptr(dev))
     build.check(rc, NAME)
-    launches += 1
+    launches[NAME] += 1
     return vals, idx, lse

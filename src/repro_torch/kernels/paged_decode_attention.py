@@ -1,15 +1,19 @@
 """Paged GQA decode attention: wrapper of ``csrc/paged_decode_attention.cu``.
 
-Replaces the Pallas TPU kernel ``paged_decode_attention`` (``_paged_kernel``
-+ ``_flash_decode_block``) in ``repro/kernels/ragged_decode_attention.py``.
-Bound on the H100: bytes, the live K/V rows over 3.35 TB/s.  The kernel
-reads each live row once: one CTA per (KV head, slot) serves the KV
-head's G query heads, warps walk 32-row chunks (two 16-row pages) whose
-physical pages the CTA looks up in the block table itself, and the online
-softmax stays in f32 registers.  See the source for the details.
+Replaces the Pallas TPU kernel ``paged_decode_attention`` in
+``repro/kernels/ragged_decode_attention.py``, both variants: fp pages
+(``_paged_kernel``) and int8 pages with one f32 scale per physical page
+(``_paged_kernel_int8``, the reference's ``ops.paged_decode_attention_int8``).
+Bound on the H100: bytes, the live K/V rows (and, for int8, their pages'
+scales) over 3.35 TB/s.  The kernel reads each live row once: one CTA per
+(KV head, slot) serves the KV head's G query heads, warps walk 32-row
+chunks whose physical pages the CTA looks up in the block table itself,
+int8 rows are dequantised in registers by their page's scale, and the
+online softmax stays in f32 registers.  See ``csrc/decode_attention.cuh``.
 
-CPU tensors take the plain version (``ref.paged_decode_attention_ref``);
-CUDA tensors launch the kernel or raise.
+CPU tensors take the plain versions (``ref.paged_decode_attention_ref``,
+``ref.paged_decode_attention_int8_ref``); CUDA tensors launch the kernel
+or raise.  fp and int8 launches are counted under their own names.
 """
 from __future__ import annotations
 
@@ -18,10 +22,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.kernels.ref import (paged_decode_attention_int8_ref,
+                                     paged_decode_attention_ref)
 
 NAME = "paged_decode_attention"
-launches = 0            # kernel launches since the last reset
+NAME_INT8 = "paged_decode_attention_int8"
+launches = {NAME: 0, NAME_INT8: 0}   # kernel launches since the last reset
 _fn = None
 
 
@@ -29,55 +35,85 @@ def _bind():
     global _fn
     if _fn is None:
         fn = build.load(NAME).paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
-                           softcap: float = 0.0, window: int = 0
-                           ) -> torch.Tensor:
+                           softcap: float = 0.0, window: int = 0,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
     """q (B, H, D); k/v_pages (N, P, Kh, D); block_tables (B, nb) int32;
     kv_len (B,) int32 -> (B, H, D).  Rows at or past ``kv_len`` are
-    masked; ``kv_len == 0`` gives zeros.  ``window`` is applied by the
-    plain version only: the kernel takes none, so a window on CUDA raises
-    instead of being ignored."""
-    global launches
+    masked; ``kv_len == 0`` gives zeros.
+
+    int8 pages come with ``k_scales``/``v_scales`` (N,) f32, one per
+    physical page; q and the output stay f32/bf16.  ``window`` is applied
+    by the plain versions only: the kernel takes none, so a window on
+    CUDA raises instead of being ignored."""
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError(f"{NAME}: pass both k_scales and v_scales or neither")
+    name = NAME_INT8 if quant else NAME
     args = (q, k_pages, v_pages, block_tables, kv_len)
-    if build.all_on_cpu(*args):
+    if build.all_on_cpu(*args, k_scales, v_scales):
+        if quant:
+            return paged_decode_attention_int8_ref(
+                q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                kv_len, softcap=softcap, window=window)
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           kv_len, softcap=softcap,
                                           window=window)
     if window:
         raise NotImplementedError(
-            f"{NAME}: the CUDA kernel has no sliding window (got {window})")
-    dev = build.require_cuda(NAME, *args)
-    code = build.dtype_code(NAME, q, k_pages, v_pages)
+            f"{name}: the CUDA kernel has no sliding window (got {window})")
+    dev = build.require_cuda(name, *args, k_scales, v_scales)
+    code = build.dtype_code(name, q)
+    kv_code = build.kv_dtype_code(name, q, k_pages, v_pages)
+    build.require((kv_code == build.KV_INT8) == quant, name,
+                  "int8 pages need k_scales and v_scales; fp pages take none")
     B, H, D = q.shape
     N, P, Kh, Dk = k_pages.shape
     nb = block_tables.shape[1]
-    build.require(v_pages.shape == k_pages.shape and Dk == D, NAME,
+    build.require(v_pages.shape == k_pages.shape and Dk == D, name,
                   f"page shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)}"
                   f" do not match q {tuple(q.shape)}")
     build.require(H % Kh == 0 and H // Kh in (1, 2, 4, 8) and D in (64, 128),
-                  NAME, f"needs G in (1, 2, 4, 8), D in (64, 128); got "
+                  name, f"needs G in (1, 2, 4, 8), D in (64, 128); got "
                   f"H={H} Kh={Kh} D={D}")
     build.require(block_tables.shape == (B, nb) and kv_len.shape == (B,),
-                  NAME, "block_tables (B, nb) and kv_len (B,) expected")
+                  name, "block_tables (B, nb) and kv_len (B,) expected")
     build.require(block_tables.dtype == torch.int32
-                  and kv_len.dtype == torch.int32, NAME,
+                  and kv_len.dtype == torch.int32, name,
                   "block_tables and kv_len must be int32")
-    build.require(all(t.is_contiguous() for t in args), NAME,
+    scales = (k_scales, v_scales) if quant else ()
+    build.require(all(s.shape == (N,) and s.dtype == torch.float32
+                      for s in scales), name,
+                  f"k/v_scales must be ({N},) float32")
+    build.require(all(t.is_contiguous() for t in args + scales), name,
                   "all inputs must be contiguous")
     out = torch.empty_like(q)
     if B == 0:
         return out
     rc = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scales.data_ptr() if quant else None,
+                 v_scales.data_ptr() if quant else None,
                  block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                 B, H, Kh, D, P, nb, float(softcap), code,
+                 B, H, Kh, D, P, nb, float(softcap), code, kv_code,
                  build.stream_ptr(dev))
-    build.check(rc, NAME)
-    launches += 1
+    build.check(rc, name)
+    launches[name] += 1
     return out
+
+
+def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
+                                block_tables, kv_len, softcap: float = 0.0,
+                                window: int = 0) -> torch.Tensor:
+    """The reference's ``ops.paged_decode_attention_int8`` signature:
+    int8 pages with per-page f32 scales."""
+    return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
+                                  softcap=softcap, window=window,
+                                  k_scales=k_scales, v_scales=v_scales)

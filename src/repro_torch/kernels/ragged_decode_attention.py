@@ -1,0 +1,77 @@
+"""Dense GQA decode attention: wrapper of ``csrc/ragged_decode_attention.cu``.
+
+Replaces the Pallas TPU kernel ``ragged_decode_attention`` (``_kernel`` +
+``_flash_decode_block``) in ``repro/kernels/ragged_decode_attention.py``:
+one query token per slot over a dense ``(B, S, Kh, D)`` cache, rows at or
+past ``kv_len`` skipped.  It serves the engine's dense layout
+(``SlotEngine(paged=False)``).  Bound on the H100: bytes, the live K/V
+rows over 3.35 TB/s.  The body is the paged kernel's with contiguous rows
+(``csrc/decode_attention.cuh``); unlike the TPU kernel it takes any S, not
+only multiples of 128.
+
+CPU tensors take the plain version (``ref.ragged_decode_attention_ref``);
+CUDA tensors launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ragged_decode_attention_ref
+
+NAME = "ragged_decode_attention"
+launches = {NAME: 0}    # kernel launches since the last reset
+_fn = None
+
+
+def _bind():
+    global _fn
+    if _fn is None:
+        fn = build.load(NAME).ragged_decode_attention
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def ragged_decode_attention(q, k_cache, v_cache, kv_len,
+                            softcap: float = 0.0, window: int = 0
+                            ) -> torch.Tensor:
+    """q (B, H, D); k/v_cache (B, S, Kh, D); kv_len (B,) int32 ->
+    (B, H, D).  Rows at or past ``kv_len`` are masked (all S rows when
+    ``kv_len > S``); ``kv_len == 0`` gives zeros.  ``window`` is applied by
+    the plain version only: the kernel takes none, so a window on CUDA
+    raises instead of being ignored."""
+    args = (q, k_cache, v_cache, kv_len)
+    if build.all_on_cpu(*args):
+        return ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
+                                           softcap=softcap, window=window)
+    if window:
+        raise NotImplementedError(
+            f"{NAME}: the CUDA kernel has no sliding window (got {window})")
+    dev = build.require_cuda(NAME, *args)
+    code = build.dtype_code(NAME, q, k_cache, v_cache)
+    B, H, D = q.shape
+    Bk, S, Kh, Dk = k_cache.shape
+    build.require(v_cache.shape == k_cache.shape and Bk == B and Dk == D,
+                  NAME, f"cache shapes {tuple(k_cache.shape)}/"
+                  f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
+    build.require(H % Kh == 0 and H // Kh in (1, 2, 4, 8) and D in (64, 128),
+                  NAME, f"needs G in (1, 2, 4, 8), D in (64, 128); got "
+                  f"H={H} Kh={Kh} D={D}")
+    build.require(kv_len.shape == (B,) and kv_len.dtype == torch.int32, NAME,
+                  "kv_len must be (B,) int32")
+    build.require(all(t.is_contiguous() for t in args), NAME,
+                  "all inputs must be contiguous")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    rc = _bind()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 kv_len.data_ptr(), out.data_ptr(), B, H, S, Kh, D,
+                 float(softcap), code, build.stream_ptr(dev))
+    build.check(rc, NAME)
+    launches[NAME] += 1
+    return out

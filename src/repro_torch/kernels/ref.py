@@ -7,6 +7,20 @@ import torch
 
 from repro_torch.models import layers as L
 
+# Tolerance of int8 KV pages, the port's own copy of the reference's
+# documented bound: max abs error of the paged decode attention OUTPUT
+# over int8 pages (per-page symmetric scale, amax / 127) against the fp
+# decode over the same K/V.
+KV_INT8_DECODE_ATOL = 0.05
+
+
+def ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
+                                softcap: float = 0.0, window: int = 0
+                                ) -> torch.Tensor:
+    """(B, H, D) x (B, S, Kh, D) x (B,) -> (B, H, D)."""
+    return L.decode_attention(q, k_cache, v_cache, kv_len, softcap=softcap,
+                              window=window)
+
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
                  ) -> torch.Tensor:
@@ -26,6 +40,36 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_len,
     return L.decode_attention(q, gather_pages(k_pages, block_tables),
                               gather_pages(v_pages, block_tables),
                               kv_len, softcap=softcap, window=window)
+
+
+def quantize_pages_ref(pages: torch.Tensor):
+    """Per-page symmetric int8 quantization: (N, page, Kh, D) fp ->
+    (int8 pages, (N,) f32 scales) with scale = amax / 127 (1e-8 floor, so
+    all-zero pages round-trip exactly).  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    x = pages.float()
+    amax = x.abs().amax(dim=(1, 2, 3))
+    scales = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x / scales[:, None, None, None]), -127, 127)
+    return q.to(torch.int8), scales
+
+
+def dequantize_pages_ref(pages: torch.Tensor, scales: torch.Tensor
+                         ) -> torch.Tensor:
+    """(N, page, Kh, D) int8 x (N,) f32 -> f32 pages."""
+    return pages.float() * scales.float()[:, None, None, None]
+
+
+def paged_decode_attention_int8_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                    block_tables, kv_len,
+                                    softcap: float = 0.0, window: int = 0
+                                    ) -> torch.Tensor:
+    """int8 pages: dequantize the pools to f32, then the fp paged plain
+    version (in f32; the output takes q's dtype)."""
+    return paged_decode_attention_ref(
+        q, dequantize_pages_ref(k_pages, k_scales),
+        dequantize_pages_ref(v_pages, v_scales), block_tables, kv_len,
+        softcap=softcap, window=window)
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,

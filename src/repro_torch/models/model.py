@@ -5,7 +5,8 @@ Batch dict conventions are the reference's:
 * scoring : {"tokens": (B, S)}
 * prefill : {"tokens": (B, S), "prompt_lens": (B,)} (+ "seg_ids",
   "positions" for ``prefill_packed``)
-* decode  : token (B,), page pool, block tables (B, nb), kv_len (B,)
+* decode  : token (B,), dense cache (``decode_step``) or page pool and
+  block tables (B, nb) (``decode_step_paged``), kv_len (B,)
 
 Only the dense family is ported; the model lives on one device, the card
 unless the caller passes ``device="cpu"``.
@@ -32,6 +33,7 @@ class Model:
     prefill: Callable              # (params, batch, cache) -> (logits, cache)
     decode_step_paged: Callable    # (params, token, pool, bt, kv_len, **kw)
     prefill_packed: Callable       # (params, batch, cache) -> (logits, cache)
+    decode_step: Callable          # (params, token, cache, kv_len, **kw)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
@@ -61,5 +63,14 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         return TF.decode_step_paged(params, cfg, token, pool, block_tables,
                                     kv_len, **kw)
 
+    def decode_step(params, token, cache, kv_len, **kw):
+        return TF.decode_step(params, cfg, token, cache, kv_len, **kw)
+
     return Model(cfg, dev, init_params, forward, init_cache, prefill,
-                 decode_step_paged, prefill_packed)
+                 decode_step_paged, prefill_packed, decode_step)
+
+
+def supports_paging(model: Model) -> bool:
+    """Paged layout needs right padding and a plain {k, v} cache; every
+    family the port serves so far has both."""
+    return set(model.init_cache(1, 1)) == {"k", "v"}

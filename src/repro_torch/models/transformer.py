@@ -11,11 +11,13 @@ Two departures from the reference, both for eager execution:
   (``return_logits``); the engine discards them, and under ``jit`` the
   reference's compiler drops them, but an eager run would pay for them
   (5 GB in bf16 for Qwen3-0.6B at B=8, S=2048).
-* caches are written in place: ``prefill`` fills the cache it is given
-  and ``decode_step_paged`` writes the new token's K/V straight into the
-  page pool, then attends over the pool with the paged kernel.  The
-  reference gathers a dense view, decodes it and scatters the written
-  page back; the results are the same.
+* caches are written in place: ``prefill`` fills the cache it is given,
+  ``decode_step`` writes the new token's K/V into the dense cache and
+  ``decode_step_paged`` straight into the page pool, then each attends
+  with its kernel.  The reference gathers a dense view of the pool,
+  decodes it and scatters the written page back; the results are the
+  same for fp pages.  For int8 pages the written page is requantised
+  before the attention reads it (see ``decode_step_paged``).
 """
 from __future__ import annotations
 
@@ -165,13 +167,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               dtype: Optional[torch.dtype] = None
                ) -> Dict[str, torch.Tensor]:
-    """{"k", "v"}: (L, batch, max_len, Kh, D) zeros in the compute dtype.
-    The paged engine calls it with (num_pages, page_size) for its pool."""
+    """{"k", "v"}: (L, batch, max_len, Kh, D) zeros in ``dtype`` (the
+    compute dtype by default).  The paged engine calls it with
+    (num_pages, page_size) for its pool, in int8 for an int8 pool."""
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+    return {n: torch.zeros(shape, dtype=dtype or cfg.compute_dtype,
+                           device=device)
             for n in ("k", "v")}
 
 
@@ -216,14 +221,86 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged decode step: one token per slot, straight over the page pool
+# Decode steps: one token per slot, written in place, then attended
 # ---------------------------------------------------------------------------
+
+
+def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                   kv_len: torch.Tensor, attend_layer, return_hidden: bool):
+    """The layer loop of both decode steps.  ``attend_layer(i, q, k, v)``
+    writes layer ``i``'s new K/V and returns its attention (B, 1, H, D);
+    the result is the logits (B, V) or the final-normed hidden (B, d)."""
+    x = embed_tokens(params, cfg, token[:, None])
+    positions = kv_len[:, None]
+    for i in range(cfg.num_layers):
+        x, _, _ = _block(layer(params, i), cfg, x, positions,
+                         lambda q, k, v, i=i: attend_layer(i, q, k, v))
+    if return_hidden:
+        return L.norm(x[:, 0], params["final_norm"], cfg.norm_type,
+                      cfg.norm_eps)
+    return lm_logits(params, cfg, x[:, 0])
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Dict[str, torch.Tensor], kv_len: torch.Tensor,
+                return_hidden: bool = False):
+    """Dense layout.  token (B,); cache {"k", "v"} (L, B, S, Kh, D);
+    kv_len (B,) int32, the position of the new token (< S).
+
+    Per layer, the new token's k/v are written in place at row ``kv_len``
+    of the slot's rows (inactive slots have kv_len 0 and write their row
+    0, as in the reference), then the dense decode kernel reads
+    ``kv_len + 1`` rows.  Returns (logits (B, V) or the final-normed
+    hidden (B, d) with ``return_hidden``, cache)."""
+    kv_len = kv_len.to(torch.int32)
+    b = torch.arange(token.shape[0], device=token.device)
+    row = kv_len.long()
+    n_valid = (kv_len + 1).contiguous()
+
+    def attend_layer(i, q, k, v):
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[b, row] = k[:, 0].to(kc.dtype)
+        vc[b, row] = v[:, 0].to(vc.dtype)
+        o = ops.ragged_decode_attention(
+            q[:, 0].contiguous(), kc, vc, n_valid,
+            softcap=cfg.attn.attn_softcap, window=cfg.attn.sliding_window)
+        return o[:, None]
+
+    out = _decode_layers(params, cfg, token, kv_len, attend_layer,
+                         return_hidden)
+    return out, cache
+
+
+def requantize_written_pages(pages: torch.Tensor, scales: torch.Tensor,
+                             page: torch.Tensor, row: torch.Tensor,
+                             new: torch.Tensor, dtype: torch.dtype) -> None:
+    """Write each slot's new row into its int8 page, in place, as the
+    reference engine does after its decode (``engine.py:563-574``): the
+    page is dequantised to the compute dtype, the new row (B, Kh, D) is
+    set at ``row``, and the page is requantised with a monotone scale
+    ``max(old, amax(page) / 127)`` over all P rows, stale rows included,
+    rounding half to even.  A page whose amax did not grow keeps its old
+    cells exactly.  pages (N, P, Kh, D) int8; scales (N,) f32.
+
+    ``amax * (1 / 127)``, not ``amax / 127``: the reference's decode is
+    jitted, and XLA turns a division by a constant into a product with
+    its f32 reciprocal, which can differ in the last bit."""
+    b = torch.arange(page.shape[0], device=page.device)
+    old = scales[page]
+    view = (pages[page].float() * old[:, None, None, None]).to(dtype)
+    view[b, row] = new.to(dtype)
+    view = view.float()
+    s = torch.maximum(old, view.abs().amax(dim=(1, 2, 3)) * (1.0 / 127.0))
+    pages[page] = torch.clamp(torch.round(view / s[:, None, None, None]),
+                              -127, 127).to(torch.int8)
+    scales[page] = s
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pool: Dict[str, torch.Tensor],
                       block_tables: torch.Tensor, kv_len: torch.Tensor,
-                      return_hidden: bool = False):
+                      return_hidden: bool = False,
+                      scales: Optional[Dict[str, torch.Tensor]] = None):
     """token (B,); pool {"k", "v"} (L, N, P, Kh, D); block_tables (B, nb)
     int32; kv_len (B,) int32, the position of the new token.
 
@@ -231,33 +308,45 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     ``kv_len % P`` of page ``block_tables[b, kv_len // P]`` (exclusive to
     the slot: the engine's copy-on-write planning made it so; inactive
     slots have kv_len 0 and the garbage page 0), then the paged attention
-    reads the pool with ``kv_len + 1`` rows.  Returns (logits (B, V) or
-    the final-normed hidden (B, d) with ``return_hidden``, pool)."""
+    reads the pool with ``kv_len + 1`` rows.
+
+    int8 pools come with ``scales`` {"k", "v"} (L, N) f32, one per
+    (layer, page).  The written page is requantised first
+    (``requantize_written_pages``, the reference's formula) and the int8
+    kernel then reads it, so the new row, and old rows whose page scale
+    grew, are read quantised; the reference attends over the unquantised
+    new row and requantises afterwards.  Layer 0's written pages and
+    scales match the reference exactly; the rest stays within one int8
+    quantum of it (``tests/test_torch_model.py``).
+
+    Returns (logits (B, V) or the final-normed hidden (B, d) with
+    ``return_hidden``, pool)."""
     P = pool["k"].shape[2]
     bt = block_tables.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32)
-    x = embed_tokens(params, cfg, token[:, None])
     b = torch.arange(token.shape[0], device=token.device)
     page = bt[b, (kv_len // P).long()].long()
     row = (kv_len % P).long()
-    positions = kv_len[:, None]
     n_valid = (kv_len + 1).contiguous()
 
-    for i in range(cfg.num_layers):
+    def attend_layer(i, q, k, v):
         kp, vp = pool["k"][i], pool["v"][i]
-
-        def attend(q, k, v, kp=kp, vp=vp):
+        if scales is None:
             kp[page, row] = k[:, 0].to(kp.dtype)
             vp[page, row] = v[:, 0].to(vp.dtype)
-            o = ops.paged_decode_attention(
-                q[:, 0].contiguous(), kp, vp, bt, n_valid,
-                softcap=cfg.attn.attn_softcap,
-                window=cfg.attn.sliding_window)
-            return o[:, None]
+            ks = vs = None
+        else:
+            ks, vs = scales["k"][i], scales["v"][i]
+            requantize_written_pages(kp, ks, page, row, k[:, 0],
+                                     cfg.compute_dtype)
+            requantize_written_pages(vp, vs, page, row, v[:, 0],
+                                     cfg.compute_dtype)
+        o = ops.paged_decode_attention(
+            q[:, 0].contiguous(), kp, vp, bt, n_valid,
+            softcap=cfg.attn.attn_softcap, window=cfg.attn.sliding_window,
+            k_scales=ks, v_scales=vs)
+        return o[:, None]
 
-        x, _, _ = _block(layer(params, i), cfg, x, positions, attend)
-    if return_hidden:
-        hidden = L.norm(x[:, 0], params["final_norm"], cfg.norm_type,
-                        cfg.norm_eps)
-        return hidden, pool
-    return lm_logits(params, cfg, x[:, 0]), pool
+    out = _decode_layers(params, cfg, token, kv_len, attend_layer,
+                         return_hidden)
+    return out, pool

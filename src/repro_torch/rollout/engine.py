@@ -1,31 +1,45 @@
-"""Paged slot-based rollout engine (counterpart of
-``repro/rollout/engine.py``, paged layout).
+"""Slot-based rollout engine (counterpart of ``repro/rollout/engine.py``).
 
-A fixed slot count decodes one token per active slot per ``step()``;
-physical KV storage is a pool of fixed-size pages
-``(L, num_pages, page_size, Kh, D)`` and each sequence owns a refcounted
-page table (:mod:`repro_torch.core.kv_cache`), which buys GRPO prefix
-sharing (a group's shared prompt prefills once) and resume without
-re-prefill (interrupted sequences keep their pages resident).
+A fixed slot count decodes one token per active slot per ``step()``.
+Two memory models, as in the reference:
+
+* **paged** (the default): physical KV storage is a pool of fixed-size
+  pages ``(L, num_pages, page_size, Kh, D)`` and each sequence owns a
+  refcounted page table (:mod:`repro_torch.core.kv_cache`), which buys
+  GRPO prefix sharing (a group's shared prompt prefills once) and resume
+  without re-prefill (interrupted sequences keep their pages resident).
+  With ``kv_quant="int8"`` the pool holds int8 pages and one f32 scale
+  per (layer, page), 2x the tokens of a bf16 pool at equal bytes.
+* **dense** (``paged=False``): one ``(L, capacity, max_total_len, Kh, D)``
+  cache, the pre-paging layout, kept as the oracle of the paged token
+  stream and the escape hatch of caches that cannot be paged.  No
+  sharing, no resident KV, no migration; ``cache_stats()`` is None.
 
 Where the reference gathers a dense per-slot view, decodes it and
 scatters the written page back, this engine's decode step writes the new
 token's K/V into its page in place and attends over the pool with the
-paged decode kernel (``kernels/paged_decode_attention``).  Prefill runs
-the flash kernel (``kernels/flash_attention``); greedy decode with
-``fused_sampling`` runs the fused head (``kernels/fused_sample``).  On
-CPU tensors the same code runs the kernels' plain versions.  Pool
-updates (prefill scatter, copy-on-write, decode writes, imports) are in
-place.
+paged decode kernel (``kernels/paged_decode_attention``, fp or int8
+pages); the dense layout decodes with ``kernels/ragged_decode_attention``.
+Prefill runs the flash kernel (``kernels/flash_attention``); greedy
+decode with ``fused_sampling`` runs the fused head
+(``kernels/fused_sample``).  On CPU tensors the same code runs the
+kernels' plain versions.  Cache updates (prefill scatter, copy-on-write,
+decode writes, imports) are in place.
 
 ``step()`` stays loop-free on the host for slot bookkeeping: EOS/budget
 masking, events and retirement are numpy array ops over the SlotTable.
 Prefill widths are bucketed as in the reference (powers of two, clamped
 to ``max_total_len``) so both engines see the same shapes.
 
-Not ported yet, and refused with ``NotImplementedError``: the dense
-``paged=False`` layout, ``kv_quant="int8"``, families other than dense,
-and windowed configs on CUDA (the decode kernel takes no window).
+Dense prefill runs at the bucketed width and copies those columns into
+the slots; the reference prefills a ``max_total_len``-row sub-cache.
+Rows at or past a slot's ``kv_len`` are never read, and decode writes row
+``kv_len`` before reading it, so the token streams are the same.
+
+Not ported yet, and refused with ``NotImplementedError``: families other
+than dense, and windowed configs on CUDA (the decode kernels take no
+window).  As in the reference, ``kv_quant``, ``packed_prefill`` and
+``fused_sampling`` need the paged layout (``ValueError`` otherwise).
 """
 from __future__ import annotations
 
@@ -39,7 +53,7 @@ from repro_torch.core.engine_api import SlotTable, StepEvent
 from repro_torch.core.kv_cache import PagedKVCache, PoolExhausted
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as TF
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, supports_paging
 
 DEFAULT_PAGE_SIZE = 16
 
@@ -60,18 +74,27 @@ class SlotEngine:
                  packed_prefill: bool = False,
                  fused_sampling: bool = False,
                  kv_quant: Optional[str] = None):
-        if paged is False:
-            raise NotImplementedError("the dense paged=False layout is not "
-                                      "ported yet")
-        if kv_quant is not None:
-            raise NotImplementedError(f"kv_quant={kv_quant!r} is not ported "
-                                      "yet")
         cfg = model.cfg
         self.device = model.device
         if self.device.type == "cuda" and cfg.attn.sliding_window:
             raise NotImplementedError(
-                "windowed configs: the CUDA paged decode kernel takes no "
-                "sliding window yet")
+                "windowed configs: the CUDA decode kernels take no sliding "
+                "window yet")
+        if paged is None:
+            paged = supports_paging(model)
+        elif paged and not supports_paging(model):
+            raise ValueError("paged KV cache requires right padding and a "
+                             "{k, v} cache")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got "
+                             f"{kv_quant!r}")
+        for flag, on in (("kv_quant", kv_quant), ("packed_prefill",
+                                                  packed_prefill),
+                         ("fused_sampling", fused_sampling)):
+            if on and not paged:
+                raise ValueError(f"{flag} requires the paged layout")
+        self.paged = paged
+        self.kv_quant = kv_quant
         self.model = model
         self.params_fn = params_fn
         self.capacity = capacity
@@ -87,12 +110,27 @@ class SlotEngine:
         self.fused_sampling = fused_sampling
         self.prefill_launches = 0       # one per prefill launch
         self.slots = SlotTable(capacity)
+        self.kv_scales: Dict[str, torch.Tensor] = {}
+        if not paged:
+            self.cache = model.init_cache(capacity, max_total_len)
+            self.kv = None
+            return
         self.page_size = page_size
         self._pages_per_seq = -(-max_total_len // page_size)
         # default: dense-equivalent capacity + COW headroom + garbage page
         self.num_pages = num_pages or (
             capacity * self._pages_per_seq + capacity + 1)
-        self.cache = model.init_cache(self.num_pages, page_size)
+        if kv_quant == "int8":
+            # int8 pages + one f32 scale per (layer, page): 2x (bf16) / 4x
+            # (f32) the tokens at equal bytes
+            self.cache = TF.init_cache(cfg, self.num_pages, page_size,
+                                       self.device, dtype=torch.int8)
+            self.kv_scales = {n: torch.ones((cfg.num_layers, self.num_pages),
+                                            dtype=torch.float32,
+                                            device=self.device)
+                              for n in ("k", "v")}
+        else:
+            self.cache = model.init_cache(self.num_pages, page_size)
         self.kv = PagedKVCache(self.num_pages, page_size,
                                retain_across_sync=kv_retain_across_sync)
 
@@ -109,11 +147,14 @@ class SlotEngine:
         return self.slots.active_uids()
 
     def sync_weights(self, version: int) -> None:
-        self.kv.sync_version(version)
+        if self.paged:
+            self.kv.sync_version(version)
         self.version = version   # params_fn always reads the latest state
 
-    def cache_stats(self) -> Dict[str, float]:
-        """Page-pool gauges + prefix-sharing counters."""
+    def cache_stats(self) -> Optional[Dict[str, float]]:
+        """Page-pool gauges + prefix-sharing counters (None when dense)."""
+        if not self.paged:
+            return None
         d = self.kv.stats_dict()
         d["prefill_launches"] = float(self.prefill_launches)
         return d
@@ -130,7 +171,41 @@ class SlotEngine:
         seqs = [list(e.prompt) + list(e.generated) for e in entries]
         # prefill everything but the last token; it is fed on the next step
         pre = [s[:-1] for s in seqs]
-        self._submit_paged(entries, slots, seqs, pre)
+        if self.paged:
+            self._submit_paged(entries, slots, seqs, pre)
+        else:
+            self._submit_dense(entries, slots, seqs, pre)
+
+    def _submit_dense(self, entries, slots, seqs, pre) -> None:
+        """One bucketed prefill of every prefix at ``width`` columns,
+        copied into the slots' rows ``[0, width)``."""
+        k = len(entries)
+        params = self.params_fn()
+        width = self._bucket_width(max(1, max(len(p) for p in pre)))
+        kb = self._bucket_batch(k)
+        toks = np.full((kb, width), self.pad_id, np.int32)
+        plens = np.zeros(kb, np.int32)
+        for i, p in enumerate(pre):
+            plens[i] = len(p)
+            toks[i, :len(p)] = p                # right padding
+        batch = {"tokens": self._tensor(toks),
+                 "prompt_lens": self._tensor(plens)}
+        sub_cache = self.model.init_cache(kb, width)
+        _, sub_cache = self.model.prefill(params, batch, sub_cache,
+                                          return_logits=False)
+        self.prefill_launches += 1
+        idx = self._tensor(np.asarray(slots, np.int64))
+        for name, arr in self.cache.items():
+            arr[:, idx, :width] = sub_cache[name][:, :k].to(arr.dtype)
+
+        t = self.slots
+        t.uid[slots] = [e.uid for e in entries]
+        t.active[slots] = True
+        t.next_token[slots] = [s[-1] for s in seqs]
+        t.kv_len[slots] = plens[:k]
+        t.kv_start[slots] = 0
+        t.gen_count[slots] = [len(e.generated) for e in entries]
+        t.gen_budget[slots] = self.max_gen_len
 
     def _submit_paged(self, entries, slots, seqs, pre) -> None:
         """Prefill only unique, non-resident prefixes; map everyone else
@@ -254,7 +329,9 @@ class SlotEngine:
         self._scatter_pages(sub_cache, rows, blks, phys)
 
     def _scatter_pages(self, sub_cache, rows, blks, phys) -> None:
-        """Copy prefilled KV page blocks into the pool at ``phys``."""
+        """Copy prefilled KV page blocks into the pool at ``phys``,
+        quantising each (layer, page) to int8 with scale amax / 127 (1e-8
+        floor) on an int8 pool, as the reference does."""
         P = self.page_size
         rows, blks, phys = (self._tensor(np.asarray(a, np.int64))
                             for a in (rows, blks, phys))
@@ -262,8 +339,18 @@ class SlotEngine:
             sub = sub_cache[name]               # (L, kb, cache_len, Kh, D)
             nl, nb_, ns = sub.shape[:3]
             blocks = sub.reshape(nl, nb_, ns // P, P, *sub.shape[3:])
+            sel = blocks[:, rows, blks]         # (L, n_pages, P, Kh, D)
             pool = self.cache[name]
-            pool[:, phys] = blocks[:, rows, blks].to(pool.dtype)
+            if self.kv_quant == "int8":
+                sel = sel.float()
+                s = torch.clamp(sel.abs().amax(dim=(2, 3, 4)),
+                                min=1e-8) / 127.0
+                pool[:, phys] = torch.clamp(
+                    torch.round(sel / s[:, :, None, None, None]),
+                    -127, 127).to(torch.int8)
+                self.kv_scales[name][:, phys] = s
+            else:
+                pool[:, phys] = sel.to(pool.dtype)
 
     def _bucket_width(self, width: int) -> int:
         assert width <= self.max_total_len, (width, self.max_total_len)
@@ -297,11 +384,36 @@ class SlotEngine:
         return idx[:, 0], vals[:, 0] - lse[:, 0]
 
     def _copy_pages(self, copies: List[Tuple[int, int]]) -> None:
-        """Host-planned copy-on-write page copies, on the device."""
+        """Host-planned copy-on-write page copies, on the device (scale
+        planes travel with their pages on an int8 pool)."""
         src = self._tensor(np.asarray([s for s, _ in copies], np.int64))
         dst = self._tensor(np.asarray([d for _, d in copies], np.int64))
-        for arr in self.cache.values():
+        for arr in (*self.cache.values(), *self.kv_scales.values()):
             arr[:, dst] = arr[:, src]
+
+    def _decode(self, params, token, kv_len):
+        """One decode step over the dense cache or the page pool: returns
+        the sampled tokens (B,) and their logprobs (B,) on the device."""
+        fused = self.fused_sampling and self.temperature == 0
+        if self.paged:
+            t = self.slots
+            act = t.active_indices()
+            uids_act = t.uid[act].tolist()
+            copies = self.kv.prepare_step(uids_act, t.kv_len[act].tolist())
+            if copies:
+                self._copy_pages(copies)
+            nb = min(next_pow2(max(1, self.kv.max_blocks(uids_act))),
+                     self._pages_per_seq)
+            bt = self._tensor(self.kv.block_table(t.uid.tolist(), nb))
+            out, _ = self.model.decode_step_paged(
+                params, token, self.cache, bt, kv_len, return_hidden=fused,
+                scales=self.kv_scales or None)
+            self.kv.append_tokens(uids_act, t.next_token[act].tolist())
+        else:
+            out, _ = self.model.decode_step(params, token, self.cache,
+                                            kv_len)
+        return self._fused_greedy(params, out) if fused else \
+            self._sample(out)
 
     def step(self) -> List[StepEvent]:
         t = self.slots
@@ -310,24 +422,8 @@ class SlotEngine:
             return []
         params = self.params_fn()
         kv_len = np.where(t.active, t.kv_len, 0).astype(np.int32)
-        uids_act = t.uid[act].tolist()
-        copies = self.kv.prepare_step(uids_act, t.kv_len[act].tolist())
-        if copies:
-            self._copy_pages(copies)
-        nb = min(next_pow2(max(1, self.kv.max_blocks(uids_act))),
-                 self._pages_per_seq)
-        bt = self._tensor(self.kv.block_table(t.uid.tolist(), nb))
-        token = self._tensor(t.next_token)
-        kv_len_d = self._tensor(kv_len)
-        if self.fused_sampling and self.temperature == 0:
-            hidden, _ = self.model.decode_step_paged(
-                params, token, self.cache, bt, kv_len_d, return_hidden=True)
-            sampled, lp = self._fused_greedy(params, hidden)
-        else:
-            logits, _ = self.model.decode_step_paged(
-                params, token, self.cache, bt, kv_len_d)
-            sampled, lp = self._sample(logits)
-        self.kv.append_tokens(uids_act, t.next_token[act].tolist())
+        sampled, lp = self._decode(params, self._tensor(t.next_token),
+                                   self._tensor(kv_len))
         sampled = sampled.cpu().numpy()
         lp = lp.float().cpu().numpy()
 
@@ -342,7 +438,8 @@ class SlotEngine:
         reasons = np.where(eos, "eos", np.where(over, "length", None))
 
         uids = t.uid[act].tolist()          # read before batched release
-        self.kv.release_many(t.uid[act[done]].tolist())
+        if self.paged:
+            self.kv.release_many(t.uid[act[done]].tolist())
         t.release(act[done])
         cont = act[~done]
         t.next_token[cont] = toks[~done]
@@ -355,36 +452,43 @@ class SlotEngine:
         sel = self.slots.select(uids)
         out = [int(u) for u in self.slots.uid[sel]]
         self.slots.release(sel)
-        self.kv.deactivate_many(out)   # keep pages resident for resume
+        if self.paged:
+            self.kv.deactivate_many(out)   # keep pages resident for resume
         return out
 
     def shutdown(self) -> None:
         """Fence the engine: release every slot and purge the page pool.
         Counters survive."""
         self.slots.release(self.slots.active_indices())
-        self.kv.purge()
+        if self.paged:
+            self.kv.purge()
 
     # -- migration capability (export -> import -> discard) ----------------
     #
     # The handle layout is the reference's (``engine.py`` export_entry):
     # page-table bookkeeping plus the physical KV rows as numpy arrays
-    # (L, n_pages, P, Kh, D), so a handle exported by the reference engine
-    # imports here and continues token-identically.  bf16 rows travel as
-    # f32 arrays (exact).
+    # (L, n_pages, P, Kh, D), and on an int8 pool the (L, n_pages) scales,
+    # so a handle exported by the reference engine imports here and
+    # continues token-identically.  bf16 rows travel as f32 arrays
+    # (exact), int8 rows as int8.  The dense layout migrates nothing.
 
     def export_entry(self, uid: int) -> Optional[Dict]:
-        if uid not in self.kv.tables:
+        if not self.paged or uid not in self.kv.tables:
             return None
         ex = self.kv.export_pages(uid)
         pages = self._tensor(np.asarray(ex.pages, np.int64))
 
-        def rows(name):
-            r = self.cache[name][:, pages].cpu()
+        def rows(arr):
+            r = arr[:, pages].cpu()
             return (r.float() if r.dtype == torch.bfloat16 else r).numpy()
 
         handle = {"engine": "slot", "uid": uid, "active": ex.active,
-                  "kv": ex, "kv_quant": None,
-                  "pages_k": rows("k"), "pages_v": rows("v")}
+                  "kv": ex, "kv_quant": self.kv_quant,
+                  "pages_k": rows(self.cache["k"]),
+                  "pages_v": rows(self.cache["v"])}
+        if self.kv_quant:
+            handle["scales_k"] = rows(self.kv_scales["k"])
+            handle["scales_v"] = rows(self.kv_scales["v"])
         if ex.active:
             sel = np.flatnonzero((self.slots.uid == uid) & self.slots.active)
             assert sel.size == 1, (uid, sel)
@@ -399,12 +503,13 @@ class SlotEngine:
 
     def import_entry(self, handle: Dict) -> bool:
         """Land a migrated entry with its KV; False (engine unchanged) when
-        it cannot accept: int8 pages, stale KV under strict sync, no free
-        slot, or an exhausted pool."""
-        if handle.get("engine") != "slot":
+        it cannot accept: dense layout, pages of the other kind (int8 and
+        fp pools do not mix page bytes), stale KV under strict sync, no
+        free slot, or an exhausted pool."""
+        if handle.get("engine") != "slot" or not self.paged:
             return False
-        if handle.get("kv_quant") is not None:
-            return False    # int8 and fp pools do not mix page bytes
+        if handle.get("kv_quant") != self.kv_quant:
+            return False
         ex = handle["kv"]
         if not self.kv.retain_across_sync and ex.version != self.kv.version:
             return False
@@ -415,10 +520,14 @@ class SlotEngine:
         except PoolExhausted:
             return False
         idx = self._tensor(np.asarray(pages, np.int64))
+        rows_dtype = np.int8 if self.kv_quant else np.float32
         for name in ("k", "v"):
-            rows = np.asarray(handle[f"pages_{name}"], np.float32)
+            rows = np.asarray(handle[f"pages_{name}"], rows_dtype)
             pool = self.cache[name]
             pool[:, idx] = self._tensor(rows).to(pool.dtype)
+            if self.kv_quant:
+                self.kv_scales[name][:, idx] = self._tensor(
+                    np.asarray(handle[f"scales_{name}"], np.float32))
         if ex.active:
             s = handle["slot"]
             slot = self.slots.allocate(1)
@@ -437,4 +546,5 @@ class SlotEngine:
         sel = self.slots.select([uid])
         if sel.size:
             self.slots.release(sel)
-        self.kv.release_seq(uid)
+        if self.paged:
+            self.kv.release_seq(uid)

@@ -1,13 +1,16 @@
-"""The port's paged ``SlotEngine`` against the reference ``SlotEngine``.
+"""The port's ``SlotEngine`` against the reference ``SlotEngine``.
 
 Both engines serve the same prompts (numpy seed) with the same weights
 (the reference's ``init_params``, carried over by ``repro_torch.convert``)
 at temperature 0 on the Qwen3 smoke config in f32.  Greedy token streams
 must be identical and logprobs within 1e-4 (f32; sums taken in another
 order), and the page-pool counters equal, for the default path, fused
-sampling, packed prefill, a GRPO group sharing a prompt,
-oversubscription, interrupt -> resume without re-prefill, and a reference
-``export_entry`` handle imported into the port.
+sampling, packed prefill, the dense layout (``paged=False``), a GRPO
+group sharing a prompt, oversubscription, interrupt -> resume without
+re-prefill, and a reference ``export_entry`` handle imported into the
+port.  int8 pages (``kv_quant="int8"``): the quantiser exactly, pool
+bytes after prefill exactly, decode within the bounds stated in
+``test_int8_streams_within_bounds_of_reference``.
 """
 import ast
 import inspect
@@ -43,7 +46,8 @@ def _models():
         jm = jbuild(jcfg)
         jp = jm.init_params(jax.random.PRNGKey(0))
         tm = build_model(tcfg, device="cpu")
-        tp = convert.from_jax_params(jax.tree.map(np.asarray, jp))
+        tp = convert.from_jax_params(jax.tree.map(np.asarray, jp),
+                                     device="cpu")
         _M.update(jm=jm, jp=jp, tm=tm, tp=tp)
     return _M
 
@@ -183,9 +187,6 @@ def test_step_is_loop_free():
 def test_unported_options_raise():
     m = _models()
     base = dict(KW)
-    for kw in ({"paged": False}, {"kv_quant": "int8"}):
-        with pytest.raises(NotImplementedError):
-            SlotEngine(m["tm"], lambda: m["tp"], **base, **kw)
     # a windowed config is served on the CPU (plain version applies the
     # window) and the engine never launches a kernel there
     windowed = build_model(m["tm"].cfg.replace(
@@ -206,3 +207,224 @@ def test_sampled_decode_is_seeded_and_finite():
             for _ in range(2)]
     assert runs[0] == runs[1]
     assert all(np.isfinite(x[1]) for v in runs[0].values() for x in v)
+
+
+# -- the dense layout (paged=False) -------------------------------------------
+
+def test_dense_oversubscribed_streams_match_reference():
+    """10 ragged requests through 4 dense slots, against the reference's
+    dense engine: streams identical, logprobs within 1e-4."""
+    es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(10))]
+    je, te = engines(paged=False)
+    assert not te.paged and te.kv is None
+    assert_same_streams(serve(je, es), serve(te, es))
+    assert te.cache_stats() is None and je.cache_stats() is None
+    assert te.prefill_launches == je.prefill_launches
+
+
+def test_dense_and_paged_port_streams_identical():
+    """The ROADMAP gate of the dense layout: the port's dense and paged
+    engines give the same greedy streams, a GRPO group included (the
+    paged engine shares its prompt and copies on write)."""
+    prompts = _prompts(6, seed=7) + [_prompts(1, seed=8, lo=20, hi=21)[0]] * 3
+    es = [BufferEntry(uid=i, prompt=list(p)) for i, p in enumerate(prompts)]
+    m = _models()
+    out = [serve(SlotEngine(m["tm"], lambda: m["tp"], paged=paged, **KW), es)
+           for paged in (False, True)]
+    assert_same_streams(*out)
+
+
+def test_dense_engine_migrates_nothing_and_keeps_no_pool():
+    m = _models()
+    te = SlotEngine(m["tm"], lambda: m["tp"], paged=False, **KW)
+    es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(3))]
+    te.submit(es, 0)
+    te.step()
+    assert te.export_entry(0) is None
+    je = engines()[0]
+    je.submit(es[:1], 0)
+    je.step()
+    assert not te.import_entry(je.export_entry(0))
+    te.sync_weights(2)
+    assert sorted(te.interrupt(uids=[1])) == [1]
+    te.discard_entry(2)
+    assert te.active_uids() == [0] and te.version == 2
+    te.shutdown()
+    assert te.free_slots() == KW["capacity"]
+
+
+def test_options_that_need_pages_refuse_the_dense_layout():
+    m = _models()
+    for kw in ({"kv_quant": "int8"}, {"packed_prefill": True},
+               {"fused_sampling": True}):
+        with pytest.raises(ValueError, match="paged layout"):
+            SlotEngine(m["tm"], lambda: m["tp"], paged=False, **KW, **kw)
+    with pytest.raises(ValueError, match="kv_quant"):
+        SlotEngine(m["tm"], lambda: m["tp"], kv_quant="fp8", **KW)
+
+
+# -- int8 KV pages ------------------------------------------------------------
+
+def test_int8_scatter_quantises_like_reference_exactly():
+    """Both engines' ``_scatter_pages`` on one f32 sub-cache: int8 pool
+    and scale planes bit for bit (amax / 127 with a 1e-8 floor, round half
+    to even), an all-zero page and x.5 cells included."""
+    je, te = engines(kv_quant="int8")
+    cfg = te.model.cfg
+    rng = np.random.RandomState(13)
+    shape = (cfg.num_layers, 3, 48, cfg.num_kv_heads, cfg.resolved_head_dim)
+    sub = {n: rng.randn(*shape).astype(np.float32) for n in ("k", "v")}
+    sub["k"][:, 1, 16:32] = 0.0                 # an all-zero page
+    sub["v"][:, 0, :16] = np.round(sub["v"][:, 0, :16] * 2) / 2
+    rows, blks, phys = [0, 0, 1, 2, 2], [0, 2, 1, 0, 1], [3, 9, 4, 7, 1]
+    je._scatter_pages({n: jnp.asarray(a) for n, a in sub.items()},
+                      np.asarray(rows), np.asarray(blks), np.asarray(phys))
+    te._scatter_pages({n: torch.from_numpy(a) for n, a in sub.items()},
+                      rows, blks, phys)
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(te.cache[n].numpy(),
+                                      np.asarray(je.cache[n]))
+        np.testing.assert_array_equal(te.kv_scales[n].numpy(),
+                                      np.asarray(je.kv_scales[n]))
+    assert float(te.kv_scales["k"][0, 4]) == np.float32(1e-8) / 127
+
+
+@pytest.mark.parametrize("kw", [{}, {"packed_prefill": True}],
+                         ids=["bucketed", "packed"])
+def test_int8_pool_after_prefill_matches_reference(kw):
+    """A prefill wave (a GRPO group sharing its prompt included): the
+    whole int8 pool equals the reference engine's byte for byte; scales
+    to f32 rounding (rtol 1e-6), since a page's scale is its amax / 127
+    and the two frameworks compute the prefilled K/V with another sum
+    order (the quantiser itself is exact, test above)."""
+    prompts = _prompts(3, seed=9) + [_prompts(1, seed=10, lo=30, hi=31)[0]]
+    es = [BufferEntry(uid=i, prompt=list(p)) for i, p in enumerate(prompts)]
+    je, te = engines(kv_quant="int8", **kw)
+    assert te.cache["k"].dtype == torch.int8
+    for eng in (je, te):
+        eng.submit(es, 0)
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(te.cache[n].numpy(),
+                                      np.asarray(je.cache[n]))
+        np.testing.assert_allclose(te.kv_scales[n].numpy(),
+                                   np.asarray(je.kv_scales[n]), rtol=1e-6,
+                                   atol=0)
+    assert te.cache_stats() == je.cache_stats()
+    assert te.kv_scales["k"][:, 1:].ne(1.0).any()      # scales were written
+
+
+INT8_LP_TOL = 0.05
+
+
+def test_int8_streams_within_bounds_of_reference():
+    """Oversubscribed ragged requests on both int8 engines.  The port
+    requantises a written page before its kernel reads it, the reference
+    after it attends (``decode_step_paged``), so the logits differ by what
+    the quantised new row moves.  Bound: logprobs within 0.05 nats (the
+    attention outputs differ by at most ``KV_INT8_DECODE_ATOL``, 0.05, and
+    the smoke model's head is near 1-Lipschitz at these scales; the
+    largest gap measured here is about 0.015).  Greedy tokens are equal up
+    to the first place where they differ, and there only at a near-tie:
+    the reference's fp forward ranks the two tokens within 0.05 nats (the
+    random smoke model is nearly flat, top-2 gaps of 0.01 occur).  At
+    least 6 of the 8 streams must agree to the end.  Pool counters equal
+    where no stream diverged."""
+    m = _models()
+    es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(8))]
+    je, te = engines(kv_quant="int8")
+    want, got = serve(je, es), serve(te, es)
+    assert set(want) == set(got)
+    whole = 0
+    for e in es:
+        w, g = [x[0] for x in want[e.uid]], [x[0] for x in got[e.uid]]
+        n = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        same = len(w) if n is None else n
+        np.testing.assert_allclose([x[1] for x in got[e.uid][:same]],
+                                   [x[1] for x in want[e.uid][:same]],
+                                   atol=INT8_LP_TOL)
+        if n is None:
+            assert len(w) == len(g)
+            whole += 1
+            continue
+        toks = jnp.asarray([list(e.prompt) + w[:n]])
+        lp = jax.nn.log_softmax(m["jm"].forward(m["jp"], {"tokens": toks})[0]
+                                [0, -1].astype(jnp.float32))
+        assert abs(float(lp[w[n]] - lp[g[n]])) <= INT8_LP_TOL, (e.uid, n)
+    assert whole >= 6, whole
+    if whole == len(es):
+        assert te.cache_stats() == je.cache_stats()
+
+
+def test_int8_kv_decode_stays_close_to_fp():
+    """Counterpart of the reference's test of the same name: the int8
+    engine completes every request, and its first greedy token (decoded
+    off freshly quantised prefill pages) equals the fp engine's."""
+    m = _models()
+    es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(6, 11))]
+    fp = serve(SlotEngine(m["tm"], lambda: m["tp"], **KW), es)
+    q8 = SlotEngine(m["tm"], lambda: m["tp"], kv_quant="int8", **KW)
+    got = serve(q8, es)
+    assert set(got) == set(fp)
+    assert all(got[u][0][0] == fp[u][0][0] for u in fp)
+    assert all(len(v) == KW["max_gen_len"] for v in got.values())
+    assert q8.cache_stats()["pages_in_use"] == 0
+    q8.kv.check_invariants()
+
+
+def test_int8_scale_planes_follow_cow_and_migration():
+    """Scales travel with their pages: copy-on-write copies the scale,
+    an int8 handle goes from the reference to the port and back and
+    continues token-identically, and fp and int8 pools refuse each
+    other's handles."""
+    prompt = _prompts(1, seed=12, lo=10, hi=11)[0]
+    m = _models()
+    src = SlotEngine(m["tm"], lambda: m["tp"], kv_quant="int8",
+                     **dict(KW, capacity=2))
+    src.submit([BufferEntry(uid=i, prompt=list(prompt)) for i in range(2)], 0)
+    copies = src.kv.prepare_step([0, 1], [len(prompt) - 1] * 2)
+    assert copies
+    src._copy_pages(copies)
+    for s_, d_ in copies:
+        for n in ("k", "v"):
+            assert torch.equal(src.kv_scales[n][:, d_], src.kv_scales[n][:, s_])
+            assert torch.equal(src.cache[n][:, d_], src.cache[n][:, s_])
+
+    # reference -> port: continues with the reference's tokens
+    es = [BufferEntry(uid=i, prompt=p)
+          for i, p in enumerate(_prompts(2, seed=3, lo=20, hi=40))]
+    je, te = engines(kv_quant="int8")
+    je.submit(es, 0)
+    for _ in range(2):
+        je.step()
+    handle = je.export_entry(1)
+    assert handle["kv_quant"] == "int8" and handle["pages_k"].dtype == np.int8
+    assert te.import_entry(handle)
+    pages = list(te.kv.tables[1])
+    np.testing.assert_array_equal(te.kv_scales["k"][:, pages].numpy(),
+                                  handle["scales_k"])
+    np.testing.assert_array_equal(te.cache["v"][:, pages].numpy(),
+                                  handle["pages_v"])
+    jref = engines(kv_quant="int8")[0]
+    assert jref.import_entry(handle)
+    want, got = serve(jref, []), serve(te, [])
+    assert [x[0] for x in got[1]] == [x[0] for x in want[1]]
+    np.testing.assert_allclose([x[1] for x in got[1]],
+                               [x[1] for x in want[1]], atol=0.05)
+
+    # port -> reference, and the pools that must refuse
+    te2 = engines(kv_quant="int8")[1]
+    te2.submit([BufferEntry(uid=7, prompt=es[0].prompt)], 0)
+    te2.step()
+    h2 = te2.export_entry(7)
+    assert h2["kv_quant"] == "int8"
+    np.testing.assert_array_equal(
+        h2["scales_v"], te2.kv_scales["v"][:, h2["kv"].pages].numpy())
+    fp_j, fp_t = engines()
+    assert not fp_t.import_entry(h2) and not fp_j.import_entry(h2)
+    fp_j.submit([BufferEntry(uid=8, prompt=es[0].prompt)], 0)
+    assert not te2.import_entry(fp_j.export_entry(8))
+    je2 = engines(kv_quant="int8")[0]
+    assert je2.import_entry(h2)
+    te2.discard_entry(7)
+    assert te2.cache_stats()["pages_in_use"] == 0
+    assert len(serve(je2, [])[7]) == KW["max_gen_len"] - 1

@@ -2,9 +2,11 @@
 
 Imports the scenario tests of ``tests/engine_conformance.py`` unchanged
 and overrides its ``engine_factory`` fixture with port factories: the
-paged engine (``slot``), with packed prefill (``slot_packed``) and with
-fused greedy sampling (``slot_fused``), all on ``device="cpu"`` with the
-suite's tiny model (``tiny_lm_config``, d_model 32, 1 layer, 2 heads).
+paged engine (``slot``), with packed prefill (``slot_packed``), with
+fused greedy sampling (``slot_fused``), the dense layout
+(``slot_dense``) and int8 KV pages (``slot_int8``), all on
+``device="cpu"`` with the suite's tiny model (``tiny_lm_config``,
+d_model 32, 1 layer, 2 heads).
 
 Left out, with the reason:
 
@@ -63,8 +65,17 @@ def make_slot_fused(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
     return make_slot(capacity, max_gen, eos_id, fused_sampling=True)
 
 
+def make_slot_dense(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
+    return make_slot(capacity, max_gen, eos_id, paged=False)
+
+
+def make_slot_int8(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
+    return make_slot(capacity, max_gen, eos_id, kv_quant="int8")
+
+
 ENGINES = [("slot", make_slot), ("slot_packed", make_slot_packed),
-           ("slot_fused", make_slot_fused)]
+           ("slot_fused", make_slot_fused), ("slot_dense", make_slot_dense),
+           ("slot_int8", make_slot_int8)]
 
 
 @pytest.fixture(params=[name for name, _ in ENGINES])

@@ -1,9 +1,12 @@
 """Kernels of the PyTorch port (``repro_torch.kernels``) on the CPU.
 
 * Each plain version against the reference package's ``kernels/ref.py``
-  on the same numpy inputs, f32, atol = rtol = 1e-5.
-* One small case of each against the Pallas kernel in interpret mode,
+  on the same numpy inputs, f32, atol = rtol = 1e-5 (int8 quantization:
+  bytes and scales exactly).
+* Small cases of each against the Pallas kernel in interpret mode,
   through ``repro.kernels.ops`` as ``tests/test_kernels.py`` runs them.
+* int8 pages stay within ``KV_INT8_DECODE_ATOL`` of the fp decode on the
+  same pages.
 * The CUDA wrappers' guards: a CUDA-only argument and a non-CPU tensor
   raise instead of falling back (checked on meta tensors).
 * The CUDA kernels against their plain versions run on the card in
@@ -35,6 +38,18 @@ def _paged(rng, B, H, Kh, D, P, N, nb, lens=None):
     kv = (np.asarray(lens, np.int32) if lens is not None
           else rng.randint(0, nb * P + 1, size=B).astype(np.int32))
     return q, kp, vp, bt, kv
+
+
+def _dense(rng, B, S, H, Kh, D, lens):
+    q = rng.randn(B, H, D).astype(np.float32)
+    k = rng.randn(B, S, Kh, D).astype(np.float32)
+    v = rng.randn(B, S, Kh, D).astype(np.float32)
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+def _quantized(pages):
+    q8, sc = jref.quantize_pages_ref(jnp.asarray(pages))
+    return np.asarray(q8), np.asarray(sc)
 
 
 def _packed_seg(rng, B, S, P):
@@ -77,6 +92,78 @@ def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
                                            softcap=softcap)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("B,S,H,Kh,D,lens,softcap", [
+    (4, 64, 8, 2, 64, [0, 1, 37, 64], 0.0),     # kv_len 0, 1, 37, S
+    (3, 300, 16, 8, 128, [299, 5, 400], 0.0),   # S % 128 != 0, kv_len > S
+    (2, 48, 4, 4, 32, [17, 48], 30.0),           # softcap, G = 1
+    (2, 16, 8, 1, 16, [3, 16], 0.0),             # G = 8
+])
+def test_ragged_decode_plain_matches_reference(B, S, H, Kh, D, lens, softcap):
+    rng = np.random.RandomState(S + D)
+    q, k, v, kv = _dense(rng, B, S, H, Kh, D, lens)
+    out = ops.ragged_decode_attention(_t(q), _t(k), _t(v), _t(kv),
+                                      softcap=softcap)
+    want = jref.ragged_decode_attention_ref(
+        *map(jnp.asarray, (q, k, v, kv)), softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    assert not out[kv == 0].any()
+
+
+def test_quantize_and_dequantize_pages_match_reference():
+    """Bytes and scales exactly (round half to even in both; x.5 cells
+    included), an all-zero page at the 1e-8 scale floor, dequantized
+    pages exactly."""
+    rng = np.random.RandomState(8)
+    pages = rng.randn(6, 16, 2, 32).astype(np.float32)
+    pages[0] = 0.0                              # scale floor: 1e-8 / 127
+    pages[1, 0, 0, :3] = [127.0, 0.5, -2.5]     # scale 1: ties at .5
+    q8, sc = ref.quantize_pages_ref(_t(pages))
+    jq8, jsc = _quantized(pages)
+    assert q8.dtype == torch.int8 and sc.dtype == torch.float32
+    np.testing.assert_array_equal(q8.numpy(), jq8)
+    np.testing.assert_array_equal(sc.numpy(), jsc)
+    assert q8[1, 0, 0, :3].tolist() == [127, 0, -2]
+    assert not q8[0].any() and float(sc[0]) == np.float32(1e-8) / 127
+    np.testing.assert_array_equal(
+        ref.dequantize_pages_ref(q8, sc).numpy(),
+        np.asarray(jref.dequantize_pages_ref(jnp.asarray(jq8),
+                                             jnp.asarray(jsc))))
+
+
+@pytest.mark.parametrize("B,H,Kh,D,P,N,nb,softcap", [
+    (4, 8, 2, 64, 16, 9, 4, 0.0),
+    (2, 16, 8, 128, 16, 11, 5, 30.0),
+    (3, 4, 1, 32, 8, 6, 3, 0.0),
+])
+def test_paged_int8_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
+    rng = np.random.RandomState(N + D)
+    q, kp, vp, bt, kv = _paged(rng, B, H, Kh, D, P, N, nb)
+    kv[0] = 0
+    (kq, ksc), (vq, vsc) = _quantized(kp), _quantized(vp)
+    out = ops.paged_decode_attention_int8(
+        *map(_t, (q, kq, vq, ksc, vsc, bt, kv)), softcap=softcap)
+    want = jref.paged_decode_attention_int8_ref(
+        *map(jnp.asarray, (q, kq, vq, ksc, vsc, bt, kv)), softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    assert not out[0].any()
+
+
+def test_int8_decode_error_within_documented_atol():
+    """int8 pages from ``quantize_pages_ref`` keep the decode output within
+    ``KV_INT8_DECODE_ATOL`` of the fp decode on the same pages (the
+    reference's documented bound; the port keeps its own copy)."""
+    assert ref.KV_INT8_DECODE_ATOL == jref.KV_INT8_DECODE_ATOL
+    rng = np.random.RandomState(9)
+    q, kp, vp, bt, kv = _paged(rng, 4, 16, 8, 128, 16, 20, 4,
+                               lens=[1, 16, 40, 64])
+    (kq, ksc), (vq, vsc) = (ref.quantize_pages_ref(_t(a)) for a in (kp, vp))
+    out = ops.paged_decode_attention(_t(q), kq, vq, _t(bt), _t(kv),
+                                     k_scales=ksc, v_scales=vsc)
+    fp = ops.paged_decode_attention(*map(_t, (q, kp, vp, bt, kv)))
+    err = float((out - fp).abs().max())
+    assert 0 < err < ref.KV_INT8_DECODE_ATOL, err
 
 
 @pytest.mark.parametrize("B,S,H,Kh,D,window,softcap,packed", [
@@ -151,6 +238,34 @@ def test_paged_decode_plain_matches_pallas_interpret():
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("S,block_k,lens,softcap", [
+    (64, 64, [0, 1, 37, 64], 0.0),              # block_k = S
+    (48, 16, [5, 16, 48, 33], 20.0),            # 16-row blocks, skipped
+])
+def test_ragged_decode_plain_matches_pallas_interpret(S, block_k, lens,
+                                                      softcap):
+    """The Pallas kernel asserts S % block_k == 0, so its blocks are S or
+    16 rows here; the plain version takes any S."""
+    rng = np.random.RandomState(S)
+    q, k, v, kv = _dense(rng, 4, S, 8, 2, 32, lens)
+    want = jops.ragged_decode_attention(*map(jnp.asarray, (q, k, v, kv)),
+                                        block_k=block_k, softcap=softcap)
+    out = ops.ragged_decode_attention(*map(_t, (q, k, v, kv)),
+                                      softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
+def test_paged_int8_plain_matches_pallas_interpret():
+    rng = np.random.RandomState(10)
+    q, kp, vp, bt, kv = _paged(rng, 3, 4, 2, 32, 16, 6, 3, lens=[1, 20, 48])
+    (kq, ksc), (vq, vsc) = _quantized(kp), _quantized(vp)
+    want = jops.paged_decode_attention_int8(
+        *map(jnp.asarray, (q, kq, vq, ksc, vsc, bt, kv)))
+    out = ops.paged_decode_attention_int8(
+        *map(_t, (q, kq, vq, ksc, vsc, bt, kv)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
 def test_fused_sample_plain_matches_pallas_interpret():
     rng = np.random.RandomState(5)
     B, Dm, V = 2, 16, 300
@@ -186,6 +301,27 @@ def test_paged_decode_window_on_device_raises():
     assert ops.launch_counts() == before
 
 
+def test_ragged_window_and_int8_scales_on_device_raise():
+    q, kc = _meta(2, 4, 64), _meta(2, 40, 2, 64)
+    kv = _meta(2, dtype=torch.int32)
+    pages = _meta(5, 16, 2, 64, dtype=torch.int8)
+    bt = _meta(2, 3, dtype=torch.int32)
+    sc = _meta(5)
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.ragged_decode_attention(q, kc, kc, kv, window=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ragged_decode_attention(q, kc, kc, kv)
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.paged_decode_attention_int8(q, pages, pages, sc, sc, bt, kv,
+                                        window=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention_int8(q, pages, pages, sc, sc, bt, kv)
+    with pytest.raises(ValueError, match="neither"):  # one scale plane
+        ops.paged_decode_attention(q, pages, pages, bt, kv, k_scales=sc)
+    assert ops.launch_counts() == before
+
+
 def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(_meta(1, 8, 4, 64), _meta(1, 8, 2, 64),
@@ -202,7 +338,10 @@ def test_plain_path_counts_no_launch():
     ops.reset_launch_counts()
     ops.fused_sample(_t(rng.randn(2, 8).astype(np.float32)),
                      _t(rng.randn(8, 20).astype(np.float32)))
+    ops.ragged_decode_attention(*map(_t, _dense(rng, 1, 8, 2, 1, 8, [3])))
     assert ops.launch_counts() == {"paged_decode_attention": 0,
+                                   "paged_decode_attention_int8": 0,
+                                   "ragged_decode_attention": 0,
                                    "flash_attention": 0, "fused_sample": 0}
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA wrappers refuse what their kernels do not take.
+"""The port's CUDA wrappers refuse what their kernels do not take: the
+paged, dense (ragged) and int8-page decode kernels, and flash prefill.
 
 Marked ``gpu``; skips where no CUDA device is present (the kernels have no
 CPU mode).  Imports neither JAX nor the reference package, so it runs on
@@ -44,4 +45,51 @@ def test_cuda_wrappers_raise_on_what_kernels_do_not_take(dev):
                             torch.zeros((1, 4, 2, 64), device=dev,
                                         dtype=torch.bfloat16),
                             torch.zeros((1, 4, 2, 64), device=dev))
+    assert ops.launch_counts() == before
+
+
+def test_dense_and_int8_decode_wrappers_raise_on_what_kernels_do_not_take(
+        dev):
+    q = torch.zeros((2, 4, 64), device=dev)
+    kc = torch.zeros((2, 40, 2, 64), device=dev)
+    kv = torch.ones((2,), dtype=torch.int32, device=dev)
+    pages = torch.zeros((3, 16, 2, 64), dtype=torch.int8, device=dev)
+    sc = torch.ones((3,), device=dev)
+    bt = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    before = ops.launch_counts()
+    cases = [
+        # dense: D = 96, G = 3, bf16 cache under f32 q, int64 kv_len,
+        # a non-contiguous cache, a window
+        (ValueError, lambda: ops.ragged_decode_attention(
+            torch.zeros((2, 4, 96), device=dev),
+            torch.zeros((2, 40, 2, 96), device=dev),
+            torch.zeros((2, 40, 2, 96), device=dev), kv)),
+        (ValueError, lambda: ops.ragged_decode_attention(
+            torch.zeros((2, 6, 64), device=dev), kc, kc, kv)),
+        (ValueError, lambda: ops.ragged_decode_attention(
+            q, kc.bfloat16(), kc.bfloat16(), kv)),
+        (ValueError, lambda: ops.ragged_decode_attention(q, kc, kc,
+                                                         kv.long())),
+        (ValueError, lambda: ops.ragged_decode_attention(
+            q, kc.transpose(1, 2).contiguous().transpose(1, 2), kc, kv)),
+        (NotImplementedError, lambda: ops.ragged_decode_attention(
+            q, kc, kc, kv, window=4)),
+        # int8 pages: no scales, f64 scales, wrong scale length, int8 q,
+        # fp pages with scales, a window
+        (ValueError, lambda: ops.paged_decode_attention(q, pages, pages, bt,
+                                                        kv)),
+        (ValueError, lambda: ops.paged_decode_attention_int8(
+            q, pages, pages, sc.double(), sc.double(), bt, kv)),
+        (ValueError, lambda: ops.paged_decode_attention_int8(
+            q, pages, pages, sc[:2], sc[:2], bt, kv)),
+        (ValueError, lambda: ops.paged_decode_attention_int8(
+            q.to(torch.int8), pages, pages, sc, sc, bt, kv)),
+        (ValueError, lambda: ops.paged_decode_attention_int8(
+            q, pages.float(), pages.float(), sc, sc, bt, kv)),
+        (NotImplementedError, lambda: ops.paged_decode_attention_int8(
+            q, pages, pages, sc, sc, bt, kv, window=4)),
+    ]
+    for exc, call in cases:
+        with pytest.raises(exc):
+            call()
     assert ops.launch_counts() == before

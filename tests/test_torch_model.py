@@ -3,7 +3,8 @@
 Weights come from the reference's ``init_params`` and are carried over
 with ``repro_torch.convert``; inputs are numpy arrays from a seed fed to
 both packages.  Tolerance: atol 1e-4 (f32; only the order of sums
-differs between the frameworks).
+differs between the frameworks).  The int8 decode step has its own
+bounds, stated in its test.
 """
 import jax
 import jax.numpy as jnp
@@ -15,8 +16,10 @@ from repro.configs import qwen3_0_6b as JQ
 from repro.kernels.ref import gather_pages as jgather
 from repro.models import layers as JL
 from repro.models import transformer as JTF
+from repro.kernels.ref import quantize_pages_ref as jquantize
 from repro.models.model import build_model as jbuild
 from repro.rl.session import tiny_lm_config as jtiny
+from repro.rollout.engine import SlotEngine as JEngine
 from repro_torch import convert
 from repro_torch.configs import qwen3_0_6b as TQ
 from repro_torch.configs.base import get_config, tiny_lm_config
@@ -48,7 +51,8 @@ def _models(name):
         jm = jbuild(jcfg)
         jp = jm.init_params(jax.random.PRNGKey(1))
         tm = build_model(tcfg, device="cpu")
-        tp = convert.from_jax_params(jax.tree.map(np.asarray, jp))
+        tp = convert.from_jax_params(jax.tree.map(np.asarray, jp),
+                                     device="cpu")
         _CACHE[name] = (jm, jp, tm, tp)
     return _CACHE[name]
 
@@ -99,9 +103,9 @@ def test_convert_round_trips_exactly(dtype):
     cfg = JQ.smoke_config().replace(param_dtype=getattr(jnp, dtype))
     jn = jax.tree.map(np.asarray, jbuild(cfg).init_params(
         jax.random.PRNGKey(2)))
-    tp = convert.from_jax_params(jn)
+    tp = convert.from_jax_params(jn, device="cpu")
     back = convert.to_numpy(tp)
-    again = convert.from_jax_params(back)
+    again = convert.from_jax_params(back, device="cpu")
 
     def walk(a, t, b, t2):
         for k in a:
@@ -256,6 +260,99 @@ def test_paged_decode_step_matches_dense_decode_on_gathered_view(
                                        **ATOL)
 
 
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("return_hidden", [False, True])
+def test_dense_decode_step_matches_reference(name, return_hidden):
+    """The dense layout: logits (or hidden) and every cache row after the
+    step, the written rows included, against the reference's
+    ``decode_step`` on the same cache.  Slot 3 is inactive (kv_len 0)."""
+    jm, jp, tm, tp = _models(name)
+    cfg = jm.cfg
+    rng = np.random.RandomState(11)
+    B, S = 4, 40
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {n: (rng.randn(*shape) * 0.5).astype(np.float32)
+             for n in ("k", "v")}
+    kv_len = np.array([5, 16, 39, 0], np.int32)
+    token = rng.randint(0, cfg.vocab_size, size=B).astype(np.int32)
+    want, jc = JTF.decode_step(jp, cfg, jnp.asarray(token),
+                               {n: jnp.asarray(a) for n, a in cache.items()},
+                               jnp.asarray(kv_len),
+                               return_hidden=return_hidden)
+    tc = {n: _t(a) for n, a in cache.items()}
+    got, tc = tm.decode_step(tp, _t(token), tc, _t(kv_len),
+                             return_hidden=return_hidden)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]), **ATOL)
+        assert not np.array_equal(tc[n].numpy(), cache[n])
+
+
+def test_int8_paged_decode_step_against_reference_engine():
+    """One int8 ``decode_step_paged`` against the reference engine's
+    ``_paged_decode_fn`` on the same int8 pool and scales.
+
+    The reference attends over the unquantised new row and requantises
+    the written page afterwards; the port requantises first (same formula)
+    and its kernel reads the page quantised.  So:
+    * layer 0 (its K/V do not depend on attention): the pool's int8 bytes
+      equal; scales equal to f32 rounding (rtol 1e-6), since a scale that
+      grew is the new row's amax / 127 and the two frameworks compute that
+      row's f32 value with another sum order;
+    * deeper layers: rows the step did not write stay within one int8
+      quantum (the same values requantised under two scales a rounding
+      apart: each within half a quantum of them); the written row within
+      two, the second quantum for the new row's own f32 difference, which
+      the quantised read of layer 0 propagates (0.8 of a quantum here);
+    * greedy tokens equal and logprobs within 0.05 nats: the attention
+      outputs differ by at most ``KV_INT8_DECODE_ATOL`` (0.05) per element
+      and the head is near 1-Lipschitz at these scales (0.010 here).
+    """
+    jm, jp, tm, tp = _models("qwen3_smoke")
+    cfg = jm.cfg
+    pool, bt, kv_len, token = _paged_setup(jm, 6)
+    N, Lh = pool["k"].shape[1], cfg.num_layers
+    q8, sc = {}, {}
+    for n, a in pool.items():
+        qs = [jquantize(jnp.asarray(a[i])) for i in range(Lh)]
+        q8[n] = np.stack([np.asarray(x) for x, _ in qs])
+        sc[n] = np.stack([np.asarray(y) for _, y in qs])
+    je = JEngine(jm, lambda: jp, capacity=4, max_total_len=64, max_gen_len=4,
+                 eos_id=-1, temperature=0.0, kv_quant="int8", num_pages=N)
+    jtok, jlp, jc, js = je._paged_decode_fn(
+        jp, jnp.asarray(token), {n: jnp.asarray(a) for n, a in q8.items()},
+        {n: jnp.asarray(a) for n, a in sc.items()}, jnp.asarray(bt),
+        jnp.asarray(kv_len), jax.random.PRNGKey(0))
+    tpool = {n: _t(a) for n, a in q8.items()}
+    tsc = {n: _t(a) for n, a in sc.items()}
+    logits, _ = tm.decode_step_paged(tp, _t(token), tpool, _t(bt),
+                                     _t(kv_len), scales=tsc)
+    lps = torch.log_softmax(logits.float(), -1)
+    tok = lps.argmax(-1)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(lps.gather(1, tok[:, None])[:, 0].numpy(),
+                               np.asarray(jlp), atol=0.05, rtol=0)
+    P = pool["k"].shape[2]
+    written = bt[np.arange(4), kv_len // P]
+    for n in ("k", "v"):
+        got, want = tpool[n].numpy(), np.asarray(jc[n])
+        gs, ws = tsc[n].numpy(), np.asarray(js[n])
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(gs[0], ws[0], rtol=1e-6, atol=0)
+        assert not np.array_equal(got[0], q8[n][0])       # pages were written
+        deq_g = got[1:].astype(np.float32) * gs[1:, :, None, None, None]
+        deq_w = want[1:].astype(np.float32) * ws[1:, :, None, None, None]
+        quantum = np.maximum(gs[1:], ws[1:])[:, :, None, None, None]
+        err = np.abs(deq_g - deq_w) / quantum             # (L-1, N, P, ...)
+        for b in range(3):                                # active slots
+            r = kv_len[b] % P
+            page = err[:, written[b]]
+            assert page[:, r].max() <= 2.0, (n, b, page[:, r].max())
+            assert np.delete(page, r, axis=1).max() <= 1.0 + 1e-5, (n, b)
+        untouched = np.setdiff1d(np.arange(N), written)
+        np.testing.assert_array_equal(got[:, untouched], q8[n][:, untouched])
+
+
 def test_packed_prefill_kv_equals_solo_prefill():
     jm, jp, tm, tp = _models("qwen3_smoke")
     rng = np.random.RandomState(7)
@@ -294,3 +391,16 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
         build_model(cfg.replace(family="moe"), device="cpu")
+
+
+def test_convert_lands_on_the_card_unless_the_cpu_is_asked():
+    """``from_jax_params`` resolves its device as the entry points do:
+    the card by default; without one, only ``device="cpu"`` works."""
+    tree = {"a": np.ones((2, 3), np.float32), "b": {"c": np.zeros(4, np.int32)}}
+    if torch.cuda.is_available():
+        assert convert.from_jax_params(tree)["a"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.from_jax_params(tree)
+    out = convert.from_jax_params(tree, device="cpu")
+    assert out["b"]["c"].device.type == "cpu" and out["a"].shape == (2, 3)
