@@ -69,19 +69,34 @@ struct PagedRows {
 
 // int8 pages with one f32 scale per physical page (this layer's (N,) row
 // of the engine's (L, N) scale plane): float(q) * scale, in registers, as
-// the Pallas body dequantises `k_ref.astype(f32) * k_scale`.
-template <int E>
+// the Pallas body dequantises `k_ref.astype(f32) * k_scale`.  Row `last`
+// (the slot's new token) is read unquantised from `k_new`/`v_new`, in q's
+// dtype: the reference engine attends over the row it has just set in its
+// dequantised view and requantises the written page only after the step,
+// so the caller requantises after this kernel.
+template <typename T, int E>
 struct PagedInt8Rows {
   PagedRows<int8_t, E> rows;
   const float* ks;
   const float* vs;
+  const T* k_new;                            // the slot's new row, this head
+  const T* v_new;                            // plus the lane's first element
+  int last;
   __device__ __forceinline__ void load_k(int t, float (&x)[E]) const {
+    if (t == last) {                         // warp-uniform
+      load_vec<T, E>(k_new, x);
+      return;
+    }
     rows.load_k(t, x);
     const float s = ks[rows.page(t)];
 #pragma unroll
     for (int i = 0; i < E; ++i) x[i] *= s;
   }
   __device__ __forceinline__ void load_v(int t, float (&x)[E]) const {
+    if (t == last) {
+      load_vec<T, E>(v_new, x);
+      return;
+    }
     rows.load_v(t, x);
     const float s = vs[rows.page(t)];
 #pragma unroll

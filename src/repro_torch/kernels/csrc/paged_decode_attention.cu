@@ -12,9 +12,11 @@
 // the body and its design).  int8 pages halve the bytes of bf16 pages: a
 // lane loads D/32 bytes of a row (4 at D = 128) and multiplies them by the
 // row's page scale in registers, so the pool never exists in f32 in device
-// memory.  q and the output stay f32 or bf16.  The CTA reads the block
-// table itself; rows at or past kv_len are never read, kv_len == 0 gives
-// zeros.
+// memory.  q and the output stay f32 or bf16.  The int8 instantiation
+// reads each slot's new row (row kv_len - 1) unquantised from k_new/v_new,
+// as the reference engine attends before it requantises the written page.
+// The CTA reads the block table itself; rows at or past kv_len are never
+// read, kv_len == 0 gives zeros.
 
 #include <type_traits>
 
@@ -28,7 +30,8 @@ template <typename T, typename KV, int D, int G>
 __global__ void __launch_bounds__(kDecodeWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const KV* __restrict__ vp, const float* __restrict__ ks,
-                    const float* __restrict__ vs, const int* __restrict__ bt,
+                    const float* __restrict__ vs, const T* __restrict__ kn,
+                    const T* __restrict__ vn, const int* __restrict__ bt,
                     const int* __restrict__ kv_len, T* __restrict__ out,
                     int H, int Kh, int P, int nb, float scale, float softcap) {
   constexpr int E = D / 32;
@@ -41,8 +44,11 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                               row_stride};
   const int len = min(kv_len[b], nb * P);     // rows the table can reach
   if constexpr (std::is_same<KV, int8_t>::value) {
-    decode_attention_cta<T, D, G>(q, PagedInt8Rows<E>{rows, ks, vs}, out, b,
-                                  kh, H, len, scale, softcap);
+    const long long new_off = ((long long)b * Kh + kh) * D + lane * E;
+    decode_attention_cta<T, D, G>(
+        q, PagedInt8Rows<T, E>{rows, ks, vs, kn + new_off, vn + new_off,
+                               len - 1},
+        out, b, kh, H, len, scale, softcap);
   } else {
     decode_attention_cta<T, D, G>(q, rows, out, b, kh, H, len, scale,
                                   softcap);
@@ -51,7 +57,8 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
 template <typename T, typename KV>
 bool dispatch(int D, int G, const void* q, const void* kp, const void* vp,
-              const void* ks, const void* vs, const void* bt,
+              const void* ks, const void* vs, const void* kn,
+              const void* vn, const void* bt,
               const void* kv_len, void* out, int B, int H, int Kh, int P,
               int nb, float softcap, cudaStream_t s) {
   const float scale = 1.0f / sqrtf((float)D);
@@ -59,7 +66,8 @@ bool dispatch(int D, int G, const void* q, const void* kp, const void* vp,
   paged_decode_kernel<T, KV, DD, GG><<<dim3(Kh, B), kDecodeWarps * 32, 0, s>>>( \
       static_cast<const T*>(q), static_cast<const KV*>(kp),                  \
       static_cast<const KV*>(vp), static_cast<const float*>(ks),             \
-      static_cast<const float*>(vs), static_cast<const int*>(bt),            \
+      static_cast<const float*>(vs), static_cast<const T*>(kn),              \
+      static_cast<const T*>(vn), static_cast<const int*>(bt),                \
       static_cast<const int*>(kv_len), static_cast<T*>(out), H, Kh, P, nb,   \
       scale, softcap)
   RT_DECODE_SHAPES(D, G, RT_LAUNCH)
@@ -70,13 +78,15 @@ bool dispatch(int D, int G, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // q (B,H,D) of `dtype`; k/v pages (N,P,Kh,D) of `kv_dtype` (q's dtype, or
-// kI8 with k/v scales (N,) f32; the scales are ignored otherwise), all
-// contiguous; block tables (B,nb) int32; kv_len (B,) int32; out (B,H,D).
+// kI8 with k/v scales (N,) f32 and the new rows k/v_new (B,Kh,D) of
+// `dtype`; all four are ignored otherwise), all contiguous; block tables
+// (B,nb) int32; kv_len (B,) int32; out (B,H,D).
 // Returns the cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for a shape or dtype pair the kernel was not instantiated for).
 extern "C" int paged_decode_attention(const void* q, const void* kp,
                                       const void* vp, const void* ks,
-                                      const void* vs, const void* bt,
+                                      const void* vs, const void* kn,
+                                      const void* vn, const void* bt,
                                       const void* kv_len, void* out, int B,
                                       int H, int Kh, int D, int P, int nb,
                                       float softcap, int dtype, int kv_dtype,
@@ -85,13 +95,13 @@ extern "C" int paged_decode_attention(const void* q, const void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == kF32 && kv_dtype == kF32)
-    ok = dispatch<float, float>(D, G, q, kp, vp, ks, vs, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
+    ok = dispatch<float, float>(D, G, q, kp, vp, ks, vs, kn, vn, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
   else if (dtype == kBF16 && kv_dtype == kBF16)
-    ok = dispatch<__nv_bfloat16, __nv_bfloat16>(D, G, q, kp, vp, ks, vs, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
+    ok = dispatch<__nv_bfloat16, __nv_bfloat16>(D, G, q, kp, vp, ks, vs, kn, vn, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
   else if (dtype == kF32 && kv_dtype == kI8)
-    ok = dispatch<float, int8_t>(D, G, q, kp, vp, ks, vs, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
+    ok = dispatch<float, int8_t>(D, G, q, kp, vp, ks, vs, kn, vn, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
   else if (dtype == kBF16 && kv_dtype == kI8)
-    ok = dispatch<__nv_bfloat16, int8_t>(D, G, q, kp, vp, ks, vs, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
+    ok = dispatch<__nv_bfloat16, int8_t>(D, G, q, kp, vp, ks, vs, kn, vn, bt, kv_len, out, B, H, Kh, P, nb, softcap, s);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

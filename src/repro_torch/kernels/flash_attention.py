@@ -2,11 +2,15 @@
 
 Replaces the Pallas TPU kernel ``flash_attention`` (``_kernel``) in
 ``repro/kernels/flash_attention.py``.  Bound on the H100: operations, the
-causal flops over the bf16 tensor-core peak (989 TFLOP/s).  This first
-kernel stages 64-row K/V tiles in shared memory, visits only the tiles
-inside the causal range and the window, keeps the online softmax in f32
-and multiplies with f32 FMAs (no tensor cores yet); it masks a ragged S
-where the TPU kernel asserted S % 128 == 0.  See the source.
+causal flops over the bf16 tensor-core peak (989 TFLOP/s).  The bf16
+kernel puts both products on the tensor cores (``mma.sync.m16n8k16``,
+bf16 operands, f32 accumulators, P rounded to bf16 for P V), streams
+64-row K/V tiles through a two-stage ``cp.async`` ring, applies masks
+and softcap on the score fragments in registers and keeps the online
+softmax in f32; it visits only the tiles inside the causal range and
+the window, heaviest query tiles first, and masks a ragged S where the
+TPU kernel asserted S % 128 == 0.  f32 keeps an f32 FMA kernel (TF32
+would not hold its tolerance).  See the source.
 
 CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
 tensors launch the kernel or raise.

@@ -3,11 +3,15 @@
 Replaces the Pallas TPU kernel ``fused_sample`` (``_fused_sample_kernel``)
 in ``repro/kernels/ragged_decode_attention.py``.  Bound on the H100:
 bytes, the head W (Dm x V) read once per decode step (311 MB for
-Qwen3-0.6B in bf16, ~93 us at 3.35 TB/s).  Pass 1 stages a W tile once
-per 32 rows of the batch and writes each 128-wide vocab chunk's max,
-sum of exp and top-k; pass 2 merges the chunks per row with the lowest
-index first on ties.  W is read through its strides, so a tied head
-passes ``embed.T`` and is never transposed in memory.  See the source.
+Qwen3-0.6B in bf16, ~93 us at 3.35 TB/s).  The bf16 kernel streams W
+once: one persistent CTA per SM walks 128-wide vocab chunks through a
+4-tile ``cp.async`` ring, multiplies on the tensor cores
+(``mma.sync``) against x staged once per CTA, and carries a running
+logsumexp and top-k per row across its chunks; a second pass merges one
+partial per CTA, lowest index first on ties.  f32 (test shapes) keeps
+FMAs and one partial per chunk.  W is read through its strides, so a
+tied head passes ``embed.T`` and is never transposed in memory.  See the
+source.
 
 CPU tensors take the plain version (``ref.fused_sample_ref``); CUDA
 tensors launch the kernel or raise.
@@ -35,15 +39,19 @@ def _bind():
                        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for const in (lib.fused_sample_vocab_chunk, lib.fused_sample_max_k):
-            const.argtypes = []
-            const.restype = ctypes.c_int
+        lib.fused_sample_max_k.argtypes = []
+        lib.fused_sample_partials.argtypes = [ctypes.c_int] * 2
+        lib.fused_sample_bf16_rows_per_cta.argtypes = [ctypes.c_int] * 3
+        for fn in (lib.fused_sample_max_k, lib.fused_sample_partials,
+                   lib.fused_sample_bf16_rows_per_cta):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
-    """x (B, Dm); w (Dm, V), any strides (a tied head passes embed.T).
+    """x (B, Dm); w (Dm, V) read through its strides (a tied head passes
+    embed.T; in bf16 one stride must be 1 and the other a multiple of 8).
 
     Returns (vals (B, top_k) f32, idx (B, top_k) int32, lse (B, 1) f32):
     the top-k softcapped logits, their vocab indices (lowest first on
@@ -62,12 +70,22 @@ def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
     build.require(1 <= top_k <= min(V, lib.fused_sample_max_k()), NAME,
                   f"top_k must be in [1, {lib.fused_sample_max_k()}] and "
                   f"<= V, got {top_k}")
+    if code == build.DTYPE_CODES[torch.bfloat16]:
+        sd, sv = w.stride()
+        build.require((sd == 1 and sv % 8 == 0) or (sv == 1 and sd % 8 == 0),
+                      NAME, f"bf16 w needs one unit stride and the other a "
+                      f"multiple of 8, got strides {w.stride()}")
+        build.require(Dm % 8 == 0 and x.data_ptr() % 16 == 0
+                      and w.data_ptr() % 16 == 0, NAME,
+                      "bf16 needs Dm % 8 == 0 and 16-byte aligned x and w")
+        build.require(lib.fused_sample_bf16_rows_per_cta(B, Dm, top_k) > 0,
+                      NAME, f"Dm={Dm} too wide to stage x in shared memory")
     vals = torch.empty((B, top_k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, top_k), dtype=torch.int32, device=dev)
     lse = torch.empty((B, 1), dtype=torch.float32, device=dev)
     if B == 0:
         return vals, idx, lse
-    nc = -(-V // lib.fused_sample_vocab_chunk())
+    nc = lib.fused_sample_partials(V, code)
     pmax = torch.empty((B, nc), dtype=torch.float32, device=dev)
     psum = torch.empty((B, nc), dtype=torch.float32, device=dev)
     ptv = torch.empty((B, nc, top_k), dtype=torch.float32, device=dev)

@@ -35,7 +35,7 @@ def _bind():
     global _fn
     if _fn is None:
         fn = build.load(NAME).paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -45,36 +45,51 @@ def _bind():
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
                            softcap: float = 0.0, window: int = 0,
-                           k_scales=None, v_scales=None) -> torch.Tensor:
+                           k_scales=None, v_scales=None, k_new=None,
+                           v_new=None) -> torch.Tensor:
     """q (B, H, D); k/v_pages (N, P, Kh, D); block_tables (B, nb) int32;
     kv_len (B,) int32 -> (B, H, D).  Rows at or past ``kv_len`` are
     masked; ``kv_len == 0`` gives zeros.
 
     int8 pages come with ``k_scales``/``v_scales`` (N,) f32, one per
-    physical page; q and the output stay f32/bf16.  ``window`` is applied
+    physical page, and ``k_new``/``v_new`` (B, Kh, D) in q's dtype: each
+    slot's new row, read unquantised in place of row ``kv_len - 1`` (the
+    caller requantises the written page after the step, as the reference
+    engine does).  On the CPU the new rows may be left out (the pool is
+    then read as it is); on CUDA an int8 call needs them, and an fp call
+    takes none.  q and the output stay f32/bf16.  ``window`` is applied
     by the plain versions only: the kernel takes none, so a window on
     CUDA raises instead of being ignored."""
     quant = k_scales is not None
     if quant != (v_scales is not None):
         raise ValueError(f"{NAME}: pass both k_scales and v_scales or neither")
+    new = k_new is not None
+    if new != (v_new is not None):
+        raise ValueError(f"{NAME}: pass both k_new and v_new or neither")
+    if new and not quant:
+        raise ValueError(f"{NAME}: new rows (k_new/v_new) are for int8 "
+                         "pages only")
     name = NAME_INT8 if quant else NAME
     args = (q, k_pages, v_pages, block_tables, kv_len)
-    if build.all_on_cpu(*args, k_scales, v_scales):
+    if build.all_on_cpu(*args, k_scales, v_scales, k_new, v_new):
         if quant:
             return paged_decode_attention_int8_ref(
                 q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                kv_len, softcap=softcap, window=window)
+                kv_len, softcap=softcap, window=window, k_new=k_new,
+                v_new=v_new)
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           kv_len, softcap=softcap,
                                           window=window)
     if window:
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no sliding window (got {window})")
-    dev = build.require_cuda(name, *args, k_scales, v_scales)
+    dev = build.require_cuda(name, *args, k_scales, v_scales, k_new, v_new)
     code = build.dtype_code(name, q)
     kv_code = build.kv_dtype_code(name, q, k_pages, v_pages)
     build.require((kv_code == build.KV_INT8) == quant, name,
                   "int8 pages need k_scales and v_scales; fp pages take none")
+    build.require(new == quant, name,
+                  "int8 pages on CUDA need the new rows k_new and v_new")
     B, H, D = q.shape
     N, P, Kh, Dk = k_pages.shape
     nb = block_tables.shape[1]
@@ -93,7 +108,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     build.require(all(s.shape == (N,) and s.dtype == torch.float32
                       for s in scales), name,
                   f"k/v_scales must be ({N},) float32")
-    build.require(all(t.is_contiguous() for t in args + scales), name,
+    rows = (k_new, v_new) if quant else ()
+    build.require(all(r.shape == (B, Kh, D) and r.dtype == q.dtype
+                      for r in rows), name,
+                  f"k/v_new must be ({B}, {Kh}, {D}) of q's dtype")
+    build.require(all(t.is_contiguous() for t in args + scales + rows), name,
                   "all inputs must be contiguous")
     out = torch.empty_like(q)
     if B == 0:
@@ -101,6 +120,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     rc = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  k_scales.data_ptr() if quant else None,
                  v_scales.data_ptr() if quant else None,
+                 k_new.data_ptr() if quant else None,
+                 v_new.data_ptr() if quant else None,
                  block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
                  B, H, Kh, D, P, nb, float(softcap), code, kv_code,
                  build.stream_ptr(dev))
@@ -111,9 +132,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
 
 def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
                                 block_tables, kv_len, softcap: float = 0.0,
-                                window: int = 0) -> torch.Tensor:
+                                window: int = 0, k_new=None,
+                                v_new=None) -> torch.Tensor:
     """The reference's ``ops.paged_decode_attention_int8`` signature:
-    int8 pages with per-page f32 scales."""
+    int8 pages with per-page f32 scales (and the new rows, see above)."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
                                   softcap=softcap, window=window,
-                                  k_scales=k_scales, v_scales=v_scales)
+                                  k_scales=k_scales, v_scales=v_scales,
+                                  k_new=k_new, v_new=v_new)

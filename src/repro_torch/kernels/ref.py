@@ -62,14 +62,32 @@ def dequantize_pages_ref(pages: torch.Tensor, scales: torch.Tensor
 
 def paged_decode_attention_int8_ref(q, k_pages, v_pages, k_scales, v_scales,
                                     block_tables, kv_len,
-                                    softcap: float = 0.0, window: int = 0
-                                    ) -> torch.Tensor:
-    """int8 pages: dequantize the pools to f32, then the fp paged plain
-    version (in f32; the output takes q's dtype)."""
-    return paged_decode_attention_ref(
-        q, dequantize_pages_ref(k_pages, k_scales),
-        dequantize_pages_ref(v_pages, v_scales), block_tables, kv_len,
-        softcap=softcap, window=window)
+                                    softcap: float = 0.0, window: int = 0,
+                                    k_new=None, v_new=None) -> torch.Tensor:
+    """int8 pages: gather each slot's pages, dequantise them to f32 by
+    their page's scale, then the plain decode in f32 (the output takes
+    q's dtype).
+
+    ``k_new``/``v_new`` (B, Kh, D), in q's dtype: the slot's new row,
+    unquantised, read in place of row ``len - 1`` (``len = min(kv_len,
+    nb * P)``), as the reference engine attends over the row it has just
+    set in its dequantised view and requantises the page only after the
+    step (``repro/rollout/engine.py``, ``_paged_decode_fn``).  The view
+    stays f32, as the CUDA kernel keeps it (and the Pallas int8 body);
+    the reference engine rounds it to the compute dtype first, which in
+    f32 (the CPU parity tests) is the same value."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("pass both k_new and v_new or neither")
+    views = [gather_pages(dequantize_pages_ref(p, s), block_tables)
+             for p, s in ((k_pages, k_scales), (v_pages, v_scales))]
+    if k_new is not None:
+        S = views[0].shape[1]
+        last = torch.clamp(kv_len.long().to(q.device), max=S) - 1
+        has = torch.nonzero(last >= 0)[:, 0]
+        for g, new in zip(views, (k_new, v_new)):
+            g[has, last[has]] = new[has].float()
+    return L.decode_attention(q, views[0], views[1], kv_len, softcap=softcap,
+                              window=window)
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,

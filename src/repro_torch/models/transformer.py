@@ -311,13 +311,15 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     reads the pool with ``kv_len + 1`` rows.
 
     int8 pools come with ``scales`` {"k", "v"} (L, N) f32, one per
-    (layer, page).  The written page is requantised first
-    (``requantize_written_pages``, the reference's formula) and the int8
-    kernel then reads it, so the new row, and old rows whose page scale
-    grew, are read quantised; the reference attends over the unquantised
-    new row and requantises afterwards.  Layer 0's written pages and
-    scales match the reference exactly; the rest stays within one int8
-    quantum of it (``tests/test_torch_model.py``).
+    (layer, page), in the reference's order: the int8 kernel attends over
+    the pool's rows at their old scale with the new row unquantised in
+    place of row ``kv_len`` (``k_new``/``v_new``), and only then is the
+    written page requantised (``requantize_written_pages``, the
+    reference's formula), as the reference engine attends over its
+    dequantised view and requantises after the step.  In f32 the pool
+    and the logits match the reference's (``tests/test_torch_model.py``);
+    in bf16 the reference also rounds the dequantised view to bf16, the
+    kernel keeps it in f32.
 
     Returns (logits (B, V) or the final-normed hidden (B, d) with
     ``return_hidden``, pool)."""
@@ -331,20 +333,22 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
     def attend_layer(i, q, k, v):
         kp, vp = pool["k"][i], pool["v"][i]
+        attn = dict(softcap=cfg.attn.attn_softcap,
+                    window=cfg.attn.sliding_window)
         if scales is None:
             kp[page, row] = k[:, 0].to(kp.dtype)
             vp[page, row] = v[:, 0].to(vp.dtype)
-            ks = vs = None
-        else:
-            ks, vs = scales["k"][i], scales["v"][i]
-            requantize_written_pages(kp, ks, page, row, k[:, 0],
-                                     cfg.compute_dtype)
-            requantize_written_pages(vp, vs, page, row, v[:, 0],
-                                     cfg.compute_dtype)
+            o = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt,
+                                           n_valid, **attn)
+            return o[:, None]
+        ks, vs = scales["k"][i], scales["v"][i]
+        k_new = k[:, 0].to(q.dtype).contiguous()
+        v_new = v[:, 0].to(q.dtype).contiguous()
         o = ops.paged_decode_attention(
-            q[:, 0].contiguous(), kp, vp, bt, n_valid,
-            softcap=cfg.attn.attn_softcap, window=cfg.attn.sliding_window,
-            k_scales=ks, v_scales=vs)
+            q[:, 0].contiguous(), kp, vp, bt, n_valid, k_scales=ks,
+            v_scales=vs, k_new=k_new, v_new=v_new, **attn)
+        requantize_written_pages(kp, ks, page, row, k_new, cfg.compute_dtype)
+        requantize_written_pages(vp, vs, page, row, v_new, cfg.compute_dtype)
         return o[:, None]
 
     out = _decode_layers(params, cfg, token, kv_len, attend_layer,

@@ -9,8 +9,8 @@ sampling, packed prefill, the dense layout (``paged=False``), a GRPO
 group sharing a prompt, oversubscription, interrupt -> resume without
 re-prefill, and a reference ``export_entry`` handle imported into the
 port.  int8 pages (``kv_quant="int8"``): the quantiser exactly, pool
-bytes after prefill exactly, decode within the bounds stated in
-``test_int8_streams_within_bounds_of_reference``.
+bytes after prefill exactly, greedy decode streams identical with
+logprobs within the f32 bound stated at ``INT8_LP_TOL``.
 """
 import ast
 import inspect
@@ -313,46 +313,38 @@ def test_int8_pool_after_prefill_matches_reference(kw):
     assert te.kv_scales["k"][:, 1:].ne(1.0).any()      # scales were written
 
 
-INT8_LP_TOL = 0.05
+# f32 logprobs of the int8 engines.  Both attend in the same order (old
+# rows at their page's scale, the new row unquantised, then requantise),
+# so they differ only by f32 sum order, except where that order tips a
+# cell sitting at an int8 rounding tie to the next step (7 of the pool's
+# cells in this run, all one step); such a cell moves later logprobs by
+# a few 1e-4 nats (at most 4.2e-4 here, every other step below 5e-6).
+INT8_LP_TOL = 1e-3
+INT8_TIE_CELLS = 16
 
 
 def test_int8_streams_within_bounds_of_reference():
-    """Oversubscribed ragged requests on both int8 engines.  The port
-    requantises a written page before its kernel reads it, the reference
-    after it attends (``decode_step_paged``), so the logits differ by what
-    the quantised new row moves.  Bound: logprobs within 0.05 nats (the
-    attention outputs differ by at most ``KV_INT8_DECODE_ATOL``, 0.05, and
-    the smoke model's head is near 1-Lipschitz at these scales; the
-    largest gap measured here is about 0.015).  Greedy tokens are equal up
-    to the first place where they differ, and there only at a near-tie:
-    the reference's fp forward ranks the two tokens within 0.05 nats (the
-    random smoke model is nearly flat, top-2 gaps of 0.01 occur).  At
-    least 6 of the 8 streams must agree to the end.  Pool counters equal
-    where no stream diverged."""
-    m = _models()
+    """Oversubscribed ragged requests on both int8 engines: the port's
+    greedy streams equal the reference's on all 8 requests, logprobs
+    within ``INT8_LP_TOL``, pool counters equal, and the int8 pools equal
+    but for at most ``INT8_TIE_CELLS`` cells one int8 step apart (rounding
+    ties, see above)."""
     es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(8))]
     je, te = engines(kv_quant="int8")
     want, got = serve(je, es), serve(te, es)
     assert set(want) == set(got)
-    whole = 0
     for e in es:
-        w, g = [x[0] for x in want[e.uid]], [x[0] for x in got[e.uid]]
-        n = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
-        same = len(w) if n is None else n
-        np.testing.assert_allclose([x[1] for x in got[e.uid][:same]],
-                                   [x[1] for x in want[e.uid][:same]],
-                                   atol=INT8_LP_TOL)
-        if n is None:
-            assert len(w) == len(g)
-            whole += 1
-            continue
-        toks = jnp.asarray([list(e.prompt) + w[:n]])
-        lp = jax.nn.log_softmax(m["jm"].forward(m["jp"], {"tokens": toks})[0]
-                                [0, -1].astype(jnp.float32))
-        assert abs(float(lp[w[n]] - lp[g[n]])) <= INT8_LP_TOL, (e.uid, n)
-    assert whole >= 6, whole
-    if whole == len(es):
-        assert te.cache_stats() == je.cache_stats()
+        assert [x[0] for x in got[e.uid]] == [x[0] for x in want[e.uid]], \
+            e.uid
+        assert [x[2:] for x in got[e.uid]] == [x[2:] for x in want[e.uid]]
+        np.testing.assert_allclose([x[1] for x in got[e.uid]],
+                                   [x[1] for x in want[e.uid]],
+                                   atol=INT8_LP_TOL, rtol=0)
+    assert te.cache_stats() == je.cache_stats()
+    for n in ("k", "v"):
+        step = np.abs(te.cache[n].numpy().astype(np.int32)
+                      - np.asarray(je.cache[n]).astype(np.int32))
+        assert step.max() <= 1 and (step > 0).sum() <= INT8_TIE_CELLS, n
 
 
 def test_int8_kv_decode_stays_close_to_fp():

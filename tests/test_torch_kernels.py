@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import build, ops, ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -148,6 +149,60 @@ def test_paged_int8_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
         *map(jnp.asarray, (q, kq, vq, ksc, vsc, bt, kv)), softcap=softcap)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("B,H,Kh,D,P,N,nb,softcap,lens", [
+    (4, 8, 2, 64, 16, 9, 4, 0.0, [0, 1, 16, 64]),      # 64: the table's end
+    (3, 16, 8, 128, 16, 11, 3, 30.0, [17, 33, 5]),
+])
+def test_paged_int8_plain_with_new_rows_matches_reference_order(
+        B, H, Kh, D, P, N, nb, softcap, lens):
+    """The plain int8 decode with the slots' new rows against the
+    reference engine's order: gather and dequantise the pages, set each
+    slot's row ``kv_len - 1`` to its unquantised new row, then the jnp
+    ``decode_attention``.  The new rows are 3x the pages' scale, so
+    quantised they would have raised their page's scale."""
+    rng = np.random.RandomState(B * N + D)
+    q, kp, vp, bt, kv = _paged(rng, B, H, Kh, D, P, N, nb, lens=lens)
+    kn, vn = (3 * rng.randn(B, Kh, D).astype(np.float32) for _ in range(2))
+    (kq, ksc), (vq, vsc) = _quantized(kp), _quantized(vp)
+    out = ops.paged_decode_attention_int8(
+        *map(_t, (q, kq, vq, ksc, vsc, bt, kv)), softcap=softcap,
+        k_new=_t(kn), v_new=_t(vn))
+    views = []
+    for pages, sc, new in ((kq, ksc, kn), (vq, vsc, vn)):
+        g = np.array(jgather_view(pages, sc, bt))
+        for b in range(B):
+            if kv[b] > 0:
+                g[b, kv[b] - 1] = new[b]
+        views.append(jnp.asarray(g))
+    want = jlayers.decode_attention(jnp.asarray(q), *views, jnp.asarray(kv),
+                                    softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    as_is = ops.paged_decode_attention_int8(
+        *map(_t, (q, kq, vq, ksc, vsc, bt, kv)), softcap=softcap)
+    live = kv > 0
+    assert not np.allclose(out.numpy()[live], as_is.numpy()[live], atol=1e-3)
+    assert not out[~torch.from_numpy(live)].any()
+
+
+def jgather_view(pages, scales, bt):
+    """The reference engine's dense view of int8 pages, in f32."""
+    return jref.gather_pages(
+        jref.dequantize_pages_ref(jnp.asarray(pages), jnp.asarray(scales)),
+        jnp.asarray(bt))
+
+
+def test_paged_new_rows_need_int8_pages_and_each_other():
+    rng = np.random.RandomState(3)
+    q, kp, vp, bt, kv = map(_t, _paged(rng, 2, 4, 2, 16, 8, 5, 2))
+    rows = torch.zeros((2, 2, 16))
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_decode_attention(q, kp, vp, bt, kv, k_new=rows, v_new=rows)
+    (kq, ksc), (vq, vsc) = (ref.quantize_pages_ref(p) for p in (kp, vp))
+    with pytest.raises(ValueError, match="neither"):
+        ops.paged_decode_attention_int8(q, kq, vq, ksc, vsc, bt, kv,
+                                        k_new=rows)
 
 
 def test_int8_decode_error_within_documented_atol():

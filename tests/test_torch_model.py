@@ -288,25 +288,23 @@ def test_dense_decode_step_matches_reference(name, return_hidden):
         assert not np.array_equal(tc[n].numpy(), cache[n])
 
 
+INT8_TIE_CELLS = 2        # cells allowed one int8 step apart, per pool
+
+
 def test_int8_paged_decode_step_against_reference_engine():
     """One int8 ``decode_step_paged`` against the reference engine's
     ``_paged_decode_fn`` on the same int8 pool and scales.
 
-    The reference attends over the unquantised new row and requantises
-    the written page afterwards; the port requantises first (same formula)
-    and its kernel reads the page quantised.  So:
-    * layer 0 (its K/V do not depend on attention): the pool's int8 bytes
-      equal; scales equal to f32 rounding (rtol 1e-6), since a scale that
-      grew is the new row's amax / 127 and the two frameworks compute that
-      row's f32 value with another sum order;
-    * deeper layers: rows the step did not write stay within one int8
-      quantum (the same values requantised under two scales a rounding
-      apart: each within half a quantum of them); the written row within
-      two, the second quantum for the new row's own f32 difference, which
-      the quantised read of layer 0 propagates (0.8 of a quantum here);
-    * greedy tokens equal and logprobs within 0.05 nats: the attention
-      outputs differ by at most ``KV_INT8_DECODE_ATOL`` (0.05) per element
-      and the head is near 1-Lipschitz at these scales (0.010 here).
+    Both attend over the old rows at their page's scale with the new row
+    unquantised, and requantise the written page afterwards, so in f32:
+    * greedy tokens equal, logprobs within 1e-5 (f32 sum order);
+    * every layer's int8 bytes equal, except cells of a written page
+      that sit at a rounding tie, where the two frameworks' f32 sum
+      orders may round one step apart: at most ``INT8_TIE_CELLS`` per
+      pool, each one step (0 such cells in this case);
+    * scales to f32 rounding (rtol 1e-6): a scale that grew is the new
+      row's amax / 127, computed in another sum order;
+    * pages no slot wrote are untouched.
     """
     jm, jp, tm, tp = _models("qwen3_smoke")
     cfg = jm.cfg
@@ -331,24 +329,20 @@ def test_int8_paged_decode_step_against_reference_engine():
     tok = lps.argmax(-1)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
     np.testing.assert_allclose(lps.gather(1, tok[:, None])[:, 0].numpy(),
-                               np.asarray(jlp), atol=0.05, rtol=0)
-    P = pool["k"].shape[2]
-    written = bt[np.arange(4), kv_len // P]
+                               np.asarray(jlp), atol=1e-5, rtol=0)
+    written = bt[np.arange(4), kv_len // pool["k"].shape[2]]
     for n in ("k", "v"):
         got, want = tpool[n].numpy(), np.asarray(jc[n])
         gs, ws = tsc[n].numpy(), np.asarray(js[n])
-        np.testing.assert_array_equal(got[0], want[0])
-        np.testing.assert_allclose(gs[0], ws[0], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=0)
+        diff = got != want
+        assert diff.sum() <= INT8_TIE_CELLS, (n, int(diff.sum()))
+        if diff.any():
+            pages = np.nonzero(diff)[1]
+            assert np.all(np.abs(got[diff].astype(np.int32)
+                                 - want[diff].astype(np.int32)) == 1), n
+            assert set(pages.tolist()) <= set(written.tolist()), (n, pages)
         assert not np.array_equal(got[0], q8[n][0])       # pages were written
-        deq_g = got[1:].astype(np.float32) * gs[1:, :, None, None, None]
-        deq_w = want[1:].astype(np.float32) * ws[1:, :, None, None, None]
-        quantum = np.maximum(gs[1:], ws[1:])[:, :, None, None, None]
-        err = np.abs(deq_g - deq_w) / quantum             # (L-1, N, P, ...)
-        for b in range(3):                                # active slots
-            r = kv_len[b] % P
-            page = err[:, written[b]]
-            assert page[:, r].max() <= 2.0, (n, b, page[:, r].max())
-            assert np.delete(page, r, axis=1).max() <= 1.0 + 1e-5, (n, b)
         untouched = np.setdiff1d(np.arange(N), written)
         np.testing.assert_array_equal(got[:, untouched], q8[n][:, untouched])
 
