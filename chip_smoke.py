@@ -10,9 +10,12 @@ Phases, each printing one JSON line:
 1. ``kernels``: build the five CUDA kernels from ``src/repro_torch/
    kernels/csrc`` and hold each against its plain PyTorch version on the
    card, at the serve phase's shapes and at edge shapes, with the
-   tolerance stated beside each case; time kernel, plain version and a
-   PyTorch yardstick (``library_ms``, never called by the port) with
-   CUDA events.
+   tolerance stated beside each case (the decode kernels also at the
+   edges of their row splits); check that no decode instantiation
+   spills registers; time the wrapper (``ms``), the device time of the
+   launches one call makes (``kernel_ms``, torch.profiler), the plain
+   version and a PyTorch yardstick (``library_ms``, never called by the
+   port).
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -30,9 +33,10 @@ Phases, each printing one JSON line:
    main and dense paths in bf16.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
-bf16 flash and fused-head kernels rebuilt from text edits of their
-committed sources (another design choice, or one part removed) and timed
-at the serve shapes, to show where their time goes.
+bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
+rebuilt from text edits of their committed sources (another design
+choice, or one part removed) and timed through their C entry points at
+the serve shapes, to show where their time goes.
 
 Then the ``kernels`` summary line, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Any failed
@@ -55,10 +59,16 @@ OUT = ROOT / "chiprun_out"
 PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, non-TF32 f32
 FAILURES = []
+LINES = OUT / "chip_smoke_all.jsonl"       # every emitted line of this run
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and keep it in the output directory ``OUT``
+    (a long run's output may be read only from its end)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LINES, "a") as f:
+        f.write(line + "\n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -84,6 +94,47 @@ def cuda_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, n: int = 20):
+    """Device time of the kernels one call of ``fn`` launches, summed
+    (torch.profiler's CUDA kernel durations over ``n`` calls, divided by
+    n), and per kernel its launches and device ms per call: the kernel
+    without the host time of its wrapper, which ``cuda_ms`` times back to
+    back."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    # a profile now and then comes back without its device events (one
+    # of 32 in one run, a kernel that the next profile saw); up to three
+    # profiles, and no device time in all three fails the run
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages()
+                if r.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+        if ms > 0:
+            break
+    check(ms > 0, f"profiler saw no device time for {fn}")
+    return ms, {r.key[:60]: {"launches": r.count / n,
+                             "ms": r.self_device_time_total / 1e3 / n}
+                for r in rows}
+
+
+def timings(torch, fn, plain, library, ms_reps=(7, 10), plain_reps=(5, 3)):
+    """ms (wrapper, CUDA events), kernel_ms (device time of the call's
+    launches), plain_ms and library_ms, measured in this run."""
+    ms = cuda_ms(torch, fn, *ms_reps)          # before the profiler runs
+    kernel_ms, per_call = device_ms(torch, fn)
+    return dict(ms=ms, kernel_ms=kernel_ms,
+                kernels_per_call=per_call,
+                plain_ms=cuda_ms(torch, plain, *plain_reps),
+                library_ms=cuda_ms(torch, library, reps=5, inner=3))
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +231,60 @@ BF16_FUNCTIONS = {
     "flash_attention": ("flash_attention", r"flash_tc_kernel"),
     "fused_sample": ("fused_sample", r"sample_tc_kernel"),
     "paged_decode_attention": ("paged_decode_attention",
-                               r"paged_decode_kernelI13__nv_bfloat16S"),
+                               r"decode_split_kernelI13__nv_bfloat16S"),
     "paged_decode_attention_int8": ("paged_decode_attention",
-                                    r"paged_decode_kernelI13__nv_bfloat16a"),
+                                    r"decode_split_kernelI13__nv_bfloat16a"),
     "ragged_decode_attention": ("ragged_decode_attention",
-                                r"ragged_decode_kernelI13__nv_bfloat16"),
+                                r"decode_split_kernelI13__nv_bfloat16"),
 }
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
+# decode kernel -> (library, regex of every instantiation: f32 and bf16,
+# D 64/128, G 1/2/4/8, and the merge pass)
+DECODE_FUNCTIONS = {
+    "paged_decode_attention": ("paged_decode_attention",
+                               r"decode_split_kernelI(ff|13__nv_bfloat16S)"
+                               r"|decode_merge_kernel"),
+    "paged_decode_attention_int8": ("paged_decode_attention",
+                                    r"decode_split_kernelI(f|13__nv_bfloat16)a"
+                                    r"|decode_merge_kernel"),
+    "ragged_decode_attention": ("ragged_decode_attention",
+                                r"decode_(split|merge)_kernel"),
+}
+
+
+def ptxas_functions(log: str, pattern: str):
+    """function -> registers and spill bytes (stores + loads), from an
+    ``-Xptxas -v`` log, for the entry functions matching ``pattern``."""
+    out = {}
+    for blk in log.split("Compiling entry function '")[1:]:
+        fn = blk.split("'", 1)[0]
+        if re.search(pattern, fn):
+            r = re.search(r"Used (\d+) registers", blk)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", blk)
+            out[fn] = {"registers": int(r.group(1)) if r else None,
+                       "spill_bytes": (int(sp.group(1)) + int(sp.group(2))
+                                       if sp else None)}
+    return out
+
+
+def decode_registers(build):
+    """Registers and spills of every decode instantiation; checked: 16
+    split-pass instantiations per kernel, none spills."""
+    out = {}
+    for name, (lib, pat) in DECODE_FUNCTIONS.items():
+        fns = ptxas_functions(build.ptxas_report(lib), pat)
+        n_split = sum("decode_split_kernel" in fn for fn in fns)
+        spill = sum(v["spill_bytes"] or 0 for v in fns.values())
+        check(n_split == 16 and all(v["spill_bytes"] is not None
+                                    for v in fns.values()),
+              f"{name}: {n_split} split instantiations in the ptxas log")
+        check(spill == 0, f"{name}: register spills {fns}")
+        out[name] = {"functions": len(fns),
+                     "max_registers": max((v["registers"] or 0
+                                           for v in fns.values()), default=None),
+                     "spill_bytes": spill, "per_function": fns}
+    return out
 
 
 def sass_and_registers(build):
@@ -202,17 +300,7 @@ def sass_and_registers(build):
         sass[lib] = {blk.split(None, 1)[0]: len(TENSOR_CORE_OPS.findall(blk))
                      for blk in txt.split("Function : ")[1:] if blk.strip()}
     for name, (lib, pat) in BF16_FUNCTIONS.items():
-        log = build.ptxas_report(lib)
-        regs = {}
-        for blk in log.split("Compiling entry function '")[1:]:
-            fn = blk.split("'", 1)[0]
-            if re.search(pat, fn):
-                r = re.search(r"Used (\d+) registers", blk)
-                sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                               r"loads", blk)
-                regs[fn] = {"registers": int(r.group(1)) if r else None,
-                            "spill_bytes": (int(sp.group(1)) + int(sp.group(2))
-                                            if sp else None)}
+        regs = ptxas_functions(build.ptxas_report(lib), pat)
         fns = {fn: n for fn, n in sass[lib].items() if re.search(pat, fn)}
         out[name] = {"functions": len(fns),
                      "tensor_core_ops": sum(fns.values()),
@@ -243,6 +331,11 @@ def phase_kernels(torch, dev, report):
         check(got["spill_bytes"] == 0, f"{name}: bf16 register spills {got}")
     for name in sass:
         report.setdefault(name, {})["sass_bf16"] = sass[name]
+    regs = decode_registers(build)
+    (OUT / "decode_registers.json").write_text(json.dumps(regs, indent=1))
+    for name, r in regs.items():
+        report[name]["registers"] = {k: v for k, v in r.items()
+                                     if k != "per_function"}
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
 
@@ -273,8 +366,15 @@ def phase_kernels(torch, dev, report):
     # q/sqrt(D) and the softmax weights to bf16 before its products, the
     # kernel (like the Pallas body) keeps them in f32; outputs are O(1).
     import numpy as np
-    rng = np.random.RandomState(11)
-    serve_lens = rng.randint(64, 1025, size=32) + rng.randint(0, 129, size=32)
+    from repro_torch.kernels import paged_decode_attention as pdm
+    serve_lens = np.asarray(serve_decode_lens())
+    # edges of the split-KV decode (shared by the three decode kernels):
+    # kv_len around and at whole splits of SR rows, one slot over every
+    # split of a 2048-row table, 33 slots, G = 8 with softcap across splits
+    SR = pdm.split_rows()
+    edges = [SR - 1, SR, SR + 1, 2 * SR]
+    b33 = np.random.RandomState(12).randint(1, 1500, size=33).tolist()
+    g8 = [600, 2 * SR + 7, 5]
     pd_cases = [
         ("serve_b32_bf16", bf16, serve_lens.tolist(), 16, 8, 128, 0.0),
         ("serve_b32_f32", f32, serve_lens.tolist(), 16, 8, 128, 0.0),
@@ -283,6 +383,14 @@ def phase_kernels(torch, dev, report):
         ("d64_g4_softcap_f32", f32, [5, 16, 33, 300], 8, 2, 64, 30.0),
         ("d64_g1_bf16", bf16, [17, 129, 1], 4, 4, 64, 0.0),
         ("d128_g8_softcap_bf16", bf16, [100, 256, 31], 8, 1, 128, 30.0),
+        ("split_edges_bf16", bf16, edges, 16, 8, 128, 0.0),
+        ("split_edges_f32", f32, edges, 16, 8, 128, 0.0),
+        ("b1_2048_rows_bf16", bf16, [2048], 16, 8, 128, 0.0),
+        ("b1_2048_rows_f32", f32, [2048], 16, 8, 128, 0.0),
+        ("b33_kh8_bf16", bf16, b33, 16, 8, 128, 0.0),
+        ("g8_softcap_splits_bf16", bf16, g8, 8, 1, 128, 30.0),
+        ("d64_g8_softcap_splits_f32", f32, [600, SR + 1, 5], 8, 1, 64, 30.0),
+        ("d64_g2_split_edges_bf16", bf16, edges, 8, 4, 64, 0.0),
     ]
     serve_pd = None
     for name, dt, lens, H, Kh, D, cap in pd_cases:
@@ -319,10 +427,8 @@ def phase_kernels(torch, dev, report):
     del kg
     report["paged_decode_attention"].update(
         max_abs_err=row["max_abs_err"], tol=row["tol"],
-        ms=cuda_ms(torch, lambda: ops.paged_decode_attention(*args)),
-        plain_ms=cuda_ms(torch, lambda: ref.paged_decode_attention_ref(*args),
-                         reps=5, inner=3),
-        library_ms=cuda_ms(torch, library, reps=5, inner=3),
+        **timings(torch, lambda: ops.paged_decode_attention(*args),
+                  lambda: ref.paged_decode_attention_ref(*args), library),
         **bound(nbytes, flops),
         shape=dict(B=B, H=H, Kh=Kh, D=D, P=16, live_rows=live))
 
@@ -345,6 +451,11 @@ def phase_kernels(torch, dev, report):
         ("d64_g4_softcap_s64_f32", f32, [5, 16, 33, 64], 64, 8, 2, 64, 30.0),
         ("d64_g1_s300_bf16", bf16, [17, 129, 1], 300, 4, 4, 64, 0.0),
         ("d128_g8_softcap_bf16", bf16, [100, 256, 31], 300, 8, 1, 128, 30.0),
+        ("split_edges_bf16", bf16, edges, 2 * SR, 16, 8, 128, 0.0),
+        ("split_edges_f32", f32, edges, 2 * SR, 16, 8, 128, 0.0),
+        ("b1_s2048_bf16", bf16, [2048], 2048, 16, 8, 128, 0.0),
+        ("b33_kh8_s1500_bf16", bf16, b33, 1500, 16, 8, 128, 0.0),
+        ("g8_softcap_splits_s700_bf16", bf16, g8, 700, 8, 1, 128, 30.0),
     ]
     serve_rd = None
     for name, dt, lens, S, H, Kh, D, cap in rd_cases:
@@ -376,12 +487,10 @@ def phase_kernels(torch, dev, report):
             < kvl[:, None])[:, None, None, :]
     report["ragged_decode_attention"].update(
         max_abs_err=row["max_abs_err"], tol=row["tol"],
-        ms=cuda_ms(torch, lambda: ops.ragged_decode_attention(*args)),
-        plain_ms=cuda_ms(torch,
-                         lambda: ref.ragged_decode_attention_ref(*args),
-                         reps=5, inner=3),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask), reps=5, inner=3),
+        **timings(torch, lambda: ops.ragged_decode_attention(*args),
+                  lambda: ref.ragged_decode_attention_ref(*args),
+                  lambda: F.scaled_dot_product_attention(
+                      q[:, :, None], kt, vt, attn_mask=mask)),
         **bound(nbytes, 4 * live * H * D),
         shape=dict(B=B, H=H, Kh=Kh, D=D, S=S, live_rows=live,
                    library="SDPA, key mask, cache pre-transposed"))
@@ -417,6 +526,20 @@ def phase_kernels(torch, dev, report):
          "raise"),
         ("new_row_raises_scale_f32", f32, [40, 16, 33, 1], 16, 8, 128, 30.0,
          "raise"),
+        ("split_edges_bf16", bf16, edges, 16, 8, 128, 0.0, None),
+        ("b1_2048_rows_bf16", bf16, [2048], 16, 8, 128, 0.0, None),
+        ("b33_kh8_bf16", bf16, b33, 16, 8, 128, 0.0, None),
+        # the new row (kv_len - 1) the first row of a split (the split then
+        # reads no pool row), and the last row of a split
+        ("new_row_first_of_split_f32", f32, [SR + 1, 2 * SR + 1, 1], 16, 8,
+         128, 0.0, None),
+        ("new_row_first_of_split_bf16", bf16, [SR + 1, 2 * SR + 1, 1], 16, 8,
+         128, 0.0, None),
+        ("new_row_last_of_split_f32", f32, [SR, 2 * SR, 3 * SR], 16, 8, 128,
+         0.0, None),
+        ("g8_softcap_splits_bf16", bf16, g8, 8, 1, 128, 30.0, None),
+        ("d64_g4_softcap_splits_f32", f32, [600, SR + 1, 5], 8, 2, 64, 30.0,
+         None),
     ]
     serve_i8 = None
     for name, dt, lens, H, Kh, D, cap, special in i8_cases:
@@ -487,12 +610,10 @@ def phase_kernels(torch, dev, report):
                                               deq(v8, vs), attn_mask=mask)
     report["paged_decode_attention_int8"].update(
         max_abs_err=row["max_abs_err"], tol=row["tol"],
-        ms=cuda_ms(torch,
-                   lambda: ops.paged_decode_attention_int8(*args, **new)),
-        plain_ms=cuda_ms(
-            torch, lambda: ref.paged_decode_attention_int8_ref(*args, **new),
-            reps=5, inner=3),
-        library_ms=cuda_ms(torch, library, reps=5, inner=3),
+        **timings(torch,
+                  lambda: ops.paged_decode_attention_int8(*args, **new),
+                  lambda: ref.paged_decode_attention_int8_ref(*args, **new),
+                  library),
         **bound(nbytes, 4 * live * H * D),
         shape=dict(B=B, H=H, Kh=Kh, D=D, P=P, live_rows=live,
                    live_pages=live_pages, q="bfloat16"))
@@ -572,12 +693,11 @@ def phase_kernels(torch, dev, report):
     kt, vt = kt.repeat_interleave(H // Kh, 1), vt.repeat_interleave(H // Kh, 1)
     report["flash_attention"].update(
         max_abs_err=row["max_abs_err"], tol=row["tol"], rtol=row["rtol"],
-        ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), reps=5,
-                   inner=3),
-        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
-                         reps=3, inner=2),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=5, inner=3),
+        **timings(torch, lambda: ops.flash_attention(q, k, v),
+                  lambda: ref.flash_attention_ref(q, k, v),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True),
+                  ms_reps=(5, 3), plain_reps=(3, 2)),
         **bound(nbytes, flops),
         shape=dict(B=B, S=S, H=H, Kh=Kh, D=D, causal_flops=flops))
     del qt, kt, vt
@@ -653,10 +773,8 @@ def phase_kernels(torch, dev, report):
         return torch.topk(logits, 1), torch.logsumexp(logits, -1)
     report["fused_sample"].update(
         max_abs_err=serve_row["max_abs_err"], tol=serve_row["tol"],
-        ms=cuda_ms(torch, lambda: ops.fused_sample(x, w)),
-        plain_ms=cuda_ms(torch, lambda: ref.fused_sample_ref(x, w),
-                         reps=5, inner=3),
-        library_ms=cuda_ms(torch, library, reps=5, inner=3),
+        **timings(torch, lambda: ops.fused_sample(x, w),
+                  lambda: ref.fused_sample_ref(x, w), library),
         **bound(nbytes, flops),
         shape=dict(B=B, Dm=Dm, V=V, w="embed.T (strided)"))
     del embed, x, w
@@ -669,16 +787,19 @@ def phase_kernels(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Optional phase: design variants and ablations of the bf16 kernels
+# Optional phase: design variants and ablations of the kernels
 # ---------------------------------------------------------------------------
 
 def variant_sources():
-    """name -> (library, source): each a text edit of a committed kernel
-    source that changes one design choice or removes one part (the
+    """name -> (library, {file: text}): each a text edit of a committed
+    kernel source (the library's .cu, or for the decode kernels their
+    shared body) that changes one design choice or removes one part (the
     ablations compute wrong results on purpose and are only timed)."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     fa = (csrc / "flash_attention.cu").read_text()
     fs = (csrc / "fused_sample.cu").read_text()
+    pd = (csrc / "paged_decode_attention.cu").read_text()
+    body = (csrc / "decode_attention.cuh").read_text()
 
     def sub(src, *pairs):
         for a, b in pairs:
@@ -686,45 +807,82 @@ def variant_sources():
                 raise ValueError(f"variant edit not found: {a[:60]!r}")
             src = src.replace(a, b)
         return src
+
+    def decode(*pairs):
+        return ("paged_decode_attention",
+                {"paged_decode_attention.cu": pd,
+                 "decode_attention.cuh": sub(body, *pairs)})
     cfg = "kFlashWarps = 4, kFlashMT = 1, kFlashStages = 2"
     qk = "          mma_bf16(sc[mt][2 * p{}], qa[mt], kf[{}], kf[{}]);\n"
     pv = "          mma_bf16(o[mt][2 * p{}], pa[mt], vf[{}], vf[{}]);\n"
+    split = "kDecodeSplitRows = 256"
+    ring = "kDecodeStages = 4"
+    scores = ("      score_tile<KV, D, G, kQReg, QR>(st, it * TR, nk, qr, qs, sc,"
+              " ksr,\n                                      p.softcap, lane,"
+              " warp);\n")
+    pvs = "      pv_tile<KV, D, G>(st, (it - ntiles) * TR, nk, sc, acc, tid);\n"
     return {
-        "flash_attention/shipped": ("flash_attention", fa),
-        "flash_attention/2_mtiles_a_warp": ("flash_attention", sub(
-            fa, (cfg, cfg.replace("kFlashMT = 1", "kFlashMT = 2")))),
-        "flash_attention/3_stage_ring": ("flash_attention", sub(
-            fa, (cfg, cfg.replace("kFlashStages = 2", "kFlashStages = 3")))),
-        "flash_attention/ablate_qk_product": ("flash_attention", sub(
-            fa, (qk.format("", 0, 1), ""), (qk.format(" + 1", 2, 3), ""))),
-        "flash_attention/ablate_pv_product": ("flash_attention", sub(
-            fa, (pv.format("", 0, 1), ""), (pv.format(" + 1", 2, 3), ""))),
-        "flash_attention/ablate_exp": ("flash_attention", sub(
-            fa, ("fast_exp2(fmaf(sc[mt][j][e], mul, -ms))",
-                 "fmaf(sc[mt][j][e], mul, -ms)"))),
-        "fused_sample/shipped": ("fused_sample", fs),
-        "fused_sample/6_stage_ring": ("fused_sample", sub(
-            fs, ("kStages = 4", "kStages = 6"))),
-        "fused_sample/8_stage_ring": ("fused_sample", sub(
-            fs, ("kStages = 4", "kStages = 8"))),
+        "flash_attention/shipped": ("flash_attention", {
+            "flash_attention.cu": fa}),
+        "flash_attention/2_mtiles_a_warp": ("flash_attention", {
+            "flash_attention.cu": sub(
+                fa, (cfg, cfg.replace("kFlashMT = 1", "kFlashMT = 2")))}),
+        "flash_attention/3_stage_ring": ("flash_attention", {
+            "flash_attention.cu": sub(
+                fa, (cfg, cfg.replace("kFlashStages = 2",
+                                      "kFlashStages = 3")))}),
+        "flash_attention/ablate_qk_product": ("flash_attention", {
+            "flash_attention.cu": sub(fa, (qk.format("", 0, 1), ""),
+                                      (qk.format(" + 1", 2, 3), ""))}),
+        "flash_attention/ablate_pv_product": ("flash_attention", {
+            "flash_attention.cu": sub(fa, (pv.format("", 0, 1), ""),
+                                      (pv.format(" + 1", 2, 3), ""))}),
+        "flash_attention/ablate_exp": ("flash_attention", {
+            "flash_attention.cu": sub(
+                fa, ("fast_exp2(fmaf(sc[mt][j][e], mul, -ms))",
+                     "fmaf(sc[mt][j][e], mul, -ms)"))}),
+        "fused_sample/shipped": ("fused_sample", {"fused_sample.cu": fs}),
+        "fused_sample/6_stage_ring": ("fused_sample", {
+            "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 6"))}),
+        "fused_sample/8_stage_ring": ("fused_sample", {
+            "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 8"))}),
+        "paged_decode/shipped": decode(),
+        "paged_decode/split_128_rows": decode(
+            (split, split.replace("256", "128"))),
+        "paged_decode/split_512_rows": decode(
+            (split, split.replace("256", "512"))),
+        "paged_decode/2_stage_ring": decode((ring, ring.replace("4", "2"))),
+        "paged_decode/3_stage_ring": decode((ring, ring.replace("4", "3"))),
+        "paged_decode/ablate_scores": decode((scores, "")),
+        "paged_decode/ablate_pv": decode((pvs, "")),
     }
+
+
+def serve_decode_lens():
+    """kv_len of the 32 slots of the decode kernels' serve shape."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    return (rng.randint(64, 1025, size=32)
+            + rng.randint(0, 129, size=32)).tolist()
 
 
 def phase_variants(torch, dev):
     """Build every variant in parallel, then time each through its C
-    entry point (no wrapper) on the serve shapes' inputs, with its max
-    error against the plain version."""
+    entry point (no wrapper; ``ms`` with CUDA events back to back,
+    ``kernel_ms`` the device time of its launches) on the serve shapes'
+    inputs, with its max error against the plain version."""
     import ctypes
     from repro_torch.kernels import build, ref
     vdir = build.BUILD_DIR / "variants"
-    vdir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (lib, src) in variant_sources().items():
-        stem = name.replace("/", "__")
-        (vdir / f"{stem}.cu").write_text(src)
-        procs[name] = (lib, stem, subprocess.Popen(
+    for name, (lib, files) in variant_sources().items():
+        d = vdir / name.replace("/", "__")
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        procs[name] = (lib, d, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(vdir / f"{stem}.so"), str(vdir / f"{stem}.cu")],
+             "-o", str(d / "lib.so"), str(d / f"{lib}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device=dev).manual_seed(0)
@@ -740,13 +898,28 @@ def phase_variants(torch, dev):
     x = torch.randn((Bs, Dm), generator=g, device=dev).bfloat16()
     w = embed.T
     fs_want = ref.fused_sample_ref(x, w)
+    # decode serve shape, fp and int8 pages (with the slots' new rows)
+    dq, dkp, dvp, dbt, dkv = paged_inputs(torch, dev, torch.bfloat16,
+                                          serve_decode_lens(), 16, 8, 128)
+    _, k8, v8, ks8, vs8, _, _ = int8_inputs(ref, (dq, dkp, dvp, dbt, dkv))
+    kn, vn = (torch.randn((32, 8, 128), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    dec_want = {
+        "fp": ref.paged_decode_attention_ref(dq, dkp, dvp, dbt, dkv),
+        "int8": ref.paged_decode_attention_int8_ref(
+            dq, k8, v8, ks8, vs8, dbt, dkv, k_new=kn, v_new=vn)}
+    dec_in = {"fp": (dkp, dvp, None, None, None, None, 1),
+              "int8": (k8, v8, ks8, vs8, kn, vn, 2)}
+    dec_out = torch.empty_like(dq)
+    nb = dbt.shape[1]
     rows = {}
-    for name, (lib, stem, proc) in procs.items():
+    for name, (lib, d, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             check(False, f"variant {name}: nvcc failed\n{log[-2000:]}")
             continue
-        so = ctypes.CDLL(str(vdir / f"{stem}.so"))
+        so = ctypes.CDLL(str(d / "lib.so"))
+        calls = {}
         if lib == "flash_attention":
             fn = so.flash_attention
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -756,10 +929,11 @@ def phase_variants(torch, dev):
                 return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
                           fa_out.data_ptr(), B, S, H, Kh, D, 0, 0.0, 1,
                           stream)
-            rc = call()
-            torch.cuda.synchronize()
-            err = float((fa_out.float() - fa_want.float()).abs().max())
-        else:
+
+            def err():
+                return float((fa_out.float() - fa_want.float()).abs().max())
+            calls[name] = (call, err, r"flash_tc_kernelILi128E")
+        elif lib == "fused_sample":
             fn = so.fused_sample
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
                            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
@@ -779,21 +953,55 @@ def phase_variants(torch, dev):
                 return fn(x.data_ptr(), w.data_ptr(), w.stride(0),
                           w.stride(1), *[t.data_ptr() for t in outs], Bs, Dm,
                           V, 1, 0.0, 1, stream)
+
+            def err():
+                return max(float((outs[0] - fs_want[0]).abs().max()),
+                           float((outs[2] - fs_want[2]).abs().max()))
+            calls[name] = (call, err, r"sample_tc_kernelILi2ELb1E")
+        else:
+            fn = so.paged_decode_attention
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
+            so.paged_decode_splits.argtypes = [ctypes.c_int] * 2
+            ml, acc = build.split_scratch(so.paged_decode_splits(nb, 16), 32,
+                                          16, 128, dev)
+            for kind, (kp_, vp_, ks_, vs_, kn_, vn_, code) in dec_in.items():
+                def call(kp_=kp_, vp_=vp_, ks_=ks_, vs_=vs_, kn_=kn_,
+                         vn_=vn_, code=code):
+                    return fn(dq.data_ptr(), kp_.data_ptr(), vp_.data_ptr(),
+                              *[build.data_ptr(t) for t in (ks_, vs_, kn_,
+                                                            vn_)],
+                              dbt.data_ptr(), dkv.data_ptr(),
+                              dec_out.data_ptr(), build.data_ptr(ml),
+                              build.data_ptr(acc), 32, 16, 8, 128, 16, nb,
+                              0.0, 1, code, stream)
+
+                def err(kind=kind):
+                    return float((dec_out.float()
+                                  - dec_want[kind].float()).abs().max())
+                calls[f"{name}/{kind}"] = (
+                    call, err, r"decode_split_kernelI13__nv_bfloat16"
+                    + ("S" if kind == "fp" else "a") + r"\w*Li128ELi2E")
+        for row_name, (call, err, pat) in calls.items():
             rc = call()
             torch.cuda.synchronize()
-            err = max(float((outs[0] - fs_want[0]).abs().max()),
-                      float((outs[2] - fs_want[2]).abs().max()))
-        # registers of the bf16 kernel at the serve shape's instantiation
-        regs = re.search(r"(?:flash_tc_kernelILi128E|sample_tc_kernelILi2ELb1E)"
-                         r"[^\n]*\n[^\n]*\n[^\n]*\n[^\n]*Used (\d+) registers",
-                         log)
-        rows[name] = {"rc": rc, "ms": cuda_ms(torch, call) if rc == 0 else None,
-                      "max_abs_err": err,
-                      "registers": int(regs.group(1)) if regs else None}
-        check(rc == 0, f"variant {name}: launch failed with {rc}")
+            check(rc == 0, f"variant {row_name}: launch failed with {rc}")
+            regs = ptxas_functions(log, pat)
+            rows[row_name] = {
+                "rc": rc, "max_abs_err": err(),
+                "ms": cuda_ms(torch, call) if rc == 0 else None,
+                "kernel_ms": device_ms(torch, call)[0] if rc == 0 else None,
+                "registers": max((v["registers"] or 0
+                                  for v in regs.values()), default=None),
+                "spill_bytes": sum(v["spill_bytes"] or 0
+                                   for v in regs.values())}
     emit({"phase": "variants",
           "shapes": {"flash_attention": dict(B=B, S=S, H=H, Kh=Kh, D=D),
-                     "fused_sample": dict(B=Bs, Dm=Dm, V=V, w="embed.T")},
+                     "fused_sample": dict(B=Bs, Dm=Dm, V=V, w="embed.T"),
+                     "paged_decode": dict(B=32, H=16, Kh=8, D=128, P=16,
+                                          nb=nb, live_rows=int(dkv.sum()),
+                                          q="bfloat16")},
           "variants": rows})
 
 
@@ -1237,6 +1445,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global LINES
+    OUT.mkdir(exist_ok=True)
+    LINES = OUT / f"chip_smoke_{args.phase}.jsonl"
+    LINES.write_text("")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1256,12 +1468,15 @@ def main() -> int:
                                 for p, c in launches.items()},
              max_abs_err=report[name]["max_abs_err"], tol=report[name]["tol"],
              rtol=report[name].get("rtol", 0.0),
-             ms=report[name]["ms"], kernel_ms=report[name]["ms"],
+             ms=report[name]["ms"], kernel_ms=report[name]["kernel_ms"],
+             kernels_per_call=report[name][
+                 "kernels_per_call"],
              plain_ms=report[name]["plain_ms"],
              bound_ms=report[name]["bound_ms"],
              bound_by=report[name]["bound_by"],
              library_ms=report[name]["library_ms"],
              sass_bf16=report[name]["sass_bf16"],
+             registers=report[name].get("registers"),
              shape=report[name]["shape"])
         for name, (src, rep, path) in KERNEL_META.items()]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -146,5 +146,23 @@ def kv_dtype_code(name: str, q: torch.Tensor, k: torch.Tensor,
     return KV_INT8 if k.dtype == torch.int8 else dtype_code(name, q)
 
 
+def split_scratch(splits: int, B: int, H: int, D: int,
+                  device: torch.device):
+    """f32 partials of a split-KV decode launch: (max, sum) as
+    (B, H, splits, 2) and the unnormalised accumulator as
+    (B, H, splits, D); None for both when there is one split (the kernel
+    then writes its output directly)."""
+    if splits <= 1:
+        return None, None
+    return (torch.empty((B, H, splits, 2), dtype=torch.float32,
+                        device=device),
+            torch.empty((B, H, splits, D), dtype=torch.float32,
+                        device=device))
+
+
+def data_ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream

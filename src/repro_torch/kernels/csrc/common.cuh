@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels: element conversion to and
-// from f32, vector loads, warp reductions, and the dtype codes the Python
+// from f32, warp reductions, and the dtype codes the Python
 // wrappers pass (0 = float32, 1 = bfloat16, 2 = int8 KV storage).
 #pragma once
 
@@ -20,20 +20,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// E consecutive elements as one aligned vector load (2 to 16 bytes for the
-// shapes the wrappers admit), converted to f32.
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Vec {
-  T v[E];
-};
-
-template <typename T, int E>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[E]) {
-  Vec<T, E> x = *reinterpret_cast<const Vec<T, E>*>(p);
-#pragma unroll
-  for (int i = 0; i < E; ++i) out[i] = to_f(x.v[i]);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -1,5 +1,6 @@
 // Tensor-core and async-copy building blocks shared by the bf16 kernels
-// (flash_attention.cu, fused_sample.cu): `cp.async` 16-byte copies into
+// (flash_attention.cu, fused_sample.cu; the decode body,
+// decode_attention.cuh, uses the copies): `cp.async` 16-byte copies into
 // shared memory, `ldmatrix` fragment loads, `mma.sync.m16n8k16` with bf16
 // operands and f32 accumulators, and the XOR swizzle of shared tiles.
 //

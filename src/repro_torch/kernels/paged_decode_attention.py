@@ -5,11 +5,14 @@ Replaces the Pallas TPU kernel ``paged_decode_attention`` in
 (``_paged_kernel``) and int8 pages with one f32 scale per physical page
 (``_paged_kernel_int8``, the reference's ``ops.paged_decode_attention_int8``).
 Bound on the H100: bytes, the live K/V rows (and, for int8, their pages'
-scales) over 3.35 TB/s.  The kernel reads each live row once: one CTA per
-(KV head, slot) serves the KV head's G query heads, warps walk 32-row
-chunks whose physical pages the CTA looks up in the block table itself,
-int8 rows are dequantised in registers by their page's scale, and the
-online softmax stays in f32 registers.  See ``csrc/decode_attention.cuh``.
+scales) over 3.35 TB/s.  The kernel reads each live row once: a CTA per
+(KV head, slot, split of the slot's rows) serves the KV head's G query
+heads, resolves its split's pages from the block table once, streams the
+rows through a ``cp.async`` ring in shared memory, dequantises int8 rows
+in registers, and keeps the softmax in f32; a slot with more than one
+live split is merged by a second pass from f32 partials.  See
+``csrc/decode_attention.cuh``.  The number of splits comes from the
+block table's width, so the wrapper never reads ``kv_len`` to the host.
 
 CPU tensors take the plain versions (``ref.paged_decode_attention_ref``,
 ``ref.paged_decode_attention_int8_ref``); CUDA tensors launch the kernel
@@ -28,19 +31,29 @@ from repro_torch.kernels.ref import (paged_decode_attention_int8_ref,
 NAME = "paged_decode_attention"
 NAME_INT8 = "paged_decode_attention_int8"
 launches = {NAME: 0, NAME_INT8: 0}   # kernel launches since the last reset
-_fn = None
+_lib = None
 
 
 def _bind():
-    global _fn
-    if _fn is None:
-        fn = build.load(NAME).paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    global _lib
+    if _lib is None:
+        lib = build.load(NAME)
+        lib.paged_decode_attention.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.paged_decode_attention.restype = ctypes.c_int
+        lib.paged_decode_splits.argtypes = [ctypes.c_int] * 2
+        lib.paged_decode_splits.restype = ctypes.c_int
+        lib.paged_decode_split_rows.argtypes = []
+        lib.paged_decode_split_rows.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def split_rows() -> int:
+    """Rows of a slot one CTA of the decode kernels takes (builds the
+    library; the card's edge cases are placed around it)."""
+    return _bind().paged_decode_split_rows()
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
@@ -117,14 +130,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    rc = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 k_scales.data_ptr() if quant else None,
-                 v_scales.data_ptr() if quant else None,
-                 k_new.data_ptr() if quant else None,
-                 v_new.data_ptr() if quant else None,
-                 block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                 B, H, Kh, D, P, nb, float(softcap), code, kv_code,
-                 build.stream_ptr(dev))
+    lib = _bind()
+    part_ml, part_acc = build.split_scratch(
+        lib.paged_decode_splits(nb, P), B, H, D, dev)
+    rc = lib.paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None,
+        k_new.data_ptr() if quant else None,
+        v_new.data_ptr() if quant else None,
+        block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        build.data_ptr(part_ml), build.data_ptr(part_acc),
+        B, H, Kh, D, P, nb, float(softcap), code, kv_code,
+        build.stream_ptr(dev))
     build.check(rc, name)
     launches[name] += 1
     return out

@@ -6,8 +6,9 @@ one query token per slot over a dense ``(B, S, Kh, D)`` cache, rows at or
 past ``kv_len`` skipped.  It serves the engine's dense layout
 (``SlotEngine(paged=False)``).  Bound on the H100: bytes, the live K/V
 rows over 3.35 TB/s.  The body is the paged kernel's with contiguous rows
-(``csrc/decode_attention.cuh``); unlike the TPU kernel it takes any S, not
-only multiples of 128.
+(``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
+``cp.async`` ring, a merge pass, splits from S so ``kv_len`` stays on the
+card); unlike the TPU kernel it takes any S, not only multiples of 128.
 
 CPU tensors take the plain version (``ref.ragged_decode_attention_ref``);
 CUDA tensors launch the kernel or raise.
@@ -23,18 +24,21 @@ from repro_torch.kernels.ref import ragged_decode_attention_ref
 
 NAME = "ragged_decode_attention"
 launches = {NAME: 0}    # kernel launches since the last reset
-_fn = None
+_lib = None
 
 
 def _bind():
-    global _fn
-    if _fn is None:
-        fn = build.load(NAME).ragged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    global _lib
+    if _lib is None:
+        lib = build.load(NAME)
+        lib.ragged_decode_attention.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.ragged_decode_attention.restype = ctypes.c_int
+        lib.ragged_decode_splits.argtypes = [ctypes.c_int]
+        lib.ragged_decode_splits.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def ragged_decode_attention(q, k_cache, v_cache, kv_len,
@@ -69,9 +73,14 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    rc = _bind()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 kv_len.data_ptr(), out.data_ptr(), B, H, S, Kh, D,
-                 float(softcap), code, build.stream_ptr(dev))
+    lib = _bind()
+    part_ml, part_acc = build.split_scratch(lib.ragged_decode_splits(S), B,
+                                            H, D, dev)
+    rc = lib.ragged_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), build.data_ptr(part_ml),
+        build.data_ptr(part_acc), B, H, S, Kh, D, float(softcap), code,
+        build.stream_ptr(dev))
     build.check(rc, NAME)
     launches[NAME] += 1
     return out

@@ -3,6 +3,8 @@
 ``chip_smoke.py`` holds each CUDA kernel against them on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models import layers as L
@@ -88,6 +90,78 @@ def paged_decode_attention_int8_ref(q, k_pages, v_pages, k_scales, v_scales,
             g[has, last[has]] = new[has].float()
     return L.decode_attention(q, views[0], views[1], kv_len, softcap=softcap,
                               window=window)
+
+
+def decode_split_partials_ref(q, k, v, kv_len, split_rows: int,
+                              softcap: float = 0.0):
+    """The partials the split-KV decode kernels write, in f32.
+
+    q (B, H, D); k/v (B, S, Kh, D) dense per-slot rows (a gathered pool);
+    rows [s * split_rows, (s + 1) * split_rows) form split s, rows at or
+    past ``kv_len`` are left out.  Returns, per split and query head,
+    the max score ``m`` (B, H, n), the sum of exp(score - m) ``l`` and the
+    unnormalised accumulator ``acc`` (B, H, n, D); an empty split has
+    m = -inf, l = 0, acc = 0."""
+    B, H, D = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    qs = q.float().reshape(B, Kh, G, D) / math.sqrt(D)
+    pos = torch.arange(S, device=q.device)
+    live = pos[None, :] < kv_len.to(q.device).long()[:, None]
+    ms, ls, accs = [], [], []
+    for r0 in range(0, S, split_rows):
+        ks, vs = k[:, r0:r0 + split_rows].float(), v[:, r0:r0 + split_rows].float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qs, ks)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        ok = live[:, None, None, r0:r0 + split_rows]
+        s = s.masked_fill(~ok, float("-inf"))
+        m = torch.amax(s, dim=-1)
+        p = torch.where(ok, torch.exp(s - torch.where(
+            torch.isfinite(m), m, torch.zeros_like(m))[..., None]),
+            torch.zeros_like(s))
+        ms.append(m.reshape(B, H))
+        ls.append(p.sum(-1).reshape(B, H))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, vs).reshape(B, H, D))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, 2)
+
+
+def merge_split_partials_ref(m, l, acc) -> torch.Tensor:
+    """The merge pass: weights exp(m_s - M) over the splits (an empty
+    split, m = -inf, weighs 0), then acc / l; (B, H, D) f32, zeros where
+    every split is empty."""
+    M = torch.amax(m, dim=-1, keepdim=True)
+    w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
+        torch.isfinite(M), M, torch.zeros_like(M))), torch.zeros_like(m))
+    L = (w * l).sum(-1)
+    return (w[..., None] * acc).sum(2) / torch.clamp(L, min=1e-30)[..., None]
+
+
+def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables,
+                                     kv_len, split_rows: int,
+                                     softcap: float = 0.0, k_scales=None,
+                                     v_scales=None, k_new=None, v_new=None):
+    """The paged decode as the split-KV kernel computes it: the slot's
+    rows (int8 pages dequantised, the new row in place of row
+    ``len - 1``, as ``paged_decode_attention_int8_ref`` reads them) cut
+    into ``split_rows``-row splits over the block table's width, each
+    split's partials, then the merge.  Returns (out in q's dtype,
+    (m, l, acc))."""
+    if k_scales is not None:
+        k_pages = dequantize_pages_ref(k_pages, k_scales)
+        v_pages = dequantize_pages_ref(v_pages, v_scales)
+    views = [gather_pages(p, block_tables).float()
+             for p in (k_pages, v_pages)]
+    S = views[0].shape[1]
+    kv_len = torch.clamp(kv_len.long().to(q.device), max=S)
+    if k_new is not None:
+        last = kv_len - 1
+        has = torch.nonzero(last >= 0)[:, 0]
+        for g, new in zip(views, (k_new, v_new)):
+            g[has, last[has]] = new[has].float()
+    parts = decode_split_partials_ref(q, views[0], views[1], kv_len,
+                                      split_rows, softcap=softcap)
+    return merge_split_partials_ref(*parts).to(q.dtype), parts
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,

@@ -267,6 +267,72 @@ def test_fused_sample_plain_matches_reference(B, Dm, V, top_k, softcap,
     assert idx.dtype == torch.int32 and lse.shape == (B, 1)
 
 
+# -- the split-KV decode's merge arithmetic -----------------------------------
+
+@pytest.mark.parametrize("B,H,Kh,D,P,nb,split_rows,lens,softcap", [
+    # splits of 24 rows end mid-page; 96-row tables: 4 splits, the slots
+    # of 5 and 0 rows leave 3 and 4 of them empty
+    (4, 8, 2, 32, 16, 6, 24, [5, 24, 50, 96], 0.0),
+    (3, 4, 4, 16, 16, 6, 24, [0, 1, 25], 30.0),    # kv_len 0 and 1
+    (2, 16, 2, 64, 8, 8, 16, [17, 64], 0.0),       # G = 8, page-aligned
+])
+def test_split_merge_matches_plain_and_reference(B, H, Kh, D, P, nb,
+                                                 split_rows, lens, softcap):
+    """The split-and-merge decode (each split's max, sum and unnormalised
+    accumulator, then the merge the kernels' second pass does) equals the
+    plain decode and the reference's, f32 within 1e-5; empty splits carry
+    m = -inf and l = 0, and kv_len 0 gives zeros."""
+    rng = np.random.RandomState(B * nb + D)
+    q, kp, vp, bt, kv = _paged(rng, B, H, Kh, D, P, nb * B + 1, nb,
+                               lens=lens)
+    out, (m, l, acc) = ref.paged_decode_attention_split_ref(
+        *map(_t, (q, kp, vp, bt, kv)), split_rows, softcap=softcap)
+    assert m.shape == (B, H, -(-nb * P // split_rows))
+    want = jref.paged_decode_attention_ref(
+        *map(jnp.asarray, (q, kp, vp, bt, kv)), softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    plain = ref.paged_decode_attention_ref(*map(_t, (q, kp, vp, bt, kv)),
+                                           softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)
+    starts = np.arange(m.shape[-1]) * split_rows
+    empty = torch.from_numpy(starts[None, :] >= kv[:, None])[:, None]
+    empty = empty.expand_as(m)
+    assert bool(empty.any()) and bool((m[empty] == float("-inf")).all())
+    assert not l[empty].any() and not acc[empty].any()
+    assert bool(torch.isfinite(m[~empty]).all())
+    assert not out[torch.from_numpy(kv == 0)].any()
+
+
+@pytest.mark.parametrize("lens", [
+    [33, 49, 1],        # new row the first row of a split (32, 48, 0)
+    [32, 48, 16],       # new row the last row of a split
+])
+def test_split_merge_int8_new_row_on_split_edge(lens):
+    """int8 pages with the slots' new rows on a split's first or last row:
+    the split-and-merge decode equals the plain int8 decode and the
+    reference engine's order (gather, dequantise, set row kv_len - 1,
+    jnp decode), f32 within 1e-5."""
+    B, H, Kh, D, P, nb, split_rows = 3, 8, 2, 32, 8, 8, 16
+    rng = np.random.RandomState(sum(lens))
+    q, kp, vp, bt, kv = _paged(rng, B, H, Kh, D, P, nb * B + 1, nb,
+                               lens=lens)
+    kn, vn = (3 * rng.randn(B, Kh, D).astype(np.float32) for _ in range(2))
+    (kq, ksc), (vq, vsc) = _quantized(kp), _quantized(vp)
+    out, _ = ref.paged_decode_attention_split_ref(
+        *map(_t, (q, kq, vq, bt, kv)), split_rows, k_scales=_t(ksc),
+        v_scales=_t(vsc), k_new=_t(kn), v_new=_t(vn))
+    plain = ops.paged_decode_attention_int8(
+        *map(_t, (q, kq, vq, ksc, vsc, bt, kv)), k_new=_t(kn), v_new=_t(vn))
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)
+    views = []
+    for pages, sc, new in ((kq, ksc, kn), (vq, vsc, vn)):
+        g = np.array(jgather_view(pages, sc, bt))
+        g[np.arange(B), kv - 1] = new
+        views.append(jnp.asarray(g))
+    want = jlayers.decode_attention(jnp.asarray(q), *views, jnp.asarray(kv))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
 # -- against the Pallas kernels in interpret mode -----------------------------
 
 def test_flash_plain_matches_pallas_interpret():
