@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py                   # all three phases
+    python3 chip_smoke.py                   # kernels, serve, e2e, rl
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
     python3 chip_smoke.py --phase variants  # + design variants, ablations
+    python3 chip_smoke.py --phase rl        # kernel checks + the rl phase
 
 Phases, each printing one JSON line:
 
@@ -31,6 +32,18 @@ Phases, each printing one JSON line:
    full-sequence ``forward`` (plain attention, no kernels): 4 layers in
    f32 on the paged, dense and int8 engines, and 4 requests each of the
    main and dense paths in bf16.
+4. ``rl``: SortedRL's loop at full width and depth on the serve phase's
+   bf16 weights: the paged ``SlotEngine`` rolls out 16 GRPO groups of 4
+   (prompts of 64-192 ids) at temperature 1 through the
+   ``RolloutOrchestrator`` (``sorted`` policy, partial mode, 32 slots,
+   update batches of 16), and ``RLTrainer`` (PPO-clip, GRPO, AdamW at lr
+   1e-5) updates the weights the engine reads, at least 3 times.  The
+   first batch's behaviour logprobs are held against the trainer's plain
+   forward (max 0.1, mean 0.01 nats); the rollout must launch the flash
+   and paged decode kernels and the train steps none.  Then
+   ``RLSession.from_config(SessionConfig(task="logic", n_groups=2,
+   sft_steps=20)).run()``, the tiny f32 session, on the card to its
+   ``final_eval`` (line ``rl_session``).
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -239,7 +252,7 @@ BF16_FUNCTIONS = {
 }
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
 # decode kernel -> (library, regex of every instantiation: f32 and bf16,
-# D 64/128, G 1/2/4/8, and the merge pass)
+# D 64/128, G 1/2/4/8, f32 D 32 G 1 on fp pages, and the merge pass)
 DECODE_FUNCTIONS = {
     "paged_decode_attention": ("paged_decode_attention",
                                r"decode_split_kernelI(ff|13__nv_bfloat16S)"
@@ -268,16 +281,24 @@ def ptxas_functions(log: str, pattern: str):
     return out
 
 
+# split-pass instantiations per decode kernel: 2 dtypes x D 64/128 x G
+# 1/2/4/8, and for fp pages also f32 at D 32, G 1 (the RL session's LM)
+DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 17,
+                               "paged_decode_attention_int8": 16,
+                               "ragged_decode_attention": 16}
+
+
 def decode_registers(build):
-    """Registers and spills of every decode instantiation; checked: 16
-    split-pass instantiations per kernel, none spills."""
+    """Registers and spills of every decode instantiation; checked: the
+    split-pass instantiations of ``DECODE_SPLIT_INSTANTIATIONS``, none
+    spills."""
     out = {}
     for name, (lib, pat) in DECODE_FUNCTIONS.items():
         fns = ptxas_functions(build.ptxas_report(lib), pat)
         n_split = sum("decode_split_kernel" in fn for fn in fns)
         spill = sum(v["spill_bytes"] or 0 for v in fns.values())
-        check(n_split == 16 and all(v["spill_bytes"] is not None
-                                    for v in fns.values()),
+        check(n_split == DECODE_SPLIT_INSTANTIATIONS[name]
+              and all(v["spill_bytes"] is not None for v in fns.values()),
               f"{name}: {n_split} split instantiations in the ptxas log")
         check(spill == 0, f"{name}: register spills {fns}")
         out[name] = {"functions": len(fns),
@@ -391,6 +412,8 @@ def phase_kernels(torch, dev, report):
         ("g8_softcap_splits_bf16", bf16, g8, 8, 1, 128, 30.0),
         ("d64_g8_softcap_splits_f32", f32, [600, SR + 1, 5], 8, 1, 64, 30.0),
         ("d64_g2_split_edges_bf16", bf16, edges, 8, 4, 64, 0.0),
+        # the RL session's tiny LM (f32, D = 32, G = 1), across a split
+        ("tiny_d32_g1_f32", f32, [1, 37, 159, SR + 3], 4, 4, 32, 0.0),
     ]
     serve_pd = None
     for name, dt, lens, H, Kh, D, cap in pd_cases:
@@ -659,6 +682,8 @@ def phase_kernels(torch, dev, report):
         ("s2048_d64_g4_seg_softcap_window_bf16", bf16, 1, 2048, 8, 2, 64, True,
          700, 30.0),
         ("s129_d64_g4_window_f32", f32, 2, 129, 8, 2, 64, False, 100, 0.0),
+        # the RL session's tiny LM (f32, D = 32), ragged S
+        ("tiny_s97_d32_f32", f32, 8, 97, 4, 4, 32, False, 0, 0.0),
     ]
     serve_fa = None
     for name, dt, B, S, H, Kh, D, seg, win, cap in fa_cases:
@@ -1409,6 +1434,384 @@ def phase_e2e(torch, dev, keep, bf16_model, bf16_params):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: the RL loop (rollout on the kernels; plain forward + autograd)
+# ---------------------------------------------------------------------------
+
+RL_EOS = 151645            # Qwen3's <|im_end|>
+# Random weights give each of the 151,936 ids about the same probability,
+# so a sequence would almost never end before max_gen_len and every slot
+# would finish on the same step; a trained policy's lengths vary, and
+# SortedRL schedules around that variance.  The random model's final
+# normed hidden states share a direction (their mean has a third of their
+# norm), so the rl phase sets EOS's (tied) embedding row along it, long
+# enough that EOS's logit averages RL_EOS_LOGIT over the prompts (the
+# others' are ~N(0, 1)): about 1% of the steps end a sequence, and the
+# row is about as long as a random row, so EOS's logit carries no more
+# bf16 error than the others'.
+RL_EOS_LOGIT = 8.5
+
+
+def rl_reward(toks, meta):
+    """Deterministic reward over the generated ids (random Qwen3 weights
+    emit ids far outside any task's vocabulary): 0, 0.5 or 1 by the ids'
+    sum, so rewards differ inside a GRPO group."""
+    del meta
+    return (sum(toks) % 3) / 2.0
+
+
+def rl_prompts(n_groups, group, lo, hi, vocab, seed):
+    """GRPO groups: ``group`` copies of one prompt of ``lo``..``hi`` ids,
+    the group's index as ``prompt_id``."""
+    import types
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prompts, metas = [], []
+    for gi in range(n_groups):
+        p = rng.randint(1, vocab, size=int(rng.randint(lo, hi + 1))).tolist()
+        prompts += [list(p) for _ in range(group)]
+        metas += [types.SimpleNamespace(prompt_id=gi)] * group
+    return prompts, metas
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, tensor) in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def set_eos_row(torch, model, params, prompts):
+    """EOS's embedding row along the mean of the final normed hidden state
+    over ``prompts`` (one plain forward), scaled so that EOS's logit
+    averages ``RL_EOS_LOGIT`` there.  Returns what it measured."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    cfg, dev = model.cfg, model.device
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((len(prompts), max(lens)), dtype=torch.long,
+                       device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, device=dev)
+    pos = torch.arange(toks.shape[1], device=dev).expand(*toks.shape)
+
+    def attend(q, k, v):
+        return L.full_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        x = TF.embed_tokens(params, cfg, toks)
+        for i in range(cfg.num_layers):
+            x, _, _ = TF._block(TF.layer(params, i), cfg, x, pos, attend)
+        h = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+        h = torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
+        mean = h.mean(0)
+        u = mean / mean.norm()
+        along = float((h @ u).mean())
+        row = u * (RL_EOS_LOGIT / along)
+        params["embed"][RL_EOS] = row.to(params["embed"].dtype)
+    return {"hidden_norm": float(h.norm(dim=-1).mean()),
+            "mean_hidden_norm": float(mean.norm()),
+            "eos_row_norm": float(row.norm()), "eos_logit_mean": RL_EOS_LOGIT}
+
+
+def card_name_and_power():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    out = smi.stdout.strip()
+    return out.splitlines()[0] if out else "nvidia-smi: no output"
+
+
+def moved_after_first_update(torch, before, trainer):
+    """Every parameter leaf moved, or AdamW's whole step on it rounds back
+    to its bf16 value: a norm scale of 1.0 moves by lr = 1e-5, under half
+    of bf16's spacing there (2^-8).  The step is recomputed from the
+    optimizer's f32 moments with the reference's formula, so a leaf that
+    should have moved and did not fails; so does one that no gradient
+    reached (zero first moment)."""
+    opt, st = trainer.opt_cfg, trainer.state.opt_state
+    b1c = 1 - opt.b1 ** st.step.float()
+    b2c = 1 - opt.b2 ** st.step.float()
+    lr = torch.tensor(opt.lr, dtype=torch.float32, device=st.step.device)
+    out = {"moved": [], "step_under_half_ulp": [], "bad": []}
+    for (path, new), old, m, v in zip(leaf_paths(trainer.params()), before,
+                                      leaf_paths(st.m), leaf_paths(st.v)):
+        m, v = m[1], v[1]
+        if not bool((m != 0).any()):
+            out["bad"].append(f"{path}: no gradient")
+        elif bool((new != old).any()):
+            out["moved"].append(path)
+        else:
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
+            want = (old.float() - lr * delta).to(old.dtype)
+            out["step_under_half_ulp" if torch.equal(want, old)
+                else "bad"].append(path)
+    return out
+
+
+def phase_rl(torch, dev, model, params, launches):
+    """Qwen3-0.6B at full width and depth (bf16, the serve phase's random
+    weights): the paged SlotEngine rolls out GRPO groups at temperature 1
+    under the sorted policy in partial mode, and RLTrainer updates the
+    weights the engine reads (PPO-clip, GRPO advantages, AdamW)."""
+    from repro_torch.core.buffer import Mode, StatefulRolloutBuffer
+    from repro_torch.core.orchestrator import (RolloutOrchestrator,
+                                               SortedRLConfig)
+    from repro_torch.core.policy import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.rl.losses import token_logprobs
+    from repro_torch.rl.trainer import RLTrainer, entries_to_batch, \
+        make_trainer
+    from repro_torch.rollout.engine import SlotEngine
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves, \
+        tree_map
+
+    cfg = model.cfg
+    nl = cfg.num_layers
+    max_total, update_batch = 384, 16
+    prompts, metas = rl_prompts(16, 4, 64, 192, cfg.vocab_size, seed=6)
+    eos_row = set_eos_row(torch, model, params, prompts[::4])
+    trainer = RLTrainer(model, params, rl_reward,
+                        opt_cfg=AdamWConfig(lr=1e-5), pad_id=0,
+                        max_len=max_total, advantage_kind="grpo")
+    engine = SlotEngine(model, trainer.params, capacity=32,
+                        max_total_len=max_total, max_gen_len=128,
+                        eos_id=RL_EOS, pad_id=0, temperature=1.0, seed=3,
+                        kv_retain_across_sync=True)
+    leaves = tree_leaves(trainer.params())
+    ptrs = [t.data_ptr() for t in leaves]
+    updates, first, step_ms, gen_lens = [], {}, [], []
+    train_launches = {k: 0 for k in ops.launch_counts()}
+    host_s = {"train": 0.0, "check": 0.0}
+    decode_steps = [0]
+
+    step_fn = trainer._step
+
+    def timed_step(*a):
+        """forward + backward + AdamW, between CUDA events"""
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = step_fn(*a)
+        e.record()
+        e.synchronize()
+        step_ms.append(s.elapsed_time(e))
+        return out
+    trainer._step = timed_step
+
+    engine_step = engine.step
+
+    def counted_step():
+        decode_steps[0] += bool(engine.active_uids())
+        return engine_step()
+    engine.step = counted_step
+
+    def first_update_checks(req):
+        """Behaviour logprobs the engine recorded (flash prefill, paged
+        decode, plain head) against ``token_logprobs`` of the trainer's
+        plain forward under the same weights, over the loss mask; and
+        both against the same forward in f32, the bf16 noise floor."""
+        batch, _ = entries_to_batch(req.entries, rl_reward, 0, max_total,
+                                    "grpo", current_version=req.version,
+                                    device=dev)
+        old, mask = batch["old_logprobs"], batch["loss_mask"] > 0
+        with torch.no_grad():
+            logits, _ = model.forward(trainer.params(), batch)
+            lp = token_logprobs(logits, batch["tokens"])[mask]
+            del logits
+            f32 = torch.float32
+            m32 = build_model(cfg.replace(param_dtype=f32, compute_dtype=f32),
+                              device=dev)
+            p32 = tree_map(lambda t: t.float(), trainer.params())
+            logits, _ = m32.forward(p32, batch)
+            lp32 = token_logprobs(logits, batch["tokens"])[mask]
+            del logits, p32
+        eng = old[mask]
+        diff = lp - eng
+        return {"tokens": int(mask.sum()),
+                "max_abs": float(diff.abs().max()),
+                "mean_abs": float(diff.abs().mean()),
+                "mean": float(diff.mean()),
+                "engine_vs_f32_mean_abs": float((eng - lp32).abs().mean()),
+                "trainer_vs_f32_mean_abs": float((lp - lp32).abs().mean()),
+                "engine_vs_f32_max_abs": float((eng - lp32).abs().max()),
+                "trainer_vs_f32_max_abs": float((lp - lp32).abs().max()),
+                "versions": sorted({v for e in req.entries
+                                    for v in e.versions})}
+
+    def train_fn(req):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = None
+        if not updates:
+            first["logprobs"] = first_update_checks(req)
+            before = [p.clone() for p in leaves]
+            torch.cuda.synchronize()
+            host_s["check"] += time.perf_counter() - t
+            t = time.perf_counter()
+        n0 = ops.launch_counts()
+        result = trainer.handle(req)
+        for k, n in ops.launch_counts().items():
+            train_launches[k] += n - n0[k]
+        torch.cuda.synchronize()
+        host_s["train"] += time.perf_counter() - t
+        gen_lens.extend(e.gen_len for e in req.entries)
+        width = min(max_total, (max(e.total_len for e in req.entries)
+                                + 31) // 32 * 32)
+        rec = dict(result.metrics, entries=len(req.entries), width=width,
+                   trained_tokens=sum(e.gen_len for e in req.entries),
+                   stitched=sum(len(set(e.versions)) > 1
+                                for e in req.entries),
+                   max_token_lag=max(req.version - min(e.versions)
+                                     for e in req.entries),
+                   step_ms=step_ms[-1])
+        updates.append(rec)
+        same = (engine.params_fn() is trainer.params()
+                and [t.data_ptr() for t in tree_leaves(engine.params_fn())]
+                == ptrs)
+        check(same, f"rl: update {len(updates)}: the engine does not read "
+              "the trainer's tensors")
+        if before is not None:
+            first["leaves"] = moved_after_first_update(torch, before,
+                                                       trainer)
+            del before
+        return result
+
+    buffer = StatefulRolloutBuffer(Mode.PARTIAL)
+    scfg = SortedRLConfig(mode=Mode.PARTIAL, rollout_batch=32, group_size=2,
+                          update_batch=update_batch, max_gen_len=128)
+    orch = RolloutOrchestrator(engine, buffer, scfg, make_policy("sorted"),
+                               make_trainer("sync", fn=train_fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    orch.run_group(prompts, metas)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches["rl"] = counts
+    rollout = {k: n - train_launches[k] for k, n in counts.items()}
+    rollout_s = wall - host_s["train"] - host_s["check"]
+    tokens = sum(u["trained_tokens"] for u in updates)
+
+    check(len(updates) >= 3, f"rl: {len(updates)} updates, want >= 3")
+    for i, u in enumerate(updates, 1):
+        check(all(math.isfinite(v) for v in u.values()
+                  if isinstance(v, float)), f"rl: update {i} not finite {u}")
+        check(u["grad_norm"] > 0, f"rl: update {i}: grad_norm 0")
+        if i > 1:
+            # staleness is an entry's mean lag over its tokens; a stitched
+            # entry's oldest token lags by at least one version
+            check(u["stitched"] > 0 and u["staleness_max"] >= 1
+                  and u["max_token_lag"] >= 1,
+                  f"rl: update {i}: {u['stitched']} stitched entries, "
+                  f"staleness_max {u['staleness_max']}, oldest token "
+                  f"{u['max_token_lag']} versions behind")
+    # engine against trainer: every token within 0.1 nats (the bf16
+    # end-to-end tolerance) and no bias (|mean difference| <= 0.01, the
+    # mean of log ratios PPO sees at the first update); the mean absolute
+    # difference is bf16 noise (each path is ~0.01 nats from the f32
+    # forward), so the kernel path must be no farther from the f32
+    # forward than 1.25 times the trainer's own bf16 forward
+    lp = first.get("logprobs", {})
+    check(lp.get("versions") == [0], f"rl: first batch versions {lp}")
+    check(lp.get("max_abs", 1.0) <= 0.1 and abs(lp.get("mean", 1.0)) <= 0.01
+          and lp.get("engine_vs_f32_mean_abs", 1.0)
+          <= 1.25 * lp.get("trainer_vs_f32_mean_abs", 0.0),
+          f"rl: engine vs trainer logprobs {lp}")
+    lp.update(tol_max_abs=0.1, tol_mean=0.01, tol_f32_ratio=1.25)
+    lv = first.get("leaves", {"bad": ["not run"]})
+    check(not lv["bad"] and lv["moved"],
+          f"rl: leaves after the first update {lv}")
+    check(rollout["flash_attention"] > 0
+          and rollout["paged_decode_attention"] > 0,
+          f"rl: rollout launches {rollout}")
+    check(not any(train_launches.values()),
+          f"rl: train steps launched kernels {train_launches}")
+    check_launches("rl", counts, {
+        "paged_decode_attention": nl * decode_steps[0],
+        "flash_attention": nl * engine.prefill_launches})
+    ms = sorted(u["step_ms"] for u in updates)
+    emit({"phase": "rl", "model": cfg.name, "layers": nl,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": "bfloat16",
+          "card": card_name_and_power(),
+          "setup": {"capacity": 32, "max_total_len": max_total,
+                    "max_gen_len": 128, "temperature": 1.0,
+                    "policy": "sorted", "mode": "partial",
+                    "rollout_batch": 32, "group_size": 2,
+                    "update_batch": update_batch, "advantage": "grpo",
+                    "lr": 1e-5, "prompts": len(prompts),
+                    "eos_row": eos_row},
+          "updates": len(updates), "rollout_tokens": tokens,
+          "gen_len": {"ended_before_max": sum(n < 128 for n in gen_lens),
+                      "at_max": sum(n >= 128 for n in gen_lens),
+                      "mean": statistics.mean(gen_lens)},
+          "rollout_s": rollout_s,
+          "rollout_tokens_per_s": tokens / rollout_s,
+          "decode_steps": decode_steps[0],
+          "prefill_launches": engine.prefill_launches,
+          "update_ms_median": statistics.median(ms), "update_ms": ms,
+          "update_tokens_per_s": [
+              u["entries"] * u["width"] / (u["step_ms"] / 1e3)
+              for u in updates],
+          "update_trained_tokens_per_s": [
+              u["trained_tokens"] / (u["step_ms"] / 1e3) for u in updates],
+          "wall_s": wall, "train_s": host_s["train"],
+          "first_update": first, "history": updates,
+          "launches": {"rollout": rollout, "train": train_launches},
+          "peak_mem_gb": peak,
+          "cache_stats": engine.cache_stats()})
+    del engine, trainer, orch
+    torch.cuda.empty_cache()
+
+
+def phase_rl_session(torch, launches):
+    """The entry point a user calls: ``RLSession.from_config(SessionConfig(
+    task="logic", engine="slot", n_groups=2, sft_steps=20)).run()`` on the
+    card (the tiny f32 LM, so the kernels' f32 instantiations), to its
+    end and ``final_eval``."""
+    from repro_torch.kernels import ops
+    from repro_torch.rl.session import RLSession, SessionConfig
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session = RLSession.from_config(SessionConfig(
+        task="logic", engine="slot", n_groups=2, sft_steps=20))
+    out = session.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    launches["rl_session"] = counts
+    check(session.model.device.type == "cuda",
+          f"rl_session: model on {session.model.device}")
+    check(counts["flash_attention"] > 0
+          and counts["paged_decode_attention"] > 0
+          and not any(n for k, n in counts.items() if k not in
+                      ("flash_attention", "paged_decode_attention")),
+          f"rl_session: launches {counts}")
+    hist = out["history"]
+    check(len(hist) >= 1 and all(math.isfinite(v) for h in hist
+                                 for v in h.values()),
+          f"rl_session: history {hist}")
+    losses = session.sft_losses
+    check(len(losses) == 20 and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"rl_session: sft losses {losses}")
+    fe = out["final_eval"]
+    check(set(fe) == {"reward_mean", "solve_rate", "gen_len_mean"}
+          and all(map(math.isfinite, fe.values())),
+          f"rl_session: final_eval {fe}")
+    emit({"phase": "rl_session", "device": str(session.model.device),
+          "sft_loss_first": losses[0], "sft_loss_final": out["sft_loss_final"],
+          "history": hist, "evals": out["evals"], "final_eval": fe,
+          "rollout_metrics": out["rollout_metrics"],
+          "run_wall_s": out["wall_time_s"], "wall_s": wall,
+          "launches": counts})
+
+
+# ---------------------------------------------------------------------------
 
 # kernel -> (source, TPU kernel it replaces, the serve path it belongs to)
 KERNEL_META = {
@@ -1432,7 +1835,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "variants"),
+    ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -1461,6 +1864,16 @@ def main() -> int:
     if args.phase == "all":
         model, params = phase_serve(torch, dev, launches, keep)
         phase_e2e(torch, dev, keep, model, params)
+    if args.phase == "rl":
+        from repro_torch.configs.base import get_config
+        from repro_torch.models.model import build_model
+        model = build_model(get_config("qwen3_0_6b"))
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    if args.phase in ("all", "rl"):
+        phase_rl(torch, dev, model, params, launches)
+        del model, params
+        torch.cuda.empty_cache()
+        phase_rl_session(torch, launches)
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,
@@ -1479,11 +1892,7 @@ def main() -> int:
              registers=report[name].get("registers"),
              shape=report[name]["shape"])
         for name, (src, rep, path) in KERNEL_META.items()]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no output", flush=True)
+    print(card_name_and_power(), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

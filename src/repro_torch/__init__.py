@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the ``repro`` rollout engine.
+"""PyTorch/CUDA port of the ``repro`` rollout engine and RL loop.
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 layout (``repro_torch/models/transformer.py`` <-> ``repro/models/
@@ -6,9 +6,10 @@ transformer.py``) and imports nothing from it, nor from JAX.  The
 hand-written Hopper kernels live in ``repro_torch/kernels`` (sources under
 ``kernels/csrc``, built on first use into ``build/kernels``).
 
-Entry points (``build_model``, ``SlotEngine``) run on ``cuda`` unless the
-caller passes ``device="cpu"``; without a card and without that request
-they raise instead of quietly running on the CPU.
+Entry points (``build_model``, ``SlotEngine``, ``RLSession.from_config``
+through ``SessionConfig.device``) run on ``cuda`` unless the caller passes
+``device="cpu"``; without a card and without that request they raise
+instead of quietly running on the CPU.
 """
 from __future__ import annotations
 

@@ -38,8 +38,9 @@
 // register layouts above, where a wrong `wgmma` shared-memory descriptor
 // fails silently, and it reaches the few-tenths-of-a-millisecond target.
 //
-// f32 (the card's f32 end-to-end check): `flash_f32_kernel`, f32 FMAs from
-// shared memory (TF32 would not hold the f32 tolerance), 64 x 64 tiles.
+// f32 (the card's f32 end-to-end check, and the RL session's tiny LM at
+// D = 32): `flash_f32_kernel`, f32 FMAs from shared memory (TF32 would not
+// hold the f32 tolerance), 64 x 64 tiles.
 //
 // Both mask the ragged edge (S not a multiple of 64, down to S = 1),
 // where the TPU kernel asserted S % 128 == 0; a fully masked row gives 0,
@@ -517,6 +518,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Kh, int D, int window, float softcap,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && D == 32)               // the RL session's tiny LM
+    return launch_f32<32>(q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   if (dtype == kF32 && D == 64)
     return launch_f32<64>(q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   if (dtype == kF32 && D == 128)

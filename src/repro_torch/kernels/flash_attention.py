@@ -57,9 +57,10 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
     build.require(k.shape == (B, S, Kh, D) and v.shape == k.shape, NAME,
                   f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q "
                   f"{tuple(q.shape)}")
-    build.require(H % Kh == 0 and D in (64, 128), NAME,
-                  f"needs H % Kh == 0 and D in (64, 128); got H={H} Kh={Kh} "
-                  f"D={D}")
+    build.require(H % Kh == 0 and (D in (64, 128)
+                                   or (D == 32 and q.dtype == torch.float32)),
+                  NAME, f"needs H % Kh == 0 and D in (64, 128) (or 32 in "
+                  f"f32); got H={H} Kh={Kh} D={D} {q.dtype}")
     build.require(window >= 0, NAME, f"window must be >= 0, got {window}")
     build.require(all(t.is_contiguous() for t in (q, k, v)), NAME,
                   "q, k, v must be contiguous")

@@ -109,9 +109,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     build.require(v_pages.shape == k_pages.shape and Dk == D, name,
                   f"page shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)}"
                   f" do not match q {tuple(q.shape)}")
-    build.require(H % Kh == 0 and H // Kh in (1, 2, 4, 8) and D in (64, 128),
-                  name, f"needs G in (1, 2, 4, 8), D in (64, 128); got "
-                  f"H={H} Kh={Kh} D={D}")
+    tiny = (D == 32 and H == Kh and q.dtype == torch.float32
+            and kv_code != build.KV_INT8)
+    build.require(H % Kh == 0 and ((H // Kh in (1, 2, 4, 8)
+                                    and D in (64, 128)) or tiny),
+                  name, f"needs G in (1, 2, 4, 8), D in (64, 128) (or G 1, "
+                  f"D 32 on f32 pages); got H={H} Kh={Kh} D={D} {q.dtype}")
     build.require(block_tables.shape == (B, nb) and kv_len.shape == (B,),
                   name, "block_tables (B, nb) and kv_len (B,) expected")
     build.require(block_tables.dtype == torch.int32

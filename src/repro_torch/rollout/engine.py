@@ -24,7 +24,10 @@ Prefill runs the flash kernel (``kernels/flash_attention``); greedy
 decode with ``fused_sampling`` runs the fused head
 (``kernels/fused_sample``).  On CPU tensors the same code runs the
 kernels' plain versions.  Cache updates (prefill scatter, copy-on-write,
-decode writes, imports) are in place.
+decode writes, imports) are in place.  The entry points that compute
+(``submit``, ``step``, ``export_entry``, ``import_entry``) run under
+``torch.no_grad()``: no autograd graph grows across decode steps, even
+when the parameters behind ``params_fn`` require grad.
 
 ``step()`` stays loop-free on the host for slot bookkeeping: EOS/budget
 masking, events and retirement are numpy array ops over the SlotTable.
@@ -164,6 +167,7 @@ class SlotEngine:
 
     # -- submit: prefill of unique prefixes into pages ----------------------
 
+    @torch.no_grad()
     def submit(self, entries, version: int) -> None:
         if not entries:
             return
@@ -415,6 +419,7 @@ class SlotEngine:
         return self._fused_greedy(params, out) if fused else \
             self._sample(out)
 
+    @torch.no_grad()
     def step(self) -> List[StepEvent]:
         t = self.slots
         act = t.active_indices()
@@ -472,6 +477,7 @@ class SlotEngine:
     # continues token-identically.  bf16 rows travel as f32 arrays
     # (exact), int8 rows as int8.  The dense layout migrates nothing.
 
+    @torch.no_grad()
     def export_entry(self, uid: int) -> Optional[Dict]:
         if not self.paged or uid not in self.kv.tables:
             return None
@@ -501,6 +507,7 @@ class SlotEngine:
                               "gen_budget": int(t.gen_budget[i])}
         return handle
 
+    @torch.no_grad()
     def import_entry(self, handle: Dict) -> bool:
         """Land a migrated entry with its KV; False (engine unchanged) when
         it cannot accept: dense layout, pages of the other kind (int8 and

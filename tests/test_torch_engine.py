@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.configs import qwen3_0_6b as TQ
 from repro_torch.models.model import build_model
 from repro_torch.rollout.engine import SlotEngine
+from repro_torch.train.optimizer import tree_map
 
 LP_TOL = 1e-4
 KW = dict(capacity=4, max_total_len=64, max_gen_len=6, eos_id=-1,
@@ -420,3 +421,34 @@ def test_int8_scale_planes_follow_cow_and_migration():
     te2.discard_entry(7)
     assert te2.cache_stats()["pages_in_use"] == 0
     assert len(serve(je2, [])[7]) == KW["max_gen_len"] - 1
+
+
+@pytest.mark.parametrize("kw", [{}, {"fused_sampling": True},
+                                {"packed_prefill": True}, {"paged": False},
+                                {"kv_quant": "int8"}],
+                         ids=["default", "fused", "packed", "dense", "int8"])
+def test_params_that_require_grad_leave_no_graph_in_the_engine(kw):
+    """A trainer's parameters may require grad; the engine's entry points
+    run under ``torch.no_grad()``, so its caches, scales and handles carry
+    no ``grad_fn`` and its events plain numbers, and the tokens are those
+    of the same weights without grad."""
+    m = _models()
+    grad_params = tree_map(lambda p: p.detach().clone().requires_grad_(),
+                           m["tp"])
+    es = [BufferEntry(uid=i, prompt=p) for i, p in enumerate(_prompts(5))]
+    eng = SlotEngine(m["tm"], lambda: grad_params, **dict(KW, **kw))
+    got = serve(eng, es)
+    want = serve(SlotEngine(m["tm"], lambda: m["tp"], **dict(KW, **kw)), es)
+    assert {u: [x[0] for x in v] for u, v in got.items()} == \
+        {u: [x[0] for x in v] for u, v in want.items()}
+    for t in (*eng.cache.values(), *eng.kv_scales.values()):
+        assert t.grad_fn is None and not t.requires_grad
+    if eng.paged:
+        eng.submit([BufferEntry(uid=99, prompt=_prompts(1, seed=9)[0])], 0)
+        eng.step()
+        handle = eng.export_entry(99)
+        assert isinstance(handle["pages_k"], np.ndarray)
+        eng.discard_entry(99)
+        assert eng.import_entry(handle)
+        for t in eng.cache.values():
+            assert t.grad_fn is None
