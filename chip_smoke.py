@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py                   # kernels, serve, e2e, rl
+    python3 chip_smoke.py                   # every phase but variants
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
     python3 chip_smoke.py --phase variants  # + design variants, ablations
     python3 chip_smoke.py --phase rl        # kernel checks + the rl phase
+    python3 chip_smoke.py --phase group     # kernel checks + the control
+                                            # plane (group, serve_tier,
+                                            # long, the option sessions)
 
 Phases, each printing one JSON line:
 
@@ -32,7 +35,23 @@ Phases, each printing one JSON line:
    full-sequence ``forward`` (plain attention, no kernels): 4 layers in
    f32 on the paged, dense and int8 engines, and 4 requests each of the
    main and dense paths in bf16.
-4. ``rl``: SortedRL's loop at full width and depth on the serve phase's
+4. ``group``: two 16-slot replicas of the paged engine behind the port's
+   ``EngineGroup`` (``least_tokens``, ``migrate_kv=True``, greedy fused
+   decode, the serve phase's weights with EOS's row calibrated so that
+   greedy streams end at about 2% of their steps), driven by the
+   ``RolloutOrchestrator`` (``sorted``, partial mode, update batches of
+   16) over the rl phase's 16 GRPO groups of 4, while a ``FaultInjector``
+   kills replica 1 a third of the way in: every uid trained once, one
+   death and at least one KV migration (export -> import -> discard,
+   timed), exactly the flash, paged decode and fused-head launches, and
+   greedy streams equal to one 32-slot engine's on the same prompts but
+   where the plain forward sees a near-tie (0.1 nats).  ``serve_tier``:
+   the ``ServingOrchestrator`` with two tenants' Poisson arrivals (64,
+   prompts of 64-512 ids, a fixed tick) into an elastic fleet that
+   starts at one replica under the ``queue_depth`` autoscaler:
+   per-tenant conservation, at least one scale event (each printed with
+   the card's allocated memory after it), the same three kernels.
+5. ``rl``: SortedRL's loop at full width and depth on the serve phase's
    bf16 weights: the paged ``SlotEngine`` rolls out 16 GRPO groups of 4
    (prompts of 64-192 ids) at temperature 1 through the
    ``RolloutOrchestrator`` (``sorted`` policy, partial mode, 32 slots,
@@ -43,7 +62,15 @@ Phases, each printing one JSON line:
    and paged decode kernels and the train steps none.  Then
    ``RLSession.from_config(SessionConfig(task="logic", n_groups=2,
    sft_steps=20)).run()``, the tiny f32 session, on the card to its
-   ``final_eval`` (line ``rl_session``).
+   ``final_eval`` (line ``rl_session``), and four more tiny sessions
+   with the control plane's options: ``num_replicas=2`` with a
+   ``fault_plan`` kill, ``autoscaler="bubble_target"``, ``arrival``
+   (two tenants) and ``engine="sim"``, each to its end with a finite
+   history and its launches checked (line ``rl_session_options``).
+6. ``long``: the trainer's loss (PPO-clip over ``token_logprobs`` of the
+   plain ``forward``) forward and backward at B=1, S=2304 on the full
+   model: above ``FULL_ATTN_MAX_SEQ``, so every layer attends blockwise
+   (counted); its time (twice), one traced run and peak memory.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -58,6 +85,8 @@ check exits non-zero.  Needs one CUDA card; details go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -1072,31 +1101,45 @@ def serve_loop(engine, queue, outputs, step_ms, profile=None):
     return steps
 
 
-def profile_steps(engine, n, outputs):
-    """Device busy share of ``n`` decode steps (no submits in between):
-    the summed time of the CUDA kernels over the steps' wall time, from
-    torch.profiler; the wall time includes the profiler's own overhead."""
-    import torch
+def profile_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: its wall time, the summed
+    device time of its CUDA kernels, their count and the costliest."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(n):
-            for ev in engine.step():
-                outputs.setdefault(ev.uid, []).append((ev.token, ev.logprob))
+        fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
     rows = [r for r in prof.key_averages()
             if r.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(r.self_device_time_total for r in rows) / 1e3
     top = sorted(rows, key=lambda r: -r.self_device_time_total)[:8]
-    return {"wall_ms_per_step": wall / n,
-            "device_ms_per_step": dev_ms / n,
+    return {"wall_ms": wall, "device_ms": dev_ms,
             "device_busy_share": dev_ms / wall if dev_ms else "not measured",
-            "kernel_launches_per_step": sum(r.count for r in rows) / n,
-            "top_kernels_ms_per_step": {
-                r.key[:60]: r.self_device_time_total / 1e3 / n for r in top}}
+            "kernel_launches": sum(r.count for r in rows),
+            "top_kernels_ms": {r.key[:60]: r.self_device_time_total / 1e3
+                               for r in top}}
+
+
+def profile_steps(engine, n, outputs):
+    """Device busy share of ``n`` decode steps (no submits in between):
+    the summed time of the CUDA kernels over the steps' wall time, from
+    torch.profiler; the wall time includes the profiler's own overhead."""
+    import torch
+
+    def steps():
+        for _ in range(n):
+            for ev in engine.step():
+                outputs.setdefault(ev.uid, []).append((ev.token, ev.logprob))
+    p = profile_call(torch, steps)
+    return {"wall_ms_per_step": p["wall_ms"] / n,
+            "device_ms_per_step": p["device_ms"] / n,
+            "device_busy_share": p["device_busy_share"],
+            "kernel_launches_per_step": p["kernel_launches"] / n,
+            "top_kernels_ms_per_step": {k: v / n for k, v
+                                        in p["top_kernels_ms"].items()}}
 
 
 def check_launches(path, counts, expected):
@@ -1481,10 +1524,9 @@ def leaf_paths(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def set_eos_row(torch, model, params, prompts):
-    """EOS's embedding row along the mean of the final normed hidden state
-    over ``prompts`` (one plain forward), scaled so that EOS's logit
-    averages ``RL_EOS_LOGIT`` there.  Returns what it measured."""
+def final_hidden(torch, model, params, prompts):
+    """The final normed hidden state (f32) at every position of
+    ``prompts``, from one plain forward (no kernels): (positions, d)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     cfg, dev = model.cfg, model.device
@@ -1502,7 +1544,15 @@ def set_eos_row(torch, model, params, prompts):
         for i in range(cfg.num_layers):
             x, _, _ = TF._block(TF.layer(params, i), cfg, x, pos, attend)
         h = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
-        h = torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
+        return torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
+
+
+def set_eos_row(torch, model, params, prompts):
+    """EOS's embedding row along the mean of the final normed hidden state
+    over ``prompts`` (one plain forward), scaled so that EOS's logit
+    averages ``RL_EOS_LOGIT`` there.  Returns what it measured."""
+    h = final_hidden(torch, model, params, prompts)
+    with torch.no_grad():
         mean = h.mean(0)
         u = mean / mean.norm()
         along = float((h @ u).mean())
@@ -1511,6 +1561,44 @@ def set_eos_row(torch, model, params, prompts):
     return {"hidden_norm": float(h.norm(dim=-1).mean()),
             "mean_hidden_norm": float(mean.norm()),
             "eos_row_norm": float(row.norm()), "eos_logit_mean": RL_EOS_LOGIT}
+
+
+def set_eos_row_greedy(torch, model, params, seqs, starts, rate):
+    """EOS's embedding row for greedy decoding: along the same mean
+    direction as ``set_eos_row``, scaled so that EOS would be the argmax
+    (its logit beats the best other id's) at a share ``rate`` of the
+    positions of ``seqs`` from ``starts`` on: greedy continuations whose
+    per-step chance of ending is about ``rate``, so lengths vary.  Returns
+    what it measured."""
+    from repro_torch.models import transformer as TF
+    h = final_hidden(torch, model, params, seqs)
+    keep, at = [], 0
+    for seq, start in zip(seqs, starts):
+        keep.extend(range(at + start, at + len(seq)))
+        at += len(seq)
+    h = h[torch.tensor(keep, device=h.device)]
+    with torch.no_grad():
+        mean = h.mean(0)
+        u = mean / mean.norm()
+        along = h @ u
+        w = TF.head_weight(params, model.cfg).float()
+        best = []
+        for chunk in h.split(512):
+            logits = chunk @ w
+            logits[:, RL_EOS] = float("-inf")
+            best.append(logits.max(-1).values)
+        best = torch.cat(best)
+        # EOS wins where scale * along > best: the `rate` quantile of
+        # best / along (never where along <= 0)
+        ratio = torch.where(along > 0, best / along,
+                            torch.full_like(best, float("inf")))
+        scale = float(torch.quantile(ratio, rate))
+        row = u * scale
+        params["embed"][RL_EOS] = row.to(params["embed"].dtype)
+    return {"positions": int(h.shape[0]), "rate": rate,
+            "eos_row_norm": float(row.norm()),
+            "best_other_logit_mean": float(best.mean()),
+            "eos_logit_mean": float((along * scale).mean())}
 
 
 def card_name_and_power():
@@ -1764,51 +1852,536 @@ def phase_rl(torch, dev, model, params, launches):
           "peak_mem_gb": peak,
           "cache_stats": engine.cache_stats()})
     del engine, trainer, orch
-    torch.cuda.empty_cache()
+    release(torch)
 
 
-def phase_rl_session(torch, launches):
+def phase_rl_session(torch, launches, extras_only=False):
     """The entry point a user calls: ``RLSession.from_config(SessionConfig(
     task="logic", engine="slot", n_groups=2, sft_steps=20)).run()`` on the
     card (the tiny f32 LM, so the kernels' f32 instantiations), to its
-    end and ``final_eval``."""
+    end and ``final_eval``; then the same entry point with the control
+    plane's options: two replicas with a kill, the ``bubble_target``
+    autoscaler, the serving tier (``arrival``) and ``engine="sim"``."""
     from repro_torch.kernels import ops
     from repro_torch.rl.session import RLSession, SessionConfig
 
+    def run(name, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        session = RLSession.from_config(SessionConfig(task="logic",
+                                                      n_groups=2, **kw))
+        out = session.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launches[name] = counts
+        hist = out["history"]
+        check(len(hist) >= 1 and all(
+            math.isfinite(v) for h in hist for v in h.values()
+            if isinstance(v, (int, float))), f"{name}: history {hist}")
+        if kw.get("engine") == "sim":
+            check(not any(counts.values()), f"{name}: launches {counts}")
+        else:
+            check(session.model.device.type == "cuda",
+                  f"{name}: model on {session.model.device}")
+            check(counts["flash_attention"] > 0
+                  and counts["paged_decode_attention"] > 0
+                  and not any(n for k, n in counts.items() if k not in
+                              ("flash_attention", "paged_decode_attention")),
+                  f"{name}: launches {counts}")
+        return session, out, time.perf_counter() - t0, counts
+
+    if not extras_only:
+        session, out, wall, counts = run("rl_session", engine="slot",
+                                         sft_steps=20)
+        losses = session.sft_losses
+        check(len(losses) == 20 and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0], f"rl_session: sft losses {losses}")
+        fe = out["final_eval"]
+        check(set(fe) == {"reward_mean", "solve_rate", "gen_len_mean"}
+              and all(map(math.isfinite, fe.values())),
+              f"rl_session: final_eval {fe}")
+        emit({"phase": "rl_session", "device": str(session.model.device),
+              "sft_loss_first": losses[0],
+              "sft_loss_final": out["sft_loss_final"],
+              "history": out["history"], "evals": out["evals"],
+              "final_eval": fe, "rollout_metrics": out["rollout_metrics"],
+              "run_wall_s": out["wall_time_s"], "wall_s": wall,
+              "launches": counts})
+
+    extras = {
+        "rl_session_group": dict(num_replicas=2, fault_plan=[(3, 1, "kill")],
+                                 sft_steps=5),
+        "rl_session_autoscaler": dict(num_replicas=2, sft_steps=5,
+                                      autoscaler="bubble_target"),
+        "rl_session_serving": dict(
+            sft_steps=5, arrival={"kind": "poisson",
+                                  "rates": {"a": 20.0, "b": 10.0}},
+            tenants=[{"name": "a"}, {"name": "b", "weight": 2.0}]),
+        "rl_session_sim": dict(engine="sim"),
+    }
+    rec = {}
+    for name, kw in extras.items():
+        session, out, wall, counts = run(name, **kw)
+        rm = out["rollout_metrics"]
+        rec[name] = {"options": kw, "updates": len(out["history"]),
+                     "wall_s": wall, "launches": counts,
+                     "replica_deaths": rm["replica_deaths"],
+                     "scale_events": rm["scale_events"],
+                     "tokens_generated": rm["tokens_generated"],
+                     "tenants": {n: {k: t[k] for k in ("arrivals",
+                                                        "completed", "shed")}
+                                 for n, t in rm.get("tenants", {}).items()}}
+    check(rec["rl_session_group"]["replica_deaths"] == 1,
+          f"rl_session_group: {rec['rl_session_group']}")
+    for n, t in rec["rl_session_serving"]["tenants"].items():
+        check(t["arrivals"] >= 1
+              and t["completed"] + t["shed"] == t["arrivals"],
+              f"rl_session_serving: tenant {n} {t}")
+    emit({"phase": "rl_session_options", "sessions": rec})
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the multi-replica control plane at full width
+# ---------------------------------------------------------------------------
+
+GROUP_EOS_RATE = 0.02      # greedy positions whose argmax is EOS (group)
+NEAR_TIE_BF16 = 0.1        # the e2e phase's bf16 near-tie, in nats
+
+
+def release(torch) -> None:
+    """Free what a phase left: the instrumented engines hold reference
+    cycles (wrappers stored on the object they wrap), which only the
+    cycle collector frees, and their pools with them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sync_clock(torch) -> float:
     torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def instrument_replica(torch, r, i, steps, mig):
+    """Count the replica's decode steps (those that launch: an active slot)
+    and time its migration calls (export -> import -> discard), each
+    between device synchronisations."""
+    export, accept, discard, step = (r.export_entry, r.import_entry,
+                                     r.discard_entry, r.step)
+
+    def export_entry(uid):
+        t = sync_clock(torch)
+        handle = export(uid)
+        mig["export_s"] += sync_clock(torch) - t
+        mig["exports"] += 1
+        return handle
+
+    def import_entry(handle):
+        t = sync_clock(torch)
+        ok = accept(handle)
+        mig["import_s"] += sync_clock(torch) - t
+        mig["imports"] += 1
+        if ok:
+            mig["imports_accepted"] += 1
+            mig["pages"] += len(handle["kv"].pages)
+        return ok
+
+    def discard_entry(uid):
+        mig["discards"] += 1
+        discard(uid)
+
+    def counted_step():
+        steps[i] = steps.get(i, 0) + bool(r.active_uids())
+        return step()
+    r.export_entry, r.import_entry = export_entry, import_entry
+    r.discard_entry, r.step = discard_entry, counted_step
+    return r
+
+
+def first_parting(want, got):
+    """Index of the first token where two streams differ (a length
+    difference counts at the shorter's end); None when equal."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a[0] != b[0]:
+            return i
+    return None if len(want) == len(got) else min(len(want), len(got))
+
+
+def phase_group(torch, dev, model, params, launches):
+    """Two full-width replicas behind the port's EngineGroup: 16 GRPO
+    groups of 4 under the sorted policy in partial mode, the
+    ``least_tokens`` balancer, KV migration and a FaultInjector that kills
+    replica 1 about a third of the way in; greedy fused decode, held
+    against one 32-slot engine on the same prompts."""
+    from repro_torch.core.buffer import BufferEntry, Mode, \
+        StatefulRolloutBuffer
+    from repro_torch.core.engine_api import FaultInjector
+    from repro_torch.core.orchestrator import (RolloutOrchestrator,
+                                               SortedRLConfig)
+    from repro_torch.core.policy import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.rl.trainer_api import make_trainer
+    from repro_torch.rollout.engine import SlotEngine
+    from repro_torch.rollout.group import EngineGroup
+
+    cfg = model.cfg
+    nl = cfg.num_layers
+    slots, max_total, max_gen = 16, 384, 128
+    prompts, metas = rl_prompts(16, 4, 64, 192, cfg.vocab_size, seed=6)
+    kw = dict(max_total_len=max_total, max_gen_len=max_gen, eos_id=RL_EOS,
+              pad_id=0, temperature=0.0, fused_sampling=True)
+    # calibrate EOS on the greedy continuations themselves: 32 steps of
+    # each group's prompt without an EOS; until its first EOS a stream
+    # walks exactly these positions, so GROUP_EOS_RATE is its per-step
+    # chance of ending there
+    probe = SlotEngine(model, lambda: params, capacity=16,
+                       **dict(kw, eos_id=-1, max_gen_len=32))
+    heads, cont = prompts[::4], {}
+    serve_loop(probe, [BufferEntry(uid=i, prompt=list(p))
+                       for i, p in enumerate(heads)], cont, [])
+    del probe
+    eos_row = set_eos_row_greedy(
+        torch, model, params,
+        [p + [t for t, _ in cont[i]] for i, p in enumerate(heads)],
+        [len(p) - 1 for p in heads], GROUP_EOS_RATE)
+
+    # the yardstick: one 32-slot engine serving the same prompts
+    solo = SlotEngine(model, lambda: params, capacity=2 * slots, **kw)
+    solo_out, solo_ms = {}, []
+    t0 = time.perf_counter()
+    solo_steps = serve_loop(solo, [BufferEntry(uid=i, prompt=list(p))
+                                   for i, p in enumerate(prompts)],
+                            solo_out, solo_ms)
+    solo_s = time.perf_counter() - t0
+    del solo
+    torch.cuda.empty_cache()
+    kill_step = max(2, solo_steps // 3)
+
+    steps, mig = {}, {"exports": 0, "imports": 0, "imports_accepted": 0,
+                      "discards": 0, "pages": 0, "export_s": 0.0,
+                      "import_s": 0.0}
+    replicas = [instrument_replica(
+        torch, SlotEngine(model, lambda: params, capacity=slots, seed=i,
+                          **kw), i, steps, mig) for i in range(2)]
+    group = EngineGroup(replicas, balancer="least_tokens", migrate_kv=True,
+                        fault_injector=FaultInjector([(kill_step, 1,
+                                                       "kill")]))
+    group_step, group_ms = group.step, []
+
+    def timed_group_step():
+        t = time.perf_counter()
+        evs = group_step()              # each replica's step reads its
+        group_ms.append(1e3 * (time.perf_counter() - t))   # tokens back
+        return evs
+    group.step = timed_group_step
+    batches = []
+
+    def train_fn(req):                  # records the batch, trains nothing
+        batches.append(list(req.entries))
+
+    scfg = SortedRLConfig(mode=Mode.PARTIAL, rollout_batch=2 * slots,
+                          group_size=2, update_batch=16, max_gen_len=max_gen,
+                          num_replicas=2)
+    orch = RolloutOrchestrator(group, StatefulRolloutBuffer(Mode.PARTIAL),
+                               scfg, make_policy("sorted"),
+                               make_trainer("sync", fn=train_fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    session = RLSession.from_config(SessionConfig(
-        task="logic", engine="slot", n_groups=2, sft_steps=20))
-    out = session.run()
+    orch.run_group(prompts, metas)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    launches["rl_session"] = counts
-    check(session.model.device.type == "cuda",
-          f"rl_session: model on {session.model.device}")
-    check(counts["flash_attention"] > 0
-          and counts["paged_decode_attention"] > 0
-          and not any(n for k, n in counts.items() if k not in
-                      ("flash_attention", "paged_decode_attention")),
-          f"rl_session: launches {counts}")
-    hist = out["history"]
-    check(len(hist) >= 1 and all(math.isfinite(v) for h in hist
-                                 for v in h.values()),
-          f"rl_session: history {hist}")
-    losses = session.sft_losses
-    check(len(losses) == 20 and all(map(math.isfinite, losses))
-          and losses[-1] < losses[0], f"rl_session: sft losses {losses}")
-    fe = out["final_eval"]
-    check(set(fe) == {"reward_mean", "solve_rate", "gen_len_mean"}
-          and all(map(math.isfinite, fe.values())),
-          f"rl_session: final_eval {fe}")
-    emit({"phase": "rl_session", "device": str(session.model.device),
-          "sft_loss_first": losses[0], "sft_loss_final": out["sft_loss_final"],
-          "history": hist, "evals": out["evals"], "final_eval": fe,
-          "rollout_metrics": out["rollout_metrics"],
-          "run_wall_s": out["wall_time_s"], "wall_s": wall,
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches["group"] = counts
+
+    trained = [e for b in batches for e in b]
+    check(sorted(e.uid for e in trained) == list(range(len(prompts))),
+          "group: not every uid trained exactly once")
+    st = dict(group.cache_stats())
+    check(st["replica_deaths"] == 1 and st["alive_replicas"] == 1,
+          f"group: replica deaths {st['replica_deaths']}")
+    check(mig["exports"] >= 1 and mig["imports_accepted"] >= 1
+          and mig["discards"] >= 1,
+          f"group: no KV migration (export -> import -> discard) {mig}")
+    decode = sum(steps.values())
+    check_launches("group", counts, {
+        "flash_attention": nl * sum(r.prefill_launches for r in replicas),
+        "paged_decode_attention": nl * decode, "fused_sample": decode})
+
+    # streams against the 32-slot engine; a parting must be a near-tie of
+    # the plain forward (the two tokens within NEAR_TIE_BF16 nats)
+    streams = {e.uid: list(zip(e.generated, e.logprobs)) for e in trained}
+    equal, parted, bad, lp_gap = 0, 0, [], 0.0
+    for uid, want in solo_out.items():
+        got = streams[uid]
+        n = first_parting(want, got)
+        same = len(want) if n is None else n
+        lp_gap = max([lp_gap] + [abs(a[1] - b[1])
+                                 for a, b in zip(want[:same], got[:same])])
+        if n is None:
+            equal += 1
+            continue
+        parted += 1
+        if n >= min(len(want), len(got)):
+            bad.append((uid, n, "length"))
+            continue
+        _, lg, _ = score(torch, model, params, prompts[uid], got[:n + 1])
+        _, lw, _ = score(torch, model, params, prompts[uid], want[:n + 1])
+        if abs(lg[n] - lw[n]) > NEAR_TIE_BF16:
+            bad.append((uid, n, abs(lg[n] - lw[n])))
+    check(not bad, f"group: streams part from the 32-slot engine's beyond "
+          f"a near-tie: {bad[:8]}")
+    summary = orch.metrics.summary()
+    tokens = sum(e.gen_len for e in trained)
+    ms = sorted(group_ms)
+    gen = [e.gen_len for e in trained]
+    emit({"phase": "group", "model": cfg.name, "layers": nl,
+          "dtype": "bfloat16", "card": card_name_and_power(),
+          "setup": {"replicas": 2, "slots_each": slots,
+                    "balancer": "least_tokens", "migrate_kv": True,
+                    "kill": {"replica": 1, "group_step": kill_step},
+                    "policy": "sorted", "mode": "partial",
+                    "update_batch": 16, "prompts": len(prompts),
+                    "max_total_len": max_total, "max_gen_len": max_gen,
+                    "temperature": 0.0, "fused_sampling": True,
+                    "eos_row": eos_row},
+          "group_steps": len(ms), "group_step_ms_median":
+          statistics.median(ms), "group_step_ms_p90":
+          ms[int(0.9 * (len(ms) - 1))], "tokens": tokens,
+          "tokens_per_s": tokens / wall, "wall_s": wall,
+          "replica_decode_steps": steps,
+          "gen_len": {"mean": statistics.mean(gen), "min": min(gen),
+                      "max": max(gen), "at_max": sum(n >= max_gen
+                                                     for n in gen)},
+          "migration": dict(mig, steal_count=st["steal_count"],
+                            steal_migrations=st["steal_migrations"],
+                            migrated_pages=st["migrated_pages"],
+                            rehomed_entries=st["rehomed_entries"],
+                            rerolled_entries=st["rerolled_entries"]),
+          "bubble_ratio": summary["bubble_ratio"],
+          "replica_bubble_ratio": summary["replica_bubble_ratio"],
+          "harvests": summary["harvests"], "updates": summary["updates"],
+          "solo": {"steps": solo_steps, "wall_s": solo_s,
+                   "decode_step_ms_median": statistics.median(solo_ms),
+                   "tokens_per_s": sum(len(v) for v in solo_out.values())
+                   / solo_s},
+          "streams": {"equal": equal, "parted_at_near_tie": parted,
+                      "beyond_near_tie": len(bad),
+                      "max_logprob_gap_where_equal": lp_gap,
+                      "near_tie_tol": NEAR_TIE_BF16},
+          "launches": counts, "peak_mem_gb": peak,
+          "cache_stats": st})
+    del group, replicas, orch
+    release(torch)
+
+
+def phase_serve_tier(torch, dev, model, params, launches):
+    """The always-on serving tier at full width: two tenants' Poisson
+    arrivals (prompts of 64-512 ids) through admission-controlled queues
+    into an elastic EngineGroup that starts at one replica and grows and
+    sheds under the ``queue_depth`` autoscaler, on a fixed serving tick."""
+    from repro_torch.core.buffer import Mode, StatefulRolloutBuffer
+    from repro_torch.core.orchestrator import SortedRLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.rl.trainer_api import make_trainer
+    from repro_torch.rollout.autoscaler import Autoscaler
+    from repro_torch.rollout.engine import SlotEngine
+    from repro_torch.rollout.group import EngineGroup
+    from repro_torch.serve import (Ingress, PoissonArrivals,
+                                   ServingOrchestrator, ServingPolicy,
+                                   TenantSpec)
+
+    cfg = model.cfg
+    nl = cfg.num_layers
+    slots, max_total, max_gen, tick, n_arrivals = 16, 768, 128, 0.05, 64
+    kw = dict(capacity=slots, max_total_len=max_total, max_gen_len=max_gen,
+              eos_id=RL_EOS, pad_id=0, temperature=0.0, fused_sampling=True)
+    steps, mig, built = {}, {"exports": 0, "imports": 0,
+                             "imports_accepted": 0, "discards": 0,
+                             "pages": 0, "export_s": 0.0,
+                             "import_s": 0.0}, []
+
+    def make_replica(idx):
+        r = instrument_replica(torch, SlotEngine(model, lambda: params,
+                                                 seed=idx, **kw),
+                               idx, steps, mig)
+        built.append(r)
+        return r
+
+    group = EngineGroup([make_replica(0)], elastic=True, migrate_kv=True,
+                        spread_tenants=True)
+    scale_log = []
+    for name in ("scale_up", "scale_down"):
+        def scaled(*a, _fn=getattr(group, name), _name=name):
+            out = _fn(*a)
+            torch.cuda.synchronize()
+            scale_log.append({
+                "action": _name, "replica": a[0] if _name == "scale_down"
+                else out, "alive": sum(group.alive),
+                "replicas_held": len(group.replicas),
+                "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+            return out
+        setattr(group, name, scaled)
+    asc = Autoscaler("queue_depth", factory=make_replica, min_replicas=1,
+                     max_replicas=2, window=1.0, cooldown=0.5,
+                     policy_kwargs=dict(wait_frac=0.5, target_wait=0.5,
+                                        idle_bubble=0.5))
+
+    def sampler(rng, tenant):
+        return [rng.randrange(1, cfg.vocab_size)
+                for _ in range(rng.randint(64, 512))]
+    tenants = (TenantSpec("batch", weight=1.0),
+               TenantSpec("chat", weight=2.0, latency_slo=2.0))
+    ingress = Ingress(tenants, PoissonArrivals(
+        {"batch": 20.0, "chat": 10.0}, seed=9, prompt_sampler=sampler))
+    policy = ServingPolicy(inner="sorted", admission="weighted_fair",
+                           ingress=ingress)
+    batches = []
+    orch = ServingOrchestrator(
+        group, StatefulRolloutBuffer(Mode.PARTIAL),
+        SortedRLConfig(mode=Mode.PARTIAL, rollout_batch=slots, group_size=1,
+                       update_batch=8, max_gen_len=max_gen),
+        policy, make_trainer("sync", fn=lambda req: batches.append(
+            list(req.entries))), tick=tick, autoscaler=asc)
+    mem0 = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    orch.run_for(n_arrivals=n_arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    launches["serve_tier"] = counts
+
+    tenant = orch.metrics.tenant_summary()
+    uids = [e.uid for b in batches for e in b]
+    check(len(uids) == len(set(uids)), "serve_tier: a request trained twice")
+    check(sum(t["arrivals"] for t in tenant.values()) == n_arrivals,
+          f"serve_tier: arrivals {tenant}")
+    for name, t in tenant.items():
+        check(t["arrivals"] == t["completed"] + t["shed"]
+              and t["admitted"] == t["completed"] == t["consumed"],
+              f"serve_tier: tenant {name} not conserved {t}")
+    check(len(uids) == sum(t["completed"] for t in tenant.values()),
+          "serve_tier: completions and trained requests differ")
+    check(len(asc.events) >= 1, "serve_tier: no scale event")
+    decode = sum(steps.values())
+    check_launches("serve_tier", counts, {
+        "flash_attention": nl * sum(r.prefill_launches for r in built),
+        "paged_decode_attention": nl * decode, "fused_sample": decode})
+    tokens = orch.metrics.tokens_generated
+    emit({"phase": "serve_tier", "model": cfg.name, "layers": nl,
+          "dtype": "bfloat16", "card": card_name_and_power(),
+          "setup": {"tenants": ["batch (weight 1)",
+                                "chat (weight 2, latency_slo 2.0)"],
+                    "rates": {"batch": 20.0, "chat": 10.0},
+                    "arrivals": n_arrivals, "prompt_ids": [64, 512],
+                    "tick": tick, "slots_each": slots,
+                    "max_total_len": max_total, "max_gen_len": max_gen,
+                    "admission": "weighted_fair", "inner": "sorted",
+                    "autoscaler": "queue_depth", "replicas": [1, 2]},
+          "scale_events": [dict(dataclasses.asdict(e), **m) for e, m
+                           in zip(asc.events, scale_log)],
+          "memory_allocated_gb_before": mem0,
+          "tenants": {n: {k: t[k] for k in ("arrivals", "admitted",
+                                             "completed", "shed", "tokens")}
+                      for n, t in tenant.items()},
+          "tokens": tokens, "tokens_per_s": tokens / wall, "wall_s": wall,
+          "serving_clock_s": orch.now, "replica_decode_steps": steps,
+          "migration": mig, "launches": counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del group, built, orch, asc
+    release(torch)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: one long trainer step through the blockwise branch
+# ---------------------------------------------------------------------------
+
+def phase_long(torch, dev, model, params, launches):
+    """The trainer's loss (``total_loss`` over ``model.forward``, PPO-clip
+    on ``token_logprobs``) forward and backward at B=1, S=2304: above
+    ``FULL_ATTN_MAX_SEQ``, so every layer attends blockwise (counted);
+    on-policy behaviour logprobs from a no-grad forward, advantages +-1."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.rl.losses import LossConfig, token_logprobs, total_loss
+    from repro_torch.rl.trainer import value_and_grad
+
+    cfg = model.cfg
+    S, P = 2304, 2048
+    check(S > TF.FULL_ATTN_MAX_SEQ, "long: S does not pass the switch")
+    rng = np.random.RandomState(7)
+    tokens = torch.tensor(rng.randint(1, cfg.vocab_size, size=(1, S)),
+                          device=dev)
+    mask = torch.zeros((1, S), device=dev)
+    mask[:, P:] = 1.0
+    adv = torch.tensor(rng.choice([-1.0, 1.0], size=(1, S)),
+                       dtype=torch.float32, device=dev) * mask
+    calls = {"full_attention": 0, "blockwise_attention": 0}
+    originals = {n: getattr(L, n) for n in calls}
+
+    def counted(name):
+        def attend(*a, **k):
+            calls[name] += 1
+            return originals[name](*a, **k)
+        return attend
+    for n in calls:
+        setattr(L, n, counted(n))
+    try:
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": tokens})
+            old = token_logprobs(logits, tokens) * mask
+            del logits
+        batch = {"tokens": tokens, "loss_mask": mask, "advantages": adv,
+                 "old_logprobs": old}
+
+        def loss_fn(p, b):
+            logits, aux = model.forward(p, b)
+            return total_loss(logits, aux, b, LossConfig())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        fb_ms = []
+        for _ in range(2):      # the first pays the allocator's growth
+            grads = None
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+            e.record()
+            e.synchronize()
+            fb_ms.append(s.elapsed_time(e))
+        gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        grads = None
+        trace = profile_call(torch, lambda: value_and_grad(loss_fn, params,
+                                                           batch))
+    finally:
+        for n, fn in originals.items():
+            setattr(L, n, fn)
+    counts = ops.launch_counts()
+    launches["long"] = counts
+    check(math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0,
+          f"long: loss {float(loss)}, grad norm {gnorm}")
+    check(calls == {"full_attention": 0,
+                    "blockwise_attention": 4 * cfg.num_layers},
+          f"long: attention calls {calls}")
+    check(not any(counts.values()), f"long: launches {counts}")
+    emit({"phase": "long", "model": cfg.name, "layers": cfg.num_layers,
+          "dtype": "bfloat16", "card": card_name_and_power(),
+          "batch": 1, "seq": S, "trained_tokens": S - P,
+          "forward_backward_ms": fb_ms, "traced": trace,
+          "loss": float(loss), "grad_norm": gnorm,
+          "attention_calls": calls,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": counts})
+    del batch
+    release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1835,8 +2408,8 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl",
+                                        "group"), default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1864,16 +2437,22 @@ def main() -> int:
     if args.phase == "all":
         model, params = phase_serve(torch, dev, launches, keep)
         phase_e2e(torch, dev, keep, model, params)
-    if args.phase == "rl":
+    if args.phase in ("rl", "group"):
         from repro_torch.configs.base import get_config
         from repro_torch.models.model import build_model
         model = build_model(get_config("qwen3_0_6b"))
         params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    if args.phase in ("all", "group"):
+        phase_group(torch, dev, model, params, launches)
+        phase_serve_tier(torch, dev, model, params, launches)
     if args.phase in ("all", "rl"):
         phase_rl(torch, dev, model, params, launches)
+    if args.phase in ("all", "group"):
+        phase_long(torch, dev, model, params, launches)
+    if args.phase in ("all", "rl", "group"):
         del model, params
-        torch.cuda.empty_cache()
-        phase_rl_session(torch, launches)
+        release(torch)
+        phase_rl_session(torch, launches, extras_only=args.phase == "group")
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,

@@ -192,7 +192,7 @@ _REGISTRY: Dict[str, Callable[..., SchedulerPolicy]] = {}
 # registry entries that live outside this module (they import it, so
 # they cannot be imported at module-init time without a cycle); loaded
 # on first registry use so `make_policy("serving")` works everywhere
-_EXTENSION_MODULES = ()   # the serving tier is not ported yet
+_EXTENSION_MODULES = ("repro_torch.serve",)
 _extensions_loaded = False
 
 

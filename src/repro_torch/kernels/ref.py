@@ -166,9 +166,12 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables,
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, seg_ids=None) -> torch.Tensor:
-    """(B, S, H, D) GQA causal attention (packed via seg_ids)."""
-    return L.full_attention(q, k, v, causal=causal, window=window,
-                            softcap=softcap, seg_q=seg_ids, seg_k=seg_ids)
+    """(B, S, H, D) GQA causal attention (packed via seg_ids); above
+    ``FULL_ATTN_MAX_SEQ`` rows blockwise, as the reference's prefill."""
+    attend = (L.full_attention if q.shape[1] <= L.FULL_ATTN_MAX_SEQ
+              else L.blockwise_attention)
+    return attend(q, k, v, causal=causal, window=window, softcap=softcap,
+                  seg_q=seg_ids, seg_k=seg_ids)
 
 
 def fused_sample_ref(x, w, top_k: int = 1, softcap: float = 0.0):

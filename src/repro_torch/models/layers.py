@@ -1,5 +1,6 @@
 """Shared model building blocks (counterpart of ``repro/models/layers.py``):
-norms, rotary embeddings, plain attention, projections, MLP.
+norms, rotary embeddings, plain attention (full and blockwise),
+projections, MLP.
 
 Plain functions on tensors and dicts of parameters, in the reference's
 layouts: q (B, S, H, D), k/v (B, S, Kh, D), ``wq`` (d, H, hd), ``wo``
@@ -75,6 +76,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
+# above this many query rows the plain paths attend blockwise (the
+# reference's ``transformer.FULL_ATTN_MAX_SEQ``)
+FULL_ATTN_MAX_SEQ = 2048
+
+
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
@@ -109,6 +115,87 @@ def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.nan_to_num(probs, nan=0.0)             # fully-masked rows
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_block: int = 512,
+                        k_block: int = 1024, seg_q=None, seg_k=None
+                        ) -> torch.Tensor:
+    """Memory-bounded attention: a loop over ``q_block``-row query blocks,
+    each an online softmax over ``k_block``-row key blocks, so no score
+    tensor is larger than (B, H, q_block, k_block) f32.  The reference's
+    plain long-sequence path, in its order: q is scaled and rounded to
+    its dtype, products accumulate in f32, padded keys are masked by
+    ``kpos < Sk``, GQA repeats the kv heads.
+
+    Key blocks that the causal mask or the window hide from a whole
+    query block are skipped: such a block leaves the running (m, l, acc)
+    exactly as they were, so the result is the reference's, which scans
+    every block.  Shapes and segment ids as in :func:`full_attention`.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    Sq_orig, Sk_orig = Sq, Sk
+    if Sq % q_block:
+        q = F.pad(q, (0, 0, 0, 0, 0, q_block - Sq % q_block))
+        Sq = q.shape[1]
+        if seg_q is not None:
+            seg_q = F.pad(seg_q, (0, Sq - Sq_orig), value=-1)
+    if Sk % k_block:
+        pad = (0, 0, 0, 0, 0, k_block - Sk % k_block)
+        k, v = F.pad(k, pad), F.pad(v, pad)
+        Sk = k.shape[1]
+        if seg_k is not None:
+            seg_k = F.pad(seg_k, (0, Sk - Sk_orig), value=-1)
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    scale = 1.0 / math.sqrt(D)
+    neg_inf = float("-inf")
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qblk = (q[:, q0:q0 + q_block].float() * scale).to(q.dtype).float()
+        qpos = torch.arange(q0, q0 + q_block, device=q.device)
+        m = torch.full((B, H, q_block), neg_inf, device=q.device)
+        l = torch.zeros((B, H, q_block), device=q.device)
+        acc = torch.zeros((B, H, q_block, D), device=q.device)
+        for k0 in range(0, Sk, k_block):
+            if causal and k0 > q0 + q_block - 1:
+                break                       # above the diagonal from here
+            if window and q0 - (k0 + k_block - 1) >= window:
+                continue                    # wholly outside the window
+            kpos = torch.arange(k0, k0 + k_block, device=q.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk,
+                             k[:, k0:k0 + k_block].float())
+            s = _softcap(s, softcap)
+            mask = (kpos < Sk_orig)[None, :].expand(q_block, k_block)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            if seg_q is not None:
+                mask = mask[None] & (seg_q[:, q0:q0 + q_block, None]
+                                     == seg_k[:, None, k0:k0 + k_block])
+            else:
+                mask = mask[None]
+            s = s.masked_fill(~mask[:, None], neg_inf)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            # fully-masked rows keep m = -inf: guard the exponents
+            m_safe = torch.where(torch.isfinite(m_new), m_new,
+                                 torch.zeros_like(m_new))
+            p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
+                            torch.zeros_like(s))
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                torch.zeros_like(m))
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                v[:, k0:k0 + k_block].float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :Sq_orig]
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,

@@ -16,8 +16,14 @@ Two departures from the reference, both for eager execution:
   ``decode_step_paged`` straight into the page pool, then each attends
   with its kernel.  The reference gathers a dense view of the pool,
   decodes it and scatters the written page back; the results are the
-  same for fp pages.  For int8 pages the written page is requantised
-  before the attention reads it (see ``decode_step_paged``).
+  same for fp pages.  For int8 pages, as in the reference, the attention
+  reads the pool's rows at their old scale with the new row unquantised
+  in its place, and only then is the written page requantised (see
+  ``decode_step_paged``).
+
+As in the reference, ``forward`` and the plain prefill attend blockwise
+above ``FULL_ATTN_MAX_SEQ`` positions; on CUDA tensors the prefill is the
+flash kernel at every width.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
+
+FULL_ATTN_MAX_SEQ = L.FULL_ATTN_MAX_SEQ   # above this, attend blockwise
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -145,17 +153,22 @@ def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Returns (logits (B, S, V), aux).  Attention is the plain
-    ``full_attention``, as in the reference's scoring path; it is the
-    independent check of the engine's kernel path."""
+    """Returns (logits (B, S, V), aux).  Attention is plain PyTorch, as in
+    the reference's scoring path: ``full_attention`` up to
+    ``FULL_ATTN_MAX_SEQ`` positions, ``blockwise_attention`` above (one
+    score tile at a time; under autograd every tile is kept for the
+    backward).  It is the independent check of the engine's kernel path,
+    and the trainer's path."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
+                 else L.blockwise_attention)
 
     def attend(q, k, v):
-        return L.full_attention(q, k, v, causal=True,
-                                window=cfg.attn.sliding_window,
-                                softcap=cfg.attn.attn_softcap)
+        return attention(q, k, v, causal=True,
+                         window=cfg.attn.sliding_window,
+                         softcap=cfg.attn.attn_softcap)
 
     for i in range(cfg.num_layers):
         x, _, _ = _block(layer(params, i), cfg, x, positions, attend)

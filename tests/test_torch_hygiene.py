@@ -2,11 +2,12 @@
 
 * No file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports JAX or
   the reference package ``repro``.
-* Importing the port's engine, its RL session and its checkpoint module
-  leaves both out of ``sys.modules``.
+* Importing the port's engine, its RL session, its checkpoint module,
+  its EngineGroup, autoscaler, serving tier and controllers leaves both
+  out of ``sys.modules``.
 * The port's verbatim copies of the reference's jax-free modules equal
   their originals once ``repro.`` is rewritten to ``repro_torch.``, but
-  for the edits listed in ``COPY_EDITS``.
+  for the edits listed in ``COPY_EDITS`` (none).
 * The port's copy of ``PagedKVCache`` behaves exactly as the reference's
   under random op sequences (submit, share, COW, interrupt, resume,
   evict, export/import, sync): tables, refcounts, free lists and
@@ -51,7 +52,9 @@ def test_forbidden_pattern_spares_the_port_itself():
 def test_importing_the_engine_pulls_in_no_jax():
     code = ("import sys, repro_torch.rollout.engine, repro_torch.convert, "
             "repro_torch.rl.session, repro_torch.train.checkpoint, "
-            "repro_torch.train.loop; "
+            "repro_torch.train.loop, repro_torch.rollout.group, "
+            "repro_torch.rollout.autoscaler, repro_torch.serve, "
+            "repro_torch.core.controller; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -63,15 +66,14 @@ def test_importing_the_engine_pulls_in_no_jax():
 # -- verbatim copies -----------------------------------------------------------
 
 VERBATIM = ("core/buffer.py", "core/metrics.py", "core/policy.py",
-            "core/orchestrator.py", "rl/trainer_api.py", "data/tokenizer.py",
-            "data/loader.py", "data/logic.py", "data/math_synth.py")
-# the one line a copy may differ in, as (reference line, port line): the
-# policy registry loads the serving tier's policies, which is not ported
-COPY_EDITS = {
-    "core/policy.py": [('_EXTENSION_MODULES = ("repro_torch.serve",)',
-                        "_EXTENSION_MODULES = ()   # the serving tier is "
-                        "not ported yet")],
-}
+            "core/orchestrator.py", "core/engine_api.py",
+            "core/controller.py", "rl/trainer_api.py", "rollout/sim.py",
+            "rollout/group.py", "rollout/autoscaler.py", "serve/__init__.py",
+            "serve/arrivals.py", "serve/serving.py", "serve/tenants.py",
+            "data/tokenizer.py", "data/loader.py", "data/logic.py",
+            "data/math_synth.py")
+# lines a copy may differ in, as (reference line, port line): none
+COPY_EDITS = {}
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -112,14 +112,26 @@ def test_tiny_session_matches_reference(mode, policy):
 
 
 @pytest.mark.parametrize("kw,needs", [
-    ({"engine": "sim"}, "rollout/sim.py"),
-    ({"num_replicas": 2}, "rollout/group.py"),
-    ({"fault_plan": [(1, 0, "kill")]}, "rollout/group.py"),
-    ({"autoscaler": "bubble_target"}, "rollout/autoscaler.py"),
-    ({"arrival": {"kind": "poisson"}}, "serve/")])
+    ({"engine": "sim"}, "SimEngine"),
+    ({"num_replicas": 2}, "EngineGroup"),
+    ({"fault_plan": [(1, 0, "kill")]}, "num_replicas > 1"),
+    ({"autoscaler": "bubble_target"}, "Autoscaler"),
+    ({"arrival": {"kind": "poisson"}}, "ServingOrchestrator")])
 def test_options_of_later_slices_raise(kw, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        TS.RLSession.from_config(TS.SessionConfig(device="cpu", **kw))
+    """The options a later slice brought in now build what the reference
+    builds; only ``fault_plan`` on a single engine still raises, with the
+    reference's ``ValueError``."""
+    cfg = TS.SessionConfig(device="cpu", sft_steps=0, d_model=16, layers=1,
+                           rollout_batch=4, update_batch=4, eval_size=4,
+                           **kw)
+    if "fault_plan" in kw:
+        with pytest.raises(ValueError, match=needs):
+            TS.RLSession.from_config(cfg)
+        return
+    orch = TS.RLSession.from_config(cfg).orchestrator
+    built = {type(orch).__name__, type(orch.engine).__name__,
+             type(getattr(orch, "autoscaler", None)).__name__}
+    assert needs in built, built
 
 
 def test_session_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
