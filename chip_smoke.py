@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase group     # kernel checks + the control
                                             # plane (group, serve_tier,
                                             # long, the option sessions)
+    python3 chip_smoke.py --phase families  # kernel checks + the families
 
 Phases, each printing one JSON line:
 
@@ -19,7 +20,10 @@ Phases, each printing one JSON line:
    spills registers; time the wrapper (``ms``), the device time of the
    launches one call makes (``kernel_ms``, torch.profiler), the plain
    version and a PyTorch yardstick (``library_ms``, never called by the
-   port).
+   port).  The same at the shapes of Gemma2-2B (D 256, G 2, softcap 50,
+   window 4096), Qwen1.5-110B (H 64, an 8192 x 152,064 head) and
+   Nemotron-4-340B (D 192, G 12, an 18,432 x 256,000 head, x streamed
+   through the fused head), and at their edges (``family_shapes``).
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -71,6 +75,14 @@ Phases, each printing one JSON line:
    plain ``forward``) forward and backward at B=1, S=2304 on the full
    model: above ``FULL_ATTN_MAX_SEQ``, so every layer attends blockwise
    (counted); its time (twice), one traced run and peak memory.
+7. ``families``: Gemma2-2B at full width and depth (26 local/global
+   layers, rings of 4096, the dense layout, 16 requests of 512-6144 ids
+   in one 8192-wide wave), Qwen1.5-110B at full width cut to 4 layers and
+   Nemotron-4-340B at full width cut to 2 (paged, fused greedy head, 32
+   and 16 requests of 64-1024 ids), random weights, one after another:
+   exactly each path's kernels, 3 requests each held to the plain
+   forward (0.1 nats, tokens equal but at near-ties), step times,
+   tokens/s and peak memory.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -170,13 +182,15 @@ def device_ms(torch, fn, n: int = 20):
 
 def timings(torch, fn, plain, library, ms_reps=(7, 10), plain_reps=(5, 3)):
     """ms (wrapper, CUDA events), kernel_ms (device time of the call's
-    launches), plain_ms and library_ms, measured in this run."""
+    launches), plain_ms and library_ms (None where no PyTorch call
+    computes the same function), measured in this run."""
     ms = cuda_ms(torch, fn, *ms_reps)          # before the profiler runs
     kernel_ms, per_call = device_ms(torch, fn)
     return dict(ms=ms, kernel_ms=kernel_ms,
                 kernels_per_call=per_call,
                 plain_ms=cuda_ms(torch, plain, *plain_reps),
-                library_ms=cuda_ms(torch, library, reps=5, inner=3))
+                library_ms=(cuda_ms(torch, library, reps=5, inner=3)
+                            if library is not None else None))
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +239,40 @@ def bound(nbytes, flops, kind="bfloat16"):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[kind]
     return {"bound_ms": 1e3 * max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+# bf16 decode (paged fp pages and the dense cache), per element:
+#   |out - want| <= 2^-7*|want| + 2^-5*rms(want[b]),
+# rms over slot b's heads and dims.  The plain version rounds q/sqrt(D)
+# and the softmax weights to bf16 before its f32 products, as the
+# reference's jnp decode does; the kernel keeps them in f32, as the
+# Pallas body does; both round the output to bf16.  One output step is
+# at most 2^-7*|want|; the weights' rounding moves an output by a sum of
+# terms of ~2^-9 of the slot's typical output, rms(want[b]).  The
+# kernels' split arithmetic in f32 stays within 0.01*rms of the step,
+# one split weighted 5% high goes past 2^-5*rms
+# (tests/test_torch_kernels.py).  No fixed limit fits both ends: one
+# row gives |out| ~ 1, thousands give rms ~ 0.03.
+DECODE_RTOL, DECODE_RMS = 2.0 ** -7, 2.0 ** -5
+DECODE_RULE = "2^-7*|want| + 2^-5*rms(want[slot])"
+
+
+def decode_excess(out, want):
+    """Over the slots with rows (a kv_len 0 slot's zeros are checked
+    exactly by the cases that hold one): the max of |out - want| -
+    2^-7*|want| - 2^-5*rms(want[b]) (a case passes at <= 0), the max of
+    (|out - want| - 2^-7*|want|) / rms(want[b]) (against 2^-5), and the
+    least slot rms."""
+    o, w = out.float(), want.float()
+    rms = w.pow(2).mean(dim=tuple(range(1, w.dim()))).sqrt()
+    live = rms > 0
+    if not bool(live.any()):
+        return 0.0, 0.0, 0.0
+    o, w, rms = o[live], w[live], rms[live]
+    rms_b = rms.view(-1, *[1] * (w.dim() - 1))
+    beyond = (o - w).abs() - DECODE_RTOL * w.abs()
+    return (float((beyond - DECODE_RMS * rms_b).max()),
+            float((beyond / rms_b).max()), float(rms.min()))
 
 
 def flash_inputs(torch, dev, dtype, B, S, H, Kh, D, seg=False, seed=0):
@@ -281,7 +329,8 @@ BF16_FUNCTIONS = {
 }
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
 # decode kernel -> (library, regex of every instantiation: f32 and bf16,
-# D 64/128, G 1/2/4/8, f32 D 32 G 1 on fp pages, and the merge pass)
+# D 64/128, G 1/2/4/8, bf16 D 192 G 12 and D 256 G 2 on fp K/V, f32 D 32
+# G 1 on fp pages, and the merge pass)
 DECODE_FUNCTIONS = {
     "paged_decode_attention": ("paged_decode_attention",
                                r"decode_split_kernelI(ff|13__nv_bfloat16S)"
@@ -311,10 +360,11 @@ def ptxas_functions(log: str, pattern: str):
 
 
 # split-pass instantiations per decode kernel: 2 dtypes x D 64/128 x G
-# 1/2/4/8, and for fp pages also f32 at D 32, G 1 (the RL session's LM)
-DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 17,
+# 1/2/4/8, bf16 (D, G) = (192, 12) and (256, 2) on fp K/V, and for fp
+# pages also f32 at D 32, G 1 (the RL session's LM)
+DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 19,
                                "paged_decode_attention_int8": 16,
-                               "ragged_decode_attention": 16}
+                               "ragged_decode_attention": 18}
 
 
 def decode_registers(build):
@@ -391,11 +441,14 @@ def phase_kernels(torch, dev, report):
 
     def record(kernel, case, err, tol, extra=None, excess=None, rtol=0.0):
         """``err`` is the max abs error; the case passes if ``err <= tol``,
-        or with ``rtol`` if ``excess`` (max of |out - want| - rtol*|want|)
-        is at most ``tol``."""
+        or, where ``excess`` is given, if it is at most ``tol``: the max
+        of |out - want| less rtol*|want| (and less the rest of
+        ``extra["tol_rule"]`` where one is named)."""
         ok = bool((err if excess is None else excess) <= tol)
-        check(ok, f"{kernel}/{case}: max_abs_err {err:.3g} > tol {tol}"
-              + (f" + {rtol:.3g}*|want|" if rtol else ""))
+        rule = (extra or {}).get("tol_rule")
+        check(ok, f"{kernel}/{case}: max_abs_err {err:.3g}"
+              + (f", {excess:.3g} beyond {rule}" if rule else
+                 f" > tol {tol}" + (f" + {rtol:.3g}*|want|" if rtol else "")))
         row = {"kernel": kernel, "case": case, "max_abs_err": err,
                "tol": tol, "rtol": rtol, "excess": excess, "ok": ok}
         row.update(extra or {})
@@ -405,16 +458,25 @@ def phase_kernels(torch, dev, report):
     def maxerr(a, b):
         return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
+    def decode_record(kernel, case, out, want, f32_case):
+        """f32: 1e-4 (only the order of f32 sums differs); bf16: the
+        decode rule above."""
+        if f32_case:
+            return record(kernel, case, maxerr(out, want), 1e-4)
+        excess, share, rms = decode_excess(out, want)
+        return record(kernel, case, maxerr(out, want), 0.0,
+                      {"tol_rule": DECODE_RULE, "beyond_step_over_rms": share,
+                       "min_slot_rms": rms},
+                      excess=excess, rtol=DECODE_RTOL)
+
     def max_excess(out, want, rtol):
         o, w = out.float(), want.float()
         return float(((o - w).abs() - rtol * w.abs()).max()) \
             if o.numel() else 0.0
 
     # -- paged_decode_attention ----------------------------------------------
-    # tolerance: f32 1e-4 (only the order of f32 sums differs); bf16 2e-2:
-    # the plain version (like the reference's jnp decode_attention) rounds
-    # q/sqrt(D) and the softmax weights to bf16 before its products, the
-    # kernel (like the Pallas body) keeps them in f32; outputs are O(1).
+    # tolerance: f32 1e-4 (only the order of f32 sums differs); bf16 the
+    # decode rule (DECODE_RULE, above ``decode_excess``).
     import numpy as np
     from repro_torch.kernels import paged_decode_attention as pdm
     serve_lens = np.asarray(serve_decode_lens())
@@ -450,8 +512,8 @@ def phase_kernels(torch, dev, report):
         out = ops.paged_decode_attention(*args, softcap=cap)
         want = ref.paged_decode_attention_ref(*args, softcap=cap)
         torch.cuda.synchronize()
-        tol = 1e-4 if dt == f32 else 2e-2
-        row = record("paged_decode_attention", name, maxerr(out, want), tol)
+        row = decode_record("paged_decode_attention", name, out, want,
+                            dt == f32)
         if 0 in lens:
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"paged/{name}: kv_len 0 not zero")
@@ -478,7 +540,8 @@ def phase_kernels(torch, dev, report):
                                               attn_mask=mask)
     del kg
     report["paged_decode_attention"].update(
-        max_abs_err=row["max_abs_err"], tol=row["tol"],
+        max_abs_err=row["max_abs_err"], tol=row["tol"], rtol=row["rtol"],
+        tol_rule=row.get("tol_rule"),
         **timings(torch, lambda: ops.paged_decode_attention(*args),
                   lambda: ref.paged_decode_attention_ref(*args), library),
         **bound(nbytes, flops),
@@ -486,8 +549,7 @@ def phase_kernels(torch, dev, report):
 
     # -- ragged_decode_attention (dense cache) -------------------------------
     # tolerance: as for the paged kernel, whose body it shares: f32 1e-4,
-    # bf16 2e-2 (the plain version rounds q/sqrt(D) and the weights to
-    # bf16 as the reference's jnp decode does, the kernel keeps f32).
+    # bf16 the decode rule.
     # The serve shape is the dense engine's cache (S = max_total_len
     # 2048) at the paged serve lengths; S = 64 and 300 are not multiples
     # of 128, kv_len > S reads all S rows.
@@ -515,8 +577,8 @@ def phase_kernels(torch, dev, report):
         out = ops.ragged_decode_attention(*args, softcap=cap)
         want = ref.ragged_decode_attention_ref(*args, softcap=cap)
         torch.cuda.synchronize()
-        row = record("ragged_decode_attention", name, maxerr(out, want),
-                     1e-4 if dt == f32 else 2e-2)
+        row = decode_record("ragged_decode_attention", name, out, want,
+                            dt == f32)
         if 0 in lens:
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"ragged/{name}: kv_len 0 not zero")
@@ -538,7 +600,8 @@ def phase_kernels(torch, dev, report):
     mask = (torch.arange(S, device=dev)[None, :]
             < kvl[:, None])[:, None, None, :]
     report["ragged_decode_attention"].update(
-        max_abs_err=row["max_abs_err"], tol=row["tol"],
+        max_abs_err=row["max_abs_err"], tol=row["tol"], rtol=row["rtol"],
+        tol_rule=row.get("tol_rule"),
         **timings(torch, lambda: ops.ragged_decode_attention(*args),
                   lambda: ref.ragged_decode_attention_ref(*args),
                   lambda: F.scaled_dot_product_attention(
@@ -556,8 +619,9 @@ def phase_kernels(torch, dev, report):
     # dequantises the gathered pages to f32 and runs the plain decode in
     # f32; the kernel dequantises the same values (float(q) * scale) in
     # registers and computes in f32.  f32 q: only
-    # the order of the f32 sums differs, 1e-4.  bf16 q: 2e-2, the paged
-    # kernel's bf16 bound, for the same reason: the plain decode, as the
+    # the order of the f32 sums differs, 1e-4.  bf16 q: a fixed 2e-2
+    # (int8 pages are off the families' path), for the reason behind the
+    # fp pages' DECODE_RULE: the plain decode, as the
     # reference's oracle, rounds q/sqrt(D) to q's dtype before its f32
     # products, the kernel keeps it in f32 as the Pallas body does; a
     # relative 2^-9 on every score moves O(1) outputs by a few bf16 steps
@@ -833,11 +897,285 @@ def phase_kernels(torch, dev, report):
         shape=dict(B=B, Dm=Dm, V=V, w="embed.T (strided)"))
     del embed, x, w
     torch.cuda.empty_cache()
+    kernels_family_shapes(torch, dev, report, record, decode_record, maxerr)
     (OUT / "chip_smoke_kernel_cases.json").write_text(
         json.dumps(cases, indent=1))
     emit({"phase": "kernels", "build_s": round(build_s, 3),
           "cases": len(cases), "cases_ok": sum(c["ok"] for c in cases),
           "timing": report})
+
+
+NO_LIBRARY_SOFTCAP = ("none: no single PyTorch call computes attention "
+                      "with a tanh softcap on the scores")
+
+
+def family_serve_lens(n, lo, hi, gen, seed):
+    """kv_len of ``n`` slots of a families serve shape: prompts of lo-hi
+    ids plus up to ``gen`` generated tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return (rng.randint(lo, hi + 1, size=n)
+            + rng.randint(0, gen + 1, size=n)).tolist()
+
+
+def kernels_family_shapes(torch, dev, report, record, decode_record,
+                          maxerr):
+    """The four kernels at the shapes of Gemma2-2B (D 256, G 2, softcap 50,
+    window 4096, rings of 4096 and caches of 8192 rows), Qwen1.5-110B (D
+    128, G 8, H 64; an untied head of 8192 x 152,064) and Nemotron-4-340B
+    (D 192, G 12, H 96; an untied head of 18,432 x 256,000), each held
+    against its plain version with the tolerances of the Qwen3 cases (same
+    arithmetic), and at edges: S not a multiple of a tile, a window smaller
+    than a tile, kv_len at W and W + 1, splits' edges at D 192/256, x
+    streamed for 17, 33 and 1 rows.  The serve shapes are also timed:
+    ``kernel_ms``, ``ms``, the bound, the plain version and a library call
+    where one PyTorch call computes the same function (none with a
+    softcap), with registers and spills of their instantiations.  Rows go
+    to ``report[kernel]["family_shapes"]``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import fused_sample as fsm
+    from repro_torch.kernels import paged_decode_attention as pdm
+    bf16 = torch.bfloat16
+    SR = pdm.split_rows()
+    edges = [SR - 1, SR, SR + 1, 2 * SR]
+    logs = {n: build.ptxas_report(n) for n in build.SOURCES}
+
+    def regs(lib, pattern):
+        fns = ptxas_functions(logs[lib], pattern)
+        return {"functions": len(fns),
+                "registers": max((v["registers"] or 0 for v in fns.values()),
+                                 default=None),
+                "spill_bytes": sum(v["spill_bytes"] or 0
+                                   for v in fns.values())}
+
+    def timed(kernel, case, row, fn, plain, library, nbytes, flops, shape,
+              registers, note=None, plain_reps=(3, 2)):
+        t = timings(torch, fn, plain, library, ms_reps=(5, 5),
+                    plain_reps=plain_reps)
+        t.pop("kernels_per_call")
+        check(registers["functions"] > 0 and registers["spill_bytes"] == 0,
+              f"{kernel}/{case}: instantiation missing or spilling "
+              f"{registers}")
+        report[kernel].setdefault("family_shapes", []).append(dict(
+            case=case, max_abs_err=row["max_abs_err"], tol=row["tol"],
+            rtol=row["rtol"], tol_rule=row.get("tol_rule"),
+            **t, **bound(nbytes, flops), shape=shape, registers=registers,
+            library=note))
+
+    # -- decode: paged fp pages (Qwen1.5 and Nemotron) -----------------------
+    pd_cases = [
+        # (case, lens, H, Kh, D, softcap, timed)
+        ("nemotron_serve_b16_d192_g12", family_serve_lens(16, 64, 1024, 64, 21),
+         96, 8, 192, 0.0, True),
+        ("qwen1_5_serve_b32_d128_g8", family_serve_lens(32, 64, 1024, 64, 22),
+         64, 8, 128, 0.0, True),
+        ("d192_g12_split_edges_softcap50", edges, 96, 8, 192, 50.0, False),
+        ("d192_g12_kvlen_0_1_37", [0, 1, 37], 96, 8, 192, 0.0, False),
+        ("d256_g2_softcap50_splits", [17, SR + 1, 3 * SR + 5], 8, 4, 256,
+         50.0, False),
+    ]
+    for case, lens, H, Kh, D, cap, is_timed in pd_cases:
+        args = paged_inputs(torch, dev, bf16, lens, H, Kh, D)
+        out = ops.paged_decode_attention(*args, softcap=cap)
+        want = ref.paged_decode_attention_ref(*args, softcap=cap)
+        torch.cuda.synchronize()
+        row = decode_record("paged_decode_attention", case, out, want, False)
+        if 0 in lens:
+            zero = out[[i for i, n in enumerate(lens) if n == 0]]
+            check(bool((zero == 0).all()), f"paged/{case}: kv_len 0 not zero")
+        if is_timed:
+            q, kp, vp, bt, kvl = args
+            live = int(kvl.sum())
+            G = H // Kh
+            mask = (torch.arange(bt.shape[1] * 16, device=dev)[None, :]
+                    < kvl[:, None])[:, None, None, :]
+
+            def library(q=q, kp=kp, vp=vp, bt=bt, mask=mask, G=G):
+                k_ = ref.gather_pages(kp, bt).transpose(1, 2) \
+                    .repeat_interleave(G, 1)
+                v_ = ref.gather_pages(vp, bt).transpose(1, 2) \
+                    .repeat_interleave(G, 1)
+                return F.scaled_dot_product_attention(q[:, :, None], k_, v_,
+                                                      attn_mask=mask)
+            timed("paged_decode_attention", case, row,
+                  lambda a=args: ops.paged_decode_attention(*a),
+                  lambda a=args: ref.paged_decode_attention_ref(*a), library,
+                  4 * q.numel() + 4 * live * Kh * D + 4 * (bt.numel() + kvl.numel()),
+                  4 * live * H * D,
+                  dict(B=len(lens), H=H, Kh=Kh, D=D, P=16, live_rows=live),
+                  regs("paged_decode_attention",
+                       rf"decode_split_kernelI13__nv_bfloat16S\w*Li{D}ELi{G}E"),
+                  note="gather + SDPA, key mask")
+        del args, out, want
+
+    # -- decode: the dense cache (Gemma2's rings and global caches) ---------
+    g2_kv = family_serve_lens(16, 512, 6144, 64, 23)
+    rd_cases = [
+        # (case, S, lens, H, Kh, D, softcap, timed)
+        ("gemma2_ring_b16_s4096", 4096, [min(n + 1, 4096) for n in g2_kv],
+         8, 4, 256, 50.0, True),
+        ("gemma2_global_b16_s8192", 8192, [n + 1 for n in g2_kv], 8, 4, 256,
+         50.0, True),
+        ("kvlen_at_w_and_w_plus_1_s4096", 4096, [4096, 4097, 1, 0], 8, 4,
+         256, 50.0, False),
+        ("d256_split_edges_s700", 700, edges[:3] + [700], 8, 4, 256, 50.0,
+         False),
+        ("d192_g12_s700", 700, [600, SR + 1, 5], 96, 8, 192, 0.0, False),
+    ]
+    for case, S, lens, H, Kh, D, cap, is_timed in rd_cases:
+        args = dense_inputs(torch, dev, bf16, lens, S, H, Kh, D)
+        out = ops.ragged_decode_attention(*args, softcap=cap)
+        want = ref.ragged_decode_attention_ref(*args, softcap=cap)
+        torch.cuda.synchronize()
+        row = decode_record("ragged_decode_attention", case, out, want,
+                            False)
+        if 0 in lens:
+            zero = out[[i for i, n in enumerate(lens) if n == 0]]
+            check(bool((zero == 0).all()), f"ragged/{case}: kv_len 0 not zero")
+        if is_timed:
+            q, kc, _, kvl = args
+            live = int(kvl.clamp(max=S).sum())
+            timed("ragged_decode_attention", case, row,
+                  lambda a=args, c=cap: ops.ragged_decode_attention(
+                      *a, softcap=c),
+                  lambda a=args, c=cap: ref.ragged_decode_attention_ref(
+                      *a, softcap=c), None,
+                  4 * q.numel() + 4 * live * Kh * D + 4 * kvl.numel(),
+                  4 * live * H * D,
+                  dict(B=len(lens), H=H, Kh=Kh, D=D, S=S, live_rows=live,
+                       softcap=cap),
+                  regs("ragged_decode_attention",
+                       rf"decode_split_kernelI13__nv_bfloat16S\w*Li{D}ELi"
+                       rf"{H // Kh}E"),
+                  note=NO_LIBRARY_SOFTCAP)
+        del args, out, want
+
+    # -- flash prefill ----------------------------------------------------------
+    # The serve shapes are the families' prefill waves (16 x 8192 for
+    # Gemma2, 32 x 1024 for Qwen1.5, 16 x 1024 for Nemotron): one launch
+    # at the whole wave, held against the plain version two batch rows at
+    # a time (rows are independent; slices bound the check's memory).
+    fa_rtol, fa_p, fa_rows = 2.0 ** -7, 2.0 ** -9, 2
+    fa_cases = [
+        # (case, B, S, H, Kh, D, seg, window, softcap, timed)
+        ("gemma2_local_b16_s8192_w4096_softcap50", 16, 8192, 8, 4, 256,
+         False, 4096, 50.0, True),
+        ("gemma2_global_b16_s8192_softcap50", 16, 8192, 8, 4, 256, False, 0,
+         50.0, True),
+        ("nemotron_b16_s1024_d192_g12", 16, 1024, 96, 8, 192, False, 0, 0.0,
+         True),
+        ("qwen1_5_b32_s1024_d128_g8", 32, 1024, 64, 8, 128, False, 0, 0.0,
+         True),
+        ("s100_d256_window20_softcap50", 2, 100, 8, 4, 256, False, 20, 50.0,
+         False),
+        ("s33_d192_g12_seg", 2, 33, 96, 8, 192, True, 0, 0.0, False),
+        ("s65_d256_g2", 2, 65, 8, 4, 256, False, 0, 0.0, False),
+        ("s97_d192_window40_softcap30", 1, 97, 24, 2, 192, False, 40, 30.0,
+         False),
+        ("s2049_d256_window100_softcap50", 1, 2049, 8, 4, 256, False, 100,
+         50.0, False),
+    ]
+    for case, B, S, H, Kh, D, seg, win, cap, is_timed in fa_cases:
+        q, k, v, s_ = flash_inputs(torch, dev, bf16, B, S, H, Kh, D, seg)
+        out = ops.flash_attention(q, k, v, seg_ids=s_, window=win,
+                                  softcap=cap)
+        err, excess, amax = 0.0, -math.inf, 0.0
+        for b0 in range(0, B, fa_rows):
+            sl = slice(b0, b0 + fa_rows)
+            seg = None if s_ is None else s_[sl]
+            want = ref.flash_attention_ref(q[sl], k[sl], v[sl], window=win,
+                                           softcap=cap, seg_ids=seg)
+            wabs = ref.flash_attention_ref(q[sl], k[sl], v[sl].abs(),
+                                           window=win, softcap=cap,
+                                           seg_ids=seg).float()
+            o = out[sl].float()
+            err = max(err, maxerr(o, want))
+            excess = max(excess, float(((o - want.float()).abs()
+                                        - fa_rtol * want.float().abs()
+                                        - fa_p * wabs).max()))
+            amax = max(amax, float(wabs.max()))
+            del want, wabs, o
+        torch.cuda.synchronize()
+        row = record("flash_attention", case, err, 1e-3,
+                     {"p_rounding": "2^-9*attn(|v|)",
+                      "max_attn_abs_v": amax, "checked_rows_at_a_time":
+                      min(B, fa_rows)},
+                     excess=excess, rtol=fa_rtol)
+        del out
+        if is_timed:
+            library, note = None, NO_LIBRARY_SOFTCAP
+            if cap == 0 and win == 0:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                kt = kt.repeat_interleave(H // Kh, 1)
+                vt = vt.repeat_interleave(H // Kh, 1)
+
+                def library(qt=qt, kt=kt, vt=vt):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+                note = "SDPA, causal, kv heads pre-expanded"
+            timed("flash_attention", case, row,
+                  lambda a=(q, k, v), w_=win, c=cap: ops.flash_attention(
+                      *a, window=w_, softcap=c),
+                  lambda a=(q, k, v), w_=win, c=cap: ref.flash_attention_ref(
+                      *a, window=w_, softcap=c), library,
+                  (2 * q.numel() + k.numel() + v.numel()) * 2,
+                  4 * D * H * B * visible_pairs(S, win, None),
+                  dict(B=B, S=S, H=H, Kh=Kh, D=D, window=win, softcap=cap),
+                  regs("flash_attention", rf"flash_tc_kernelILi{D}E"),
+                  note=note, plain_reps=(2, 1))
+        del q, k, v, s_
+        torch.cuda.empty_cache()
+
+    # -- the fused head: untied heads too wide to stage x whole ---------------
+    def fs_case(case, x, w, k, cap):
+        vals, idx, lse = ops.fused_sample(x, w, top_k=k, softcap=cap)
+        rv, ri, rl = ref.fused_sample_ref(x, w, top_k=k, softcap=cap)
+        logits = x.float() @ w.float()
+        if cap > 0:
+            logits = torch.tanh(logits / cap) * cap
+        claimed = torch.gather(logits, 1, idx.long())
+        torch.cuda.synchronize()
+        err = max(maxerr(vals, rv), maxerr(lse, rl), maxerr(claimed, vals))
+        rows_, streams = fsm.bf16_plan(x.shape[0], x.shape[1], k)
+        return record("fused_sample", case, err, 1e-3,
+                      {"idx_equal": bool((idx == ri).all()),
+                       "rows_per_cta": rows_, "x_streams": streams})
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    for Dm, V, B, model in ((8192, 152064, 32, "qwen1_5"),
+                            (18432, 256000, 16, "nemotron")):
+        w = (torch.randn((Dm, V), generator=g, device=dev)
+             / math.sqrt(Dm)).to(bf16)
+        x = torch.randn((B, Dm), generator=g, device=dev).to(bf16)
+        case = f"{model}_b{B}_dm{Dm}_v{V}_untied_k1"
+        row = fs_case(case, x, w, 1, 0.0)
+        check(row["x_streams"], f"fused_sample/{case}: x was staged whole")
+        if Dm == 8192:
+            x33 = torch.randn((33, Dm), generator=g, device=dev).to(bf16)
+            fs_case("dm8192_b17_k8_softcap30", x33[:17], w, 8, 30.0)
+            fs_case("dm8192_b33_k16", x33, w, 16, 0.0)
+            tied = (torch.randn((5000, Dm), generator=g, device=dev)
+                    / math.sqrt(Dm)).to(bf16).T
+            fs_case("dm8192_tied_b8_v5000_k8", x33[:8], tied, 8, 0.0)
+            del x33, tied
+        else:
+            fs_case("dm18432_b1_k4_softcap30", x[:1], w, 4, 30.0)
+
+        def library(x=x, w=w):
+            logits = torch.matmul(x, w).float()
+            return torch.topk(logits, 1), torch.logsumexp(logits, -1)
+        timed("fused_sample", case, row,
+              lambda x=x, w=w: ops.fused_sample(x, w),
+              lambda x=x, w=w: ref.fused_sample_ref(x, w), library,
+              V * Dm * 2 + B * Dm * 2 + B * 3 * 4, 2 * B * Dm * V,
+              dict(B=B, Dm=Dm, V=V, w="lm_head (untied, v contiguous)",
+                   rows_per_cta=row["rows_per_cta"], x_streams=True),
+              regs("fused_sample",
+                   rf"sample_tc_kernelILi{-(-B // 16)}ELb0ELb1E"),
+              note="matmul + topk + logsumexp", plain_reps=(2, 1))
+        del w, x, library
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -875,6 +1213,9 @@ def variant_sources():
               " ksr,\n                                      p.softcap, lane,"
               " warp);\n")
     pvs = "      pv_tile<KV, D, G>(st, (it - ntiles) * TR, nk, sc, acc, tid);\n"
+    staged = ("  for (int mt = mt_max; mt >= 1; --mt)\n"
+              "    if (SampleSmem(16 * mt, round_up(Dm, SKT), K, false).total"
+              " <= kSmemMax)\n      return {16 * mt, false};\n")
     return {
         "flash_attention/shipped": ("flash_attention", {
             "flash_attention.cu": fa}),
@@ -900,6 +1241,10 @@ def variant_sources():
             "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 6"))}),
         "fused_sample/8_stage_ring": ("fused_sample", {
             "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 8"))}),
+        # x through the ring beside each W tile at every width, as the
+        # widths that cannot stage it whole do
+        "fused_sample/x_streamed": ("fused_sample", {
+            "fused_sample.cu": sub(fs, (staged, ""))}),
         "paged_decode/shipped": decode(),
         "paged_decode/split_128_rows": decode(
             (split, split.replace("256", "128"))),
@@ -1542,7 +1887,7 @@ def final_hidden(torch, model, params, prompts):
     with torch.no_grad():
         x = TF.embed_tokens(params, cfg, toks)
         for i in range(cfg.num_layers):
-            x, _, _ = TF._block(TF.layer(params, i), cfg, x, pos, attend)
+            x, _, _ = TF._block(TF.layer(params, i, cfg), cfg, x, pos, attend)
         h = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
         return torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
 
@@ -2385,6 +2730,147 @@ def phase_long(torch, dev, model, params, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the rest of the dense family at full width
+# ---------------------------------------------------------------------------
+
+# label -> (arch, layers served (None: all), engine options, slots,
+# max_total_len, prompt lengths of the GRPO groups of 4 (None: drawn from
+# 64-1024), uids of the 3 requests held against the plain forward, scale
+# of the residual updates' output projections); max_gen_len 64, greedy,
+# random weights, no EOS (eos_id -1).
+# Gemma2's scaled, tied embedding dominates the residual stream at the
+# init scale: its own row then wins the tied head at the 30-nat softcap
+# and every greedy logprob reads 0.0 in both the engine and the forward,
+# which holds nothing (at 4x the init scale, still -0.0027 in mean on an
+# H100).  Output projections (wo, w_out) at 8x their init scale
+# put the residual updates ~4x the embedding's norm and the self logit
+# near 12 nats, below the logsumexp of the other 256k (~13).
+FAMILIES = {
+    # a prompt past the 4096 window, and the 8192 bucket holding shorter
+    # rows (the reference's ring-prefill fault would show on them)
+    "gemma2": ("gemma2_2b", None, {"paged": False}, 16, 8192,
+               [6144, 4500, 1800, 512], (0, 8, 12), 8.0),
+    "qwen1_5": ("qwen1_5_110b", 4, {"fused_sampling": True}, 32, 2048,
+                None, (0, 4, 8), 1.0),
+    "nemotron": ("nemotron_4_340b", 2, {"fused_sampling": True}, 16, 2048,
+                 None, (0, 4, 8), 1.0),
+}
+FAMILY_GEN = 64
+
+
+def family_requests(lens, n_groups, vocab, seed):
+    """GRPO groups of 4 sharing a prompt: of the given lengths, or of
+    lengths drawn from 64-1024."""
+    import numpy as np
+    from repro_torch.core.buffer import BufferEntry
+    if lens is None:
+        return make_requests(n_groups, 4, 64, 1024, vocab, seed)
+    rng = np.random.RandomState(seed)
+    out = []
+    for gi, n in enumerate(lens):
+        prompt = rng.randint(1, vocab, size=n).tolist()
+        out += [BufferEntry(uid=4 * gi + j, prompt=list(prompt))
+                for j in range(4)]
+    return out
+
+
+def phase_families(torch, dev, launches):
+    """Gemma2-2B at full width and depth (26 layers: local/global, rings of
+    4096, softcaps; the dense layout), Qwen1.5-110B at full width cut to 4
+    layers and Nemotron-4-340B at full width cut to 2 (paged, fused greedy
+    head), one after another, each freed before the next: every request
+    served, exactly its path's kernels launched, 3 requests' logprobs
+    within 0.1 nats of the port's plain forward (tokens equal but at
+    near-ties), and beyond 0.1 nats of the forward with one layer's
+    attention output zeroed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.model import build_model
+    from repro_torch.rollout.engine import SlotEngine
+
+    models = {}
+    for label, (arch, layers, opts, slots, max_len, lens, held, scale) in \
+            FAMILIES.items():
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(num_layers=layers)
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        params["layers"]["attn"]["wo"].mul_(scale)
+        params["layers"]["mlp"]["w_out"].mul_(scale)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_groups = len(lens) if lens else slots // 4
+        reqs = family_requests(lens, n_groups, cfg.vocab_size, seed=41)
+        prompts = {e.uid: list(e.prompt) for e in reqs}
+        engine = SlotEngine(model, lambda: params, capacity=slots,
+                            max_total_len=max_len, max_gen_len=FAMILY_GEN,
+                            eos_id=-1, temperature=0.0, **opts)
+        outputs, summ = run_path(torch, ops, engine, reqs)
+        launches[f"families/{label}"] = summ["launches"]
+        check_answers(f"families/{label}", outputs, len(reqs), cfg.vocab_size)
+        nl = cfg.num_layers
+        want = {"flash_attention": nl * engine.prefill_launches}
+        if engine.paged:
+            want.update(paged_decode_attention=nl * summ["steps"],
+                        fused_sample=summ["steps"])
+        else:
+            want["ragged_decode_attention"] = nl * summ["steps"]
+        check_launches(f"families/{label}", summ["launches"], want)
+        check(all(len(v) == FAMILY_GEN for v in outputs.values()),
+              f"families/{label}: a request stopped short of {FAMILY_GEN}")
+        del engine
+        release(torch)
+        served = {u: (prompts[u], outputs[u]) for u in held}
+        tie = near_tie_check(torch, model, params, served, NEAR_TIE_BF16)
+        tie["prompt_lens"] = [len(prompts[u]) for u in held]
+        check(tie["max_logprob_err"] <= NEAR_TIE_BF16,
+              f"families/{label}: logprob err {tie['max_logprob_err']}")
+        check(tie["flips_beyond_tol"] == 0,
+              f"families/{label}: {tie['flips_beyond_tol']} tokens differ "
+              f"beyond a near-tie of {NEAR_TIE_BF16}")
+        # the check's power: the same comparison against the forward with
+        # the last layer's attention output zeroed (what the engine would
+        # serve from kernels returning zeros there) must fail it
+        wo = TF.layer(params, nl - 1, cfg)["attn"]["wo"]
+        saved = wo.clone()
+        wo.zero_()
+        ablated = near_tie_check(torch, model, params, served, NEAR_TIE_BF16)
+        wo.copy_(saved)
+        del saved
+        ablated["ablation"] = f"layer {nl - 1}'s attention output zeroed"
+        ablated["detected"] = (ablated["max_logprob_err"] > NEAR_TIE_BF16
+                               or ablated["flips_beyond_tol"] > 0)
+        check(ablated["detected"], f"families/{label}: the 0.1-nat check "
+              f"does not see the last layer's attention zeroed {ablated}")
+        lp_mean = statistics.mean(lp for v in outputs.values()
+                                  for _, lp in v)
+        check(lp_mean < -1e-3, f"families/{label}: greedy logprobs all ~0 "
+              f"(mean {lp_mean}): a one-hot head holds nothing")
+        summ.update(
+            arch=arch, layers=nl, layers_published=full.num_layers,
+            depth="full" if layers is None else
+            f"cut to {nl} of {full.num_layers} layers",
+            d_model=cfg.d_model, head_dim=cfg.resolved_head_dim,
+            heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+            vocab=cfg.vocab_size, layout="paged" if opts.get(
+                "fused_sampling") else "dense",
+            slots=slots, max_total_len=max_len, max_gen_len=FAMILY_GEN,
+            prompt_lens=sorted({len(p) for p in prompts.values()}),
+            params_gb=sum(t.numel() * t.element_size()
+                          for _, t in leaf_paths(params)) / 1e9,
+            init_s=init_s, output_projection_scale=scale,
+            greedy_logprob_mean=lp_mean,
+            against_forward=tie, against_ablated_forward=ablated)
+        models[label] = summ
+        del model, params, outputs
+        release(torch)
+    emit({"phase": "families", "dtype": "bfloat16",
+          "weights": "random, from a seed", "models": models})
+
+
+# ---------------------------------------------------------------------------
 
 # kernel -> (source, TPU kernel it replaces, the serve path it belongs to)
 KERNEL_META = {
@@ -2409,7 +2895,7 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl",
-                                        "group"), default="all")
+                                        "group", "families"), default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2453,6 +2939,8 @@ def main() -> int:
         del model, params
         release(torch)
         phase_rl_session(torch, launches, extras_only=args.phase == "group")
+    if args.phase in ("all", "families"):
+        phase_families(torch, dev, launches)
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,
@@ -2460,6 +2948,7 @@ def main() -> int:
                                 for p, c in launches.items()},
              max_abs_err=report[name]["max_abs_err"], tol=report[name]["tol"],
              rtol=report[name].get("rtol", 0.0),
+             tol_rule=report[name].get("tol_rule"),
              ms=report[name]["ms"], kernel_ms=report[name]["kernel_ms"],
              kernels_per_call=report[name][
                  "kernels_per_call"],
@@ -2469,7 +2958,8 @@ def main() -> int:
              library_ms=report[name]["library_ms"],
              sass_bf16=report[name]["sass_bf16"],
              registers=report[name].get("registers"),
-             shape=report[name]["shape"])
+             shape=report[name]["shape"],
+             family_shapes=report[name].get("family_shapes", []))
         for name, (src, rep, path) in KERNEL_META.items()]})
     print(card_name_and_power(), flush=True)
     if FAILURES:

@@ -2,7 +2,7 @@
 
 Field names, defaults and meanings are the reference's; only
 ``param_dtype``/``compute_dtype`` hold ``torch.dtype`` values.  The
-registry holds the one architecture this port serves so far.
+registry holds the dense architectures this port serves so far.
 """
 from __future__ import annotations
 
@@ -92,15 +92,30 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS = ("qwen3_0_6b",)
-ARCH_ALIASES = {"qwen3-0.6b": "qwen3_0_6b"}
+ARCH_IDS = ("qwen3_0_6b", "nemotron_4_340b", "qwen1_5_110b", "gemma2_2b")
+ARCH_ALIASES = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "gemma2-2b": "gemma2_2b",
+}
 
 
-def get_config(arch: str) -> ModelConfig:
+def _module(arch: str):
     mod_name = ARCH_ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"arch {arch!r} not ported; ported: {list(ARCH_IDS)}")
-    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced variant of the same family (the reference's smoke config:
+    2 layers, narrow widths, 503 ids)."""
+    return _module(arch).smoke_config()
 
 
 def tiny_lm_config(vocab_size: int, d_model: int = 128, layers: int = 4,

@@ -160,6 +160,18 @@ def split_scratch(splits: int, B: int, H: int, D: int,
                         device=device))
 
 
+# (head dim, query heads per KV head) of the decode kernels: every pair of
+# these in f32 and bf16, and the wide heads in bf16 only (Nemotron-4-340B,
+# Gemma2-2B)
+DECODE_SHAPES = {(d, g) for d in (64, 128) for g in (1, 2, 4, 8)}
+DECODE_WIDE_SHAPES = {(192, 12), (256, 2)}
+
+
+def decode_shape_ok(D: int, G: int, dtype: torch.dtype) -> bool:
+    return (D, G) in DECODE_SHAPES or (
+        dtype == torch.bfloat16 and (D, G) in DECODE_WIDE_SHAPES)
+
+
 def data_ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 

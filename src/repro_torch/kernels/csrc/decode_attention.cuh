@@ -19,10 +19,11 @@
 //     entries (and, for int8 pages, the pages' scales) are read once per
 //     page into shared memory and expanded to one row index (and scale)
 //     per row, so no row waits on a table lookup;
-//   * K and then V tiles of the split (kDecodeTileBytes each, 16 B per
-//     row of padding so reads have no bank conflicts) stream through a
-//     kDecodeStages-deep shared-memory ring filled with `cp.async.cg`, 16
-//     bytes a thread, several tiles in flight;
+//   * K and then V tiles of the split (kDecodeTileBytes each, or 32 rows
+//     of the wide bf16 rows, 16 B per row of padding so reads have no bank
+//     conflicts) stream through a kDecodeStages-deep shared-memory ring
+//     filled with `cp.async.cg`, 16 bytes a thread, several tiles in
+//     flight;
 //   * scores: 4 lanes own a row (a quarter of D each) and sum over 2
 //     shuffles for all G heads at once; q sits in registers (or, for wide
 //     G x D, in shared memory).  The scores of the whole split stay in
@@ -30,7 +31,8 @@
 //     sum per head), with no running rescale;
 //   * P V: a thread owns 8 columns of D and a row group, accumulates its
 //     rows in f32 registers, and the row groups are summed in shared
-//     memory once at the end;
+//     memory once at the end (at D = 192, 5 row groups of 24 threads: the
+//     last 8 threads sit out);
 //   * int8 rows become f32 by a byte permute and one add (no I2F), and the
 //     page scale multiplies the score (K) or the weight (V) once per row;
 //     the int8 slot's new row (row len - 1, unquantised, in q's dtype) is
@@ -64,10 +66,16 @@ struct DecodeShape {
   static constexpr int kRowPitch = kRowBytes + 16;       // padded in shared
   static constexpr int kChunks = kRowBytes / 16;         // 16-B pieces a row
   static constexpr int kChunkElems = 16 / (int)sizeof(KV);
-  static constexpr int kTileRows = kDecodeTileBytes / kRowBytes;
+  // rows of a ring stage: kDecodeTileBytes, but 32 for the wide bf16 rows
+  // (D 192 and 256), where 8 KB is 21 1/3 or 16 rows and score_tile wants
+  // 8 rows for each of the 4 warps
+  static constexpr int kTileRows = (sizeof(KV) == 2 && D > 128)
+                                       ? 32 : kDecodeTileBytes / kRowBytes;
   static constexpr int kStageBytes = kTileRows * kRowPitch;
   static constexpr int kVChunks = D / 8;                 // P V: 8 columns
   static constexpr int kRowGroups = kDecodeThreads / kVChunks;
+  static constexpr int kPVThreads = kRowGroups * kVChunks;   // <= 128
+  static_assert(kTileRows % 8 == 0 && kChunks % 4 == 0, "decode tile shape");
 };
 
 // Dynamic shared memory: a region that holds the ring (and, before it
@@ -247,6 +255,9 @@ __device__ __forceinline__ void pv_tile(const unsigned char* st, int row0,
                                         int nk, const float* sc,
                                         float (&acc)[G][8], int tid) {
   using Sh = DecodeShape<KV, D>;
+  if constexpr (Sh::kPVThreads < kDecodeThreads) {
+    if (tid >= Sh::kPVThreads) return;        // outside the row groups
+  }
   const int rg = tid / Sh::kVChunks, dc = tid % Sh::kVChunks;
   const int n = min(Sh::kTileRows, nk - row0);
   for (int rr = rg; rr < n; rr += Sh::kRowGroups) {
@@ -293,8 +304,11 @@ decode_split_kernel(const DecodeParams p) {
   constexpr int NT = kDecodeThreads, SR = kDecodeSplitRows;
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   // the lane's quarter of q in registers where it fits beside the f32
-  // accumulators without spilling (checked by ptxas for every shape)
-  constexpr bool kQReg = G * D / 4 <= (sizeof(KV) == 4 ? 32 : 64);
+  // accumulators without spilling (checked by ptxas for every shape);
+  // Gemma2's D 256, G 2 spills 4 bytes with q in shared memory (at 80
+  // registers) and none with it in registers (217)
+  constexpr bool kQReg = G * D / 4 <= (sizeof(KV) == 4 ? 32 : 64) ||
+                         (sizeof(KV) == 2 && D == 256 && G == 2);
   constexpr int QR = kQReg ? D / 4 : 1;
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -448,13 +462,15 @@ decode_split_kernel(const DecodeParams p) {
   __syncthreads();
   float* red = reinterpret_cast<float*>(ring);
   const int rg = tid / NCV;
+  if (Sh::kPVThreads == NT || tid < Sh::kPVThreads) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float* r = red + (rg * G + g) * D;
-    *reinterpret_cast<float4*>(r + vcol<KV, D>(dc, 0)) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    *reinterpret_cast<float4*>(r + vcol<KV, D>(dc, 4)) =
-        make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    for (int g = 0; g < G; ++g) {
+      float* r = red + (rg * G + g) * D;
+      *reinterpret_cast<float4*>(r + vcol<KV, D>(dc, 0)) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      *reinterpret_cast<float4*>(r + vcol<KV, D>(dc, 4)) =
+          make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
   }
   __syncthreads();
   const bool single = len <= SR;
@@ -533,5 +549,9 @@ static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
   RT_DECODE_CASE(64, 4, D_, G_, LAUNCH) RT_DECODE_CASE(64, 8, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 1, D_, G_, LAUNCH) RT_DECODE_CASE(128, 2, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 4, D_, G_, LAUNCH) RT_DECODE_CASE(128, 8, D_, G_, LAUNCH)
+// The wide heads, bf16 q and K/V only: Nemotron-4-340B (D 192, 96 query
+// heads over 8 KV heads) and Gemma2-2B (D 256, G 2).
+#define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH) \
+  RT_DECODE_CASE(192, 12, D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH)
 #define RT_DECODE_CASE(DD, GG, D_, G_, LAUNCH) \
   if (D_ == DD && G_ == GG) return LAUNCH(DD, GG);

@@ -23,10 +23,17 @@
 //     `ldmatrix.trans`; P goes from the score accumulators to A fragments
 //     in registers, rounded to bf16 (the Pallas body keeps P in f32; the
 //     reference's own decode oracle rounds its weights the same way);
-//   * K and V tiles of 64 rows stream through a two-stage `cp.async` ring
-//     in swizzled shared memory, 16 bytes a thread: the next tile's K
-//     loads while this tile's scores and softmax run, the next V while
-//     this tile's P V runs.  Rows past S are zero-filled by the copy;
+//   * K and V tiles of 64 rows (32 at D = 192 and 256) stream through a
+//     two-stage `cp.async` ring in swizzled shared memory, 16 bytes a
+//     thread: the next tile's K loads while this tile's scores and softmax
+//     run, the next V while this tile's P V runs.  Rows past S are
+//     zero-filled by the copy;
+//   * the wide heads (Nemotron's D = 192, Gemma2's D = 256) keep the
+//     layout: a warp's 16 rows hold D / 2 f32 accumulators a thread (128
+//     at D = 256), so their key tile halves to 32 keys (16 score
+//     registers, not 32) and the ring to 64 KB, which keeps two CTAs on an
+//     SM.  A row of 24 chunks (D = 192) swizzles within its groups of 8
+//     (24 is a multiple of 8, so every row starts on bank group 0);
 //   * masks (causal, only on tiles that cross the diagonal or S; window;
 //     segment ids) and softcap act on the score fragment in registers;
 //     the online softmax (max, sum, rescale) stays in f32, in the log2
@@ -202,7 +209,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // -- bf16: tensor cores, cp.async ring --------------------------------------
 
-constexpr int TK = 64;                     // keys per K/V tile
+// keys per K/V tile: 64, or 32 for the wide heads (see the header)
+template <int D>
+__host__ __device__ constexpr int flash_tk() { return D > 128 ? 32 : 64; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 4 warps of 1 m-tile (16 query rows each): 64 query rows a CTA, a 2-stage
@@ -213,27 +222,41 @@ constexpr int kFlashWarps = 4, kFlashMT = 1, kFlashStages = 2;
 template <int D>
 constexpr size_t tc_smem_bytes() {
   return sizeof(__nv_bfloat16) * (size_t)D *
-         (16 * kFlashMT * kFlashWarps + 2 * kFlashStages * TK);
+         (16 * kFlashMT * kFlashWarps + 2 * kFlashStages * flash_tk<D>());
 }
 
 // Async copy of ROWS rows [r0, r0 + ROWS) of a (S, row_stride) bf16 matrix
 // (D elements a row) into a swizzled [ROWS][D] tile; rows >= S are zeros.
-// The trip count is a constant, so the loop unrolls and a thread's chunk
-// column and swizzle stay fixed across it (THREADS is a multiple of DC).
+// The trip count is a constant, so the loop unrolls; where THREADS is a
+// multiple of DC a thread's chunk column and swizzle stay fixed across it
+// (D = 192, DC = 24: each trip recomputes them).
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int r0,
                                           int S) {
-  constexpr int DC = D / 8, STEP = THREADS / DC;
-  static_assert(THREADS % DC == 0 && ROWS % STEP == 0, "tile shape");
-  const int c = threadIdx.x % DC, r_lo = threadIdx.x / DC;
+  constexpr int DC = D / 8;
+  if constexpr (THREADS % DC == 0) {
+    constexpr int STEP = THREADS / DC;
+    static_assert(ROWS % STEP == 0, "tile shape");
+    const int c = threadIdx.x % DC, r_lo = threadIdx.x / DC;
 #pragma unroll
-  for (int j = 0; j < ROWS / STEP; ++j) {
-    const int r = r_lo + j * STEP, s = r0 + r;
-    const bool ok = s < S;
-    cp_async16(dst + swz(r, c, DC), base + (ok ? s * row_stride : 0) + c * 8,
-               ok ? 16 : 0);
+    for (int j = 0; j < ROWS / STEP; ++j) {
+      const int r = r_lo + j * STEP, s = r0 + r;
+      const bool ok = s < S;
+      cp_async16(dst + swz(r, c, DC), base + (ok ? s * row_stride : 0) + c * 8,
+                 ok ? 16 : 0);
+    }
+  } else {
+    static_assert(ROWS * DC % THREADS == 0, "tile shape");
+#pragma unroll
+    for (int j = 0; j < ROWS * DC / THREADS; ++j) {
+      const int i = (int)threadIdx.x + j * THREADS;
+      const int r = i / DC, c = i % DC, s = r0 + r;
+      const bool ok = s < S;
+      cp_async16(dst + swz(r, c, DC), base + (ok ? s * row_stride : 0) + c * 8,
+                 ok ? 16 : 0);
+    }
   }
 }
 
@@ -245,6 +268,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
                 int S, int H, int Kh, int window, float scale, float softcap) {
   constexpr int NW = kFlashWarps, MT = kFlashMT, STAGES = kFlashStages;
+  constexpr int TK = flash_tk<D>();
   constexpr int WR = 16 * MT, TQ = WR * NW, THREADS = 32 * NW;
   constexpr int DC = D / 8;       // 16-byte chunks of a row
   constexpr int KD = D / 16;      // k-steps of Q K^T
@@ -529,6 +553,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
         q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   if (dtype == kBF16 && D == 128)
     return launch_bf16<128>(
+        q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
+  if (dtype == kBF16 && D == 192)             // Nemotron-4-340B
+    return launch_bf16<192>(
+        q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
+  if (dtype == kBF16 && D == 256)             // Gemma2-2B
+    return launch_bf16<256>(
         q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -37,6 +37,12 @@
 // Rows beyond what shared memory holds next to x, the ring and the top-k
 // lists (64 at Dm = 1024 with k <= 4, 48 up to k = 16) go to further row
 // blocks (gridDim.y), which read W again.
+// A head too wide to stage x whole even for 16 rows (Dm above ~5k:
+// Qwen1.5-110B's 8192, Nemotron-4-340B's 18432) streams x instead: each
+// ring stage carries the x slice (rows x the tile's 64 d) beside its W
+// tile, so x is read again for every vocab chunk, from L2 (x is 16 KB a
+// row at Dm = 8192), while the accumulators of the chunk stay in registers
+// across its d tiles as before.  W is still read once.
 //
 // f32 (test shapes only): `chunk_kernel`, one CTA per (vocab chunk of 128,
 // group of 32 rows), f32 FMAs from shared memory, one partial per chunk.
@@ -234,8 +240,9 @@ constexpr size_t kSmemMax = 232448;               // per block, H100
 
 struct SampleSmem {                    // byte offsets of the dynamic buffer
   size_t w, lv, li, wm, ws, total;
-  __host__ __device__ SampleSmem(int bm, int dmp, int k) {
-    w = (size_t)bm * dmp * 2;
+  // x staged whole (bm x dmp), or streamed: one bm x SKT slice a stage
+  __host__ __device__ SampleSmem(int bm, int dmp, int k, bool stream) {
+    w = stream ? (size_t)kStages * bm * SKT * 2 : (size_t)bm * dmp * 2;
     lv = w + kStages * (size_t)kWTile;
     li = lv + sizeof(float) * kSWarps * bm * k;
     wm = li + sizeof(int) * kSWarps * bm * k;
@@ -257,7 +264,7 @@ __device__ __forceinline__ void list_insert(float* lv, int* li, int K,
   li[p] = i;
 }
 
-template <int MT, bool TIED>
+template <int MT, bool TIED, bool STREAM>
 __global__ void __launch_bounds__(kSThreads, 1)
 sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w, long long sd,
@@ -266,8 +273,9 @@ sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
                  int* __restrict__ pti, int B, int Dm, int Dmp, int V, int K,
                  float softcap) {
   constexpr int BM = MT * 16;
+  constexpr uint32_t kXTile = BM * SKT * 2;       // streamed x: one slice
   extern __shared__ __align__(128) unsigned char smem[];
-  const SampleSmem lay(BM, Dmp, K);
+  const SampleSmem lay(BM, Dmp, K, STREAM);
   const uint32_t sX = smem_u32(smem);
   const uint32_t sW = sX + (uint32_t)lay.w;
   float* lv_all = reinterpret_cast<float*>(smem + lay.lv);   // [warp][BM][K]
@@ -282,17 +290,28 @@ sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int XC = Dmp / 8, KTILES = Dmp / SKT;
   const int T = (NC - (int)blockIdx.x + NP - 1) / NP * KTILES;
 
-  // x once per CTA: rows >= B and columns >= Dm are zeros
-  for (int i = threadIdx.x; i < BM * XC; i += kSThreads) {
-    const int r = i / XC, c = i % XC, row = row0 + r;
-    const bool ok = row < B && c * 8 < Dm;
-    cp_async16(sX + swz(r, c, XC), x + (ok ? (long long)row * Dm + c * 8 : 0),
-               ok ? 16 : 0);
+  // x once per CTA (unless it streams): rows >= B and columns >= Dm are
+  // zeros
+  if (!STREAM) {
+    for (int i = threadIdx.x; i < BM * XC; i += kSThreads) {
+      const int r = i / XC, c = i % XC, row = row0 + r;
+      const bool ok = row < B && c * 8 < Dm;
+      cp_async16(sX + swz(r, c, XC), x + (ok ? (long long)row * Dm + c * 8 : 0),
+                 ok ? 16 : 0);
+    }
   }
   auto load_w = [&](int tile, int slot) {
     const int v0 = ((int)blockIdx.x + tile / KTILES * NP) * SVC;
     const int d0 = tile % KTILES * SKT;
     const uint32_t dst = sW + slot * kWTile;
+    if (STREAM) {              // x's [BM rows][64 d] slice of this tile
+      for (int i = threadIdx.x; i < BM * (SKT / 8); i += kSThreads) {
+        const int r = i >> 3, c = i & 7, row = row0 + r, d = d0 + c * 8;
+        const bool ok = row < B && d < Dm;
+        cp_async16(sX + slot * kXTile + swz(r, c, 8),
+                   x + (ok ? (long long)row * Dm + d : 0), ok ? 16 : 0);
+      }
+    }
     for (int i = threadIdx.x; i < SVC * SKT / 8; i += kSThreads) {
       if (TIED) {              // [128 vocab rows][64 d], d contiguous
         const int r = i >> 3, c = i & 7, vi = v0 + r, d = d0 + c * 8;
@@ -310,7 +329,7 @@ sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < T) load_w(s, s);
-    cp_async_commit();                     // x travels with tile 0
+    cp_async_commit();                     // staged x travels with tile 0
   }
 
   float* lv = lv_all + warp * BM * K;
@@ -354,8 +373,12 @@ sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t a[4];
-        ldmatrix_x4(a, sX + swz(mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1),
-                                kt * (SKT / 8) + 2 * kk + (lane >> 4), XC));
+        const int ar = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+        if (STREAM)
+          ldmatrix_x4(a, sX + (tile % kStages) * kXTile +
+                             swz(ar, 2 * kk + (lane >> 4), 8));
+        else
+          ldmatrix_x4(a, sX + swz(ar, kt * (SKT / 8) + 2 * kk + (lane >> 4), XC));
         mma_bf16(acc[mt][0], a, bw[0], bw[1]);
         mma_bf16(acc[mt][1], a, bw[2], bw[3]);
       }
@@ -508,14 +531,21 @@ int sm_count() {
 
 int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Rows per CTA of the bf16 kernel: all of B (padded to 16) up to 64, as
-// far as shared memory holds x next to the ring and the lists; 0 if not
-// even 16 rows fit.
-int rows_per_cta(int B, int Dm, int K) {
-  for (int mt = min(4, (B + 15) / 16); mt >= 1; --mt)
-    if (SampleSmem(16 * mt, round_up(Dm, SKT), K).total <= kSmemMax)
-      return 16 * mt;
-  return 0;
+// Rows per CTA of the bf16 kernel and whether x streams: all of B (padded
+// to 16) up to 64, as far as shared memory holds x whole next to the ring
+// and the lists; where not even 16 rows fit, x streams through the ring
+// with all of B up to 64 rows.
+struct TcPlan {
+  int rows;
+  bool stream;
+};
+
+TcPlan tc_plan(int B, int Dm, int K) {
+  const int mt_max = min(4, (B + 15) / 16);
+  for (int mt = mt_max; mt >= 1; --mt)
+    if (SampleSmem(16 * mt, round_up(Dm, SKT), K, false).total <= kSmemMax)
+      return {16 * mt, false};
+  return {16 * mt_max, true};
 }
 
 int partials(int V, int dtype) {
@@ -523,21 +553,21 @@ int partials(int V, int dtype) {
   return dtype == kBF16 ? min(nc, sm_count()) : nc;
 }
 
-template <int MT, bool TIED>
+template <int MT, bool TIED, bool STREAM>
 int launch_tc(const void* x, const void* w, long long sd, long long sv,
               void* pmax, void* psum, void* ptv, void* pti, int B, int Dm,
               int V, int K, float softcap, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sample_tc_kernel<MT, TIED>,
+        sample_tc_kernel<MT, TIED, STREAM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int Dmp = round_up(Dm, SKT), BM = 16 * MT;
-  const SampleSmem lay(BM, Dmp, K);
-  sample_tc_kernel<MT, TIED>
+  const SampleSmem lay(BM, Dmp, K, STREAM);
+  sample_tc_kernel<MT, TIED, STREAM>
       <<<dim3(partials(V, kBF16), (B + BM - 1) / BM), kSThreads, lay.total, s>>>(
           static_cast<const __nv_bfloat16*>(x),
           static_cast<const __nv_bfloat16*>(w), sd, sv,
@@ -547,17 +577,27 @@ int launch_tc(const void* x, const void* w, long long sd, long long sv,
   return (int)cudaGetLastError();
 }
 
-template <bool TIED>
+template <bool TIED, bool STREAM>
 int dispatch_tc(int BM, const void* x, const void* w, long long sd,
                 long long sv, void* pmax, void* psum, void* ptv, void* pti,
                 int B, int Dm, int V, int K, float softcap, cudaStream_t s) {
   switch (BM) {
-    case 16: return launch_tc<1, TIED>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 32: return launch_tc<2, TIED>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 48: return launch_tc<3, TIED>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 64: return launch_tc<4, TIED>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+    case 16: return launch_tc<1, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+    case 32: return launch_tc<2, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+    case 48: return launch_tc<3, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+    case 64: return launch_tc<4, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool TIED>
+int dispatch_plan(const void* x, const void* w, long long sd, long long sv,
+                  void* pmax, void* psum, void* ptv, void* pti, int B, int Dm,
+                  int V, int K, float softcap, cudaStream_t s) {
+  const TcPlan plan = tc_plan(B, Dm, K);
+  return plan.stream
+             ? dispatch_tc<TIED, true>(plan.rows, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s)
+             : dispatch_tc<TIED, false>(plan.rows, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
 }
 
 }  // namespace
@@ -570,10 +610,11 @@ extern "C" int fused_sample_partials(int V, int dtype) {
   return partials(V, dtype);
 }
 
-// Whether the bf16 kernel takes these shapes (0 if x cannot be staged in
-// shared memory beside the W ring and the top-k lists).
-extern "C" int fused_sample_bf16_rows_per_cta(int B, int Dm, int K) {
-  return rows_per_cta(B, Dm, K);
+// Rows per CTA of the bf16 kernel at these shapes, negative when x streams
+// through the ring instead of being staged whole.
+extern "C" int fused_sample_bf16_plan(int B, int Dm, int K) {
+  const TcPlan plan = tc_plan(B, Dm, K);
+  return plan.stream ? -plan.rows : plan.rows;
 }
 
 // x (B,Dm) contiguous; w element (d, v) at w + d*sd + v*sv, same dtype as x
@@ -599,9 +640,8 @@ extern "C" int fused_sample(const void* x, const void* w, long long sd,
         softcap);
     rc = (int)cudaGetLastError();
   } else if (dtype == kBF16 && (sd == 1 || sv == 1) && Dm % 8 == 0) {
-    const int BMr = rows_per_cta(B, Dm, K);
-    rc = sd == 1 ? dispatch_tc<true>(BMr, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s)
-                 : dispatch_tc<false>(BMr, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+    rc = sd == 1 ? dispatch_plan<true>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s)
+                 : dispatch_plan<false>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -20,7 +20,9 @@
 // instantiation reads each slot's new row (row kv_len - 1) unquantised
 // from k_new/v_new, as the reference engine attends before it requantises
 // the written page.  Rows at or past kv_len are never read, kv_len == 0
-// gives zeros.
+// gives zeros.  Head shapes: D 64/128 with G 1/2/4/8 in f32 and bf16 (fp
+// or int8 pages), and on bf16 fp pages Nemotron-4-340B's D 192, G 12 and
+// Gemma2-2B's D 256, G 2.
 
 #include "decode_attention.cuh"
 
@@ -32,6 +34,10 @@ template <typename T, typename KV>
 int dispatch(int D, int G, DecodeParams& p, int B, cudaStream_t s) {
 #define RT_LAUNCH(DD, GG) (int)launch_decode<T, KV, DD, GG>(p, B, s)
   RT_DECODE_SHAPES(D, G, RT_LAUNCH)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                std::is_same<KV, T>::value) {
+    RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)
+  }
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -13,8 +13,11 @@
 // TPU kernel skipped whole 128-row blocks past kv_len and asserted
 // S % 128 == 0; this one reads exactly the rows [0, min(kv_len, S)), so
 // any S works (the engine's max_total_len is 64 in the tests and 2048 on
-// the card) and nothing past S or kv_len is read.  kv_len == 0 gives
-// zeros.
+// the card; Gemma2-2B's rings are 4096 rows and its global caches 8192)
+// and nothing past S or kv_len is read.  kv_len == 0 gives zeros.  It
+// serves both of Gemma2's caches: a local layer passes its ring with
+// min(kv_len + 1, W) rows (the ring holds exactly the window, so no
+// window is applied), a global layer its cache with kv_len + 1.
 
 #include "decode_attention.cuh"
 
@@ -26,6 +29,9 @@ template <typename T>
 int dispatch(int D, int G, DecodeParams& p, int B, cudaStream_t s) {
 #define RT_LAUNCH(DD, GG) (int)launch_decode<T, T, DD, GG>(p, B, s)
   RT_DECODE_SHAPES(D, G, RT_LAUNCH)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)
+  }
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

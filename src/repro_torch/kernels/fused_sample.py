@@ -8,7 +8,9 @@ once: one persistent CTA per SM walks 128-wide vocab chunks through a
 4-tile ``cp.async`` ring, multiplies on the tensor cores
 (``mma.sync``) against x staged once per CTA, and carries a running
 logsumexp and top-k per row across its chunks; a second pass merges one
-partial per CTA, lowest index first on ties.  f32 (test shapes) keeps
+partial per CTA, lowest index first on ties.  A head too wide to stage x
+whole (Qwen1.5-110B's Dm = 8192, Nemotron-4-340B's 18432) streams x
+through the same ring, a slice beside each W tile.  f32 (test shapes) keeps
 FMAs and one partial per chunk.  W is read through its strides, so a
 tied head passes ``embed.T`` and is never transposed in memory.  See the
 source.
@@ -41,12 +43,20 @@ def _bind():
         fn.restype = ctypes.c_int
         lib.fused_sample_max_k.argtypes = []
         lib.fused_sample_partials.argtypes = [ctypes.c_int] * 2
-        lib.fused_sample_bf16_rows_per_cta.argtypes = [ctypes.c_int] * 3
+        lib.fused_sample_bf16_plan.argtypes = [ctypes.c_int] * 3
         for fn in (lib.fused_sample_max_k, lib.fused_sample_partials,
-                   lib.fused_sample_bf16_rows_per_cta):
+                   lib.fused_sample_bf16_plan):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def bf16_plan(B: int, Dm: int, top_k: int = 1):
+    """(rows a CTA of the bf16 kernel takes, whether x streams through its
+    ring instead of being staged whole) at these shapes (builds the
+    library)."""
+    rows = _bind().fused_sample_bf16_plan(B, Dm, top_k)
+    return abs(rows), rows < 0
 
 
 def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
@@ -78,8 +88,6 @@ def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
         build.require(Dm % 8 == 0 and x.data_ptr() % 16 == 0
                       and w.data_ptr() % 16 == 0, NAME,
                       "bf16 needs Dm % 8 == 0 and 16-byte aligned x and w")
-        build.require(lib.fused_sample_bf16_rows_per_cta(B, Dm, top_k) > 0,
-                      NAME, f"Dm={Dm} too wide to stage x in shared memory")
     vals = torch.empty((B, top_k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, top_k), dtype=torch.int32, device=dev)
     lse = torch.empty((B, 1), dtype=torch.float32, device=dev)

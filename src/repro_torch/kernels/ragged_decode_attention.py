@@ -4,8 +4,8 @@ Replaces the Pallas TPU kernel ``ragged_decode_attention`` (``_kernel`` +
 ``_flash_decode_block``) in ``repro/kernels/ragged_decode_attention.py``:
 one query token per slot over a dense ``(B, S, Kh, D)`` cache, rows at or
 past ``kv_len`` skipped.  It serves the engine's dense layout
-(``SlotEngine(paged=False)``).  Bound on the H100: bytes, the live K/V
-rows over 3.35 TB/s.  The body is the paged kernel's with contiguous rows
+(``SlotEngine(paged=False)``), Gemma2-2B's ring and global caches
+included.  Bound on the H100: bytes, the live K/V rows over 3.35 TB/s.  The body is the paged kernel's with contiguous rows
 (``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
 ``cp.async`` ring, a merge pass, splits from S so ``kv_len`` stays on the
 card); unlike the TPU kernel it takes any S, not only multiples of 128.
@@ -63,9 +63,10 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     build.require(v_cache.shape == k_cache.shape and Bk == B and Dk == D,
                   NAME, f"cache shapes {tuple(k_cache.shape)}/"
                   f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
-    build.require(H % Kh == 0 and H // Kh in (1, 2, 4, 8) and D in (64, 128),
-                  NAME, f"needs G in (1, 2, 4, 8), D in (64, 128); got "
-                  f"H={H} Kh={Kh} D={D}")
+    build.require(H % Kh == 0 and build.decode_shape_ok(D, H // Kh, q.dtype),
+                  NAME, f"needs G in (1, 2, 4, 8) and D in (64, 128), or in "
+                  f"bf16 (D, G) in (192, 12), (256, 2); got H={H} Kh={Kh} "
+                  f"D={D} {q.dtype}")
     build.require(kv_len.shape == (B,) and kv_len.dtype == torch.int32, NAME,
                   "kv_len must be (B,) int32")
     build.require(all(t.is_contiguous() for t in args), NAME,

@@ -8,8 +8,12 @@ Batch dict conventions are the reference's:
 * decode  : token (B,), dense cache (``decode_step``) or page pool and
   block tables (B, nb) (``decode_step_paged``), kv_len (B,)
 
-Only the dense family is ported; the model lives on one device, the card
-unless the caller passes ``device="cpu"``.
+Only the dense family is ported, with both layer patterns: the gemma2
+local/global pattern has a four-key cache, so it takes the dense layout
+only (``decode_step`` dispatches to its decode; ``prefill_packed`` and
+``decode_step_paged`` refuse it, as the reference's asserts do).  The
+model lives on one device, the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -64,13 +68,14 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                                     kv_len, **kw)
 
     def decode_step(params, token, cache, kv_len, **kw):
-        return TF.decode_step(params, cfg, token, cache, kv_len, **kw)
+        return TF.decode(params, cfg, token, cache, kv_len, **kw)
 
     return Model(cfg, dev, init_params, forward, init_cache, prefill,
                  decode_step_paged, prefill_packed, decode_step)
 
 
 def supports_paging(model: Model) -> bool:
-    """Paged layout needs right padding and a plain {k, v} cache; every
-    family the port serves so far has both."""
+    """Paged layout needs right padding and a plain {k, v} cache: every
+    family the port serves so far pads right; the local/global pattern's
+    four-key cache cannot be paged."""
     return set(model.init_cache(1, 1)) == {"k", "v"}

@@ -1,10 +1,22 @@
 """Dense decoder-only transformer (counterpart of
-``repro/models/transformer.py``, non-pattern branch).
+``repro/models/transformer.py``).
 
 Parameters keep the reference's tree, with the stacked leading layer
 axis: ``layers.attn.wq`` (L, d, H, hd), ``layers.mlp.w_in`` (L, d, ff),
-``layers.ln1.scale`` (L, d), ...  The layer loop is a Python loop over
-that axis (the reference scans it).
+``layers.ln1.scale`` (L, d), ...  The gemma2 local/global pattern stacks
+layer pairs as the reference does, (L/2, 2, ...): sub-layer 0 of a group
+is local (sliding window, ring cache), sub-layer 1 global.  The layer
+loop is a Python loop over the layers (the reference scans the groups).
+
+The pattern's cache has the reference's four keys: ``k_local``/
+``v_local`` (L/2, B, W, Kh, D), a ring of W = min(window, max_len) rows
+where position p lives at row p % W, and ``k_global``/``v_global``
+(L/2, B, max_len, Kh, D).  Its prefill fills each row's ring from that
+row's ``prompt_lens`` (the last W positions of the prompt).  The
+reference fills it from the last W columns of the padded width, which
+puts pad rows into the ring of a prompt shorter than a prefill wider
+than W; the two agree wherever the reference's decode equals its
+forward (width <= W, or rows as long as the width).
 
 Two departures from the reference, both for eager execution:
 * ``prefill`` computes the (B, S, V) logits only when asked
@@ -44,21 +56,36 @@ FULL_ATTN_MAX_SEQ = L.FULL_ATTN_MAX_SEQ   # above this, attend blockwise
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The configs this module serves (the reference's non-pattern,
-    rope branch of the dense family)."""
+    """The configs this module serves (the reference's rope branch of the
+    dense family, with either layer pattern)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.attn.layer_pattern != "global":
-        raise NotImplementedError("local/global layer patterns not ported")
+    if cfg.attn.layer_pattern not in ("global", "local_global"):
+        raise NotImplementedError(
+            f"layer pattern {cfg.attn.layer_pattern!r}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"pos_embedding {cfg.pos_embedding!r}")
 
 
-def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s parameters out of the stacked tree (views)."""
+def pattern_len(cfg: ModelConfig) -> int:
+    return 2 if cfg.attn.layer_pattern == "local_global" else 1
+
+
+def _sub_window(cfg: ModelConfig, j: int) -> int:
+    """Sliding window for sub-layer j of a pattern group (0 = full attn)."""
+    if cfg.attn.layer_pattern == "local_global":
+        return cfg.attn.sliding_window if j == 0 else 0
+    return cfg.attn.sliding_window
+
+
+def layer(params: Params, i: int, cfg: ModelConfig) -> Params:
+    """Layer ``i``'s parameters out of the stacked tree (views): sub-layer
+    ``i % 2`` of group ``i // 2`` under the local/global pattern."""
+    idx = (i // 2, i % 2) if pattern_len(cfg) == 2 else (i,)
+
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
+            else t[idx]
     return pick(params["layers"])
 
 
@@ -88,6 +115,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return torch.stack(trees)
 
+    if pattern_len(cfg) == 2:             # (L/2, 2, ...), as the reference
+        blocks = [stack(blocks[i:i + 2]) for i in range(0, len(blocks), 2)]
     params: Params = {
         "embed": (torch.randn((cfg.vocab_size, d), generator=generator,
                               device=device) / math.sqrt(d)).to(dtype),
@@ -164,14 +193,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     positions = torch.arange(S, device=x.device).expand(B, S)
     attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
                  else L.blockwise_attention)
-
-    def attend(q, k, v):
-        return attention(q, k, v, causal=True,
-                         window=cfg.attn.sliding_window,
-                         softcap=cfg.attn.attn_softcap)
+    pl = pattern_len(cfg)
 
     for i in range(cfg.num_layers):
-        x, _, _ = _block(layer(params, i), cfg, x, positions, attend)
+        def attend(q, k, v, window=_sub_window(cfg, i % pl)):
+            return attention(q, k, v, causal=True, window=window,
+                             softcap=cfg.attn.attn_softcap)
+        x, _, _ = _block(layer(params, i, cfg), cfg, x, positions, attend)
     return lm_logits(params, cfg, x), dict(ZERO_AUX)
 
 
@@ -185,12 +213,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                ) -> Dict[str, torch.Tensor]:
     """{"k", "v"}: (L, batch, max_len, Kh, D) zeros in ``dtype`` (the
     compute dtype by default).  The paged engine calls it with
-    (num_pages, page_size) for its pool, in int8 for an int8 pool."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {n: torch.zeros(shape, dtype=dtype or cfg.compute_dtype,
-                           device=device)
+    (num_pages, page_size) for its pool, in int8 for an int8 pool.  The
+    local/global pattern has the four keys of the module docstring."""
+    Kh, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    dtype = dtype or cfg.compute_dtype
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if pattern_len(cfg) == 2:
+        G, W = cfg.num_layers // 2, min(cfg.attn.sliding_window, max_len)
+        return {"k_local": zeros(G, batch, W, Kh, D),
+                "v_local": zeros(G, batch, W, Kh, D),
+                "k_global": zeros(G, batch, max_len, Kh, D),
+                "v_global": zeros(G, batch, max_len, Kh, D)}
+    return {n: zeros(cfg.num_layers, batch, max_len, Kh, D)
             for n in ("k", "v")}
+
+
+def ring_fill_positions(prompt_lens: torch.Tensor, W: int, S: int
+                        ) -> torch.Tensor:
+    """(B, min(W, S)) prompt positions for ring rows [0, min(W, S)): row r
+    of a prompt of n tokens takes its last position p < n with p % W ==
+    r; a row no prompt position reaches (r >= n) takes position r, a pad
+    column that decode overwrites before it reads the row."""
+    r = torch.arange(min(W, S), device=prompt_lens.device)
+    wraps = torch.div(prompt_lens.long()[:, None] - 1 - r, W,
+                      rounding_mode="floor").clamp(min=0)
+    return r + W * wraps
 
 
 # ---------------------------------------------------------------------------
@@ -205,30 +254,49 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             return_logits: bool = True):
     """tokens (B, S) right-padded.  Fills ``cache[:, :, :S]`` in place and
     returns (logits (B, S, V) or None, cache).  Padded positions are
-    masked downstream via kv_len.
+    masked downstream via kv_len.  Under the local/global pattern the
+    global layers fill ``k_global``/``v_global`` so, and the local layers
+    each row's ring from its ``prompt_lens`` (module docstring).
 
     Packed mode (``seg_ids`` given): each row holds several prompts back
     to back, ``seg_ids`` (B, S) the row-local segment (-1 for padding) and
-    ``positions`` each token's position inside its segment.  Attention
-    goes through ``ops.flash_attention`` (the kernel on CUDA)."""
-    del prompt_lens
+    ``positions`` each token's position inside its segment; the pattern
+    refuses it, as the reference does.  Attention goes through
+    ``ops.flash_attention`` (the kernel on CUDA)."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
+    pl = pattern_len(cfg)
+    if pl == 2 and seg_ids is not None:
+        raise ValueError("packed prefill: local/global not supported")
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     if seg_ids is not None:
         seg_ids = seg_ids.to(torch.int32).contiguous()
-
-    def attend(q, k, v):
-        return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), seg_ids=seg_ids,
-                                   window=cfg.attn.sliding_window,
-                                   softcap=cfg.attn.attn_softcap)
+    if pl == 2:
+        W = cache["k_local"].shape[2]
+        ring = ring_fill_positions(prompt_lens.to(x.device), W, S)
+        ring = ring[:, :, None, None].expand(
+            B, ring.shape[1], cfg.num_kv_heads, cfg.resolved_head_dim)
 
     for i in range(cfg.num_layers):
-        x, k, v = _block(layer(params, i), cfg, x, positions, attend)
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+        def attend(q, k, v, window=_sub_window(cfg, i % pl)):
+            return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), seg_ids=seg_ids,
+                                       window=window,
+                                       softcap=cfg.attn.attn_softcap)
+        x, k, v = _block(layer(params, i, cfg), cfg, x, positions, attend)
+        if pl == 1:
+            kc, vc = cache["k"][i], cache["v"][i]
+        else:
+            kind = "local" if i % 2 == 0 else "global"
+            kc, vc = cache[f"k_{kind}"][i // 2], cache[f"v_{kind}"][i // 2]
+        if pl == 2 and i % 2 == 0:
+            n = ring.shape[1]
+            kc[:, :n] = torch.gather(k, 1, ring).to(kc.dtype)
+            vc[:, :n] = torch.gather(v, 1, ring).to(vc.dtype)
+        else:
+            kc[:, :S] = k.to(kc.dtype)
+            vc[:, :S] = v.to(vc.dtype)
     logits = lm_logits(params, cfg, x) if return_logits else None
     return logits, cache
 
@@ -246,7 +314,7 @@ def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = embed_tokens(params, cfg, token[:, None])
     positions = kv_len[:, None]
     for i in range(cfg.num_layers):
-        x, _, _ = _block(layer(params, i), cfg, x, positions,
+        x, _, _ = _block(layer(params, i, cfg), cfg, x, positions,
                          lambda q, k, v, i=i: attend_layer(i, q, k, v))
     if return_hidden:
         return L.norm(x[:, 0], params["final_norm"], cfg.norm_type,
@@ -265,6 +333,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     0, as in the reference), then the dense decode kernel reads
     ``kv_len + 1`` rows.  Returns (logits (B, V) or the final-normed
     hidden (B, d) with ``return_hidden``, cache)."""
+    if pattern_len(cfg) == 2:
+        raise ValueError("use decode_step_pattern for local/global archs")
     kv_len = kv_len.to(torch.int32)
     b = torch.arange(token.shape[0], device=token.device)
     row = kv_len.long()
@@ -282,6 +352,49 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     out = _decode_layers(params, cfg, token, kv_len, attend_layer,
                          return_hidden)
     return out, cache
+
+
+def decode_step_pattern(params: Params, cfg: ModelConfig,
+                        token: torch.Tensor, cache: Dict[str, torch.Tensor],
+                        kv_len: torch.Tensor):
+    """Decode of the local/global pattern (gemma2) over its four-key
+    cache, as the reference's ``decode_step_pattern``: a local layer
+    writes its ring at row ``kv_len % W`` and attends ``min(kv_len + 1,
+    W)`` ring rows (the ring holds exactly the window's positions, so no
+    window is applied), a global layer writes row ``kv_len`` and attends
+    ``kv_len + 1`` rows; both through the dense decode kernel with the
+    attention softcap.  Returns (logits (B, V), cache)."""
+    kv_len = kv_len.to(torch.int32)
+    b = torch.arange(token.shape[0], device=token.device)
+    W = cache["k_local"].shape[2]
+    local = (kv_len % W).long(), torch.clamp(kv_len + 1, max=W).contiguous()
+    glob = kv_len.long(), (kv_len + 1).contiguous()
+
+    def attend_layer(i, q, k, v):
+        kind = "local" if i % 2 == 0 else "global"
+        row, n_valid = local if kind == "local" else glob
+        kc, vc = cache[f"k_{kind}"][i // 2], cache[f"v_{kind}"][i // 2]
+        kc[b, row] = k[:, 0].to(kc.dtype)
+        vc[b, row] = v[:, 0].to(vc.dtype)
+        o = ops.ragged_decode_attention(q[:, 0].contiguous(), kc, vc, n_valid,
+                                        softcap=cfg.attn.attn_softcap)
+        return o[:, None]
+
+    return _decode_layers(params, cfg, token, kv_len, attend_layer,
+                          False), cache
+
+
+def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
+           cache: Dict[str, torch.Tensor], kv_len: torch.Tensor,
+           return_hidden: bool = False):
+    """The dense layout's decode step of either pattern (the reference's
+    ``decode``)."""
+    if pattern_len(cfg) == 2:
+        if return_hidden:
+            raise ValueError("return_hidden: local/global not supported")
+        return decode_step_pattern(params, cfg, token, cache, kv_len)
+    return decode_step(params, cfg, token, cache, kv_len,
+                       return_hidden=return_hidden)
 
 
 def requantize_written_pages(pages: torch.Tensor, scales: torch.Tensor,
@@ -336,6 +449,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
     Returns (logits (B, V) or the final-normed hidden (B, d) with
     ``return_hidden``, pool)."""
+    if pattern_len(cfg) == 2:
+        raise ValueError("paged decode: local/global not supported")
     P = pool["k"].shape[2]
     bt = block_tables.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32)

@@ -39,10 +39,16 @@ the slots; the reference prefills a ``max_total_len``-row sub-cache.
 Rows at or past a slot's ``kv_len`` are never read, and decode writes row
 ``kv_len`` before reading it, so the token streams are the same.
 
+The gemma2 local/global pattern (a four-key cache: a ring of the
+window's rows per local layer, a full cache per global layer) cannot be
+paged and takes the dense layout, as in the reference; its ring holds
+exactly the window, so its decode needs no window in the kernel.
+
 Not ported yet, and refused with ``NotImplementedError``: families other
-than dense, and windowed configs on CUDA (the decode kernels take no
-window).  As in the reference, ``kv_quant``, ``packed_prefill`` and
-``fused_sampling`` need the paged layout (``ValueError`` otherwise).
+than dense, and a window on every layer (the ``"global"`` pattern) on
+CUDA, where the decode kernels take no window.  As in the reference,
+``kv_quant``, ``packed_prefill`` and ``fused_sampling`` need the paged
+layout (``ValueError`` otherwise).
 """
 from __future__ import annotations
 
@@ -79,10 +85,11 @@ class SlotEngine:
                  kv_quant: Optional[str] = None):
         cfg = model.cfg
         self.device = model.device
-        if self.device.type == "cuda" and cfg.attn.sliding_window:
+        if (self.device.type == "cuda" and cfg.attn.sliding_window
+                and cfg.attn.layer_pattern == "global"):
             raise NotImplementedError(
-                "windowed configs: the CUDA decode kernels take no sliding "
-                "window yet")
+                "a window on every layer: the CUDA decode kernels take no "
+                "sliding window")
         if paged is None:
             paged = supports_paging(model)
         elif paged and not supports_paging(model):
@@ -182,7 +189,8 @@ class SlotEngine:
 
     def _submit_dense(self, entries, slots, seqs, pre) -> None:
         """One bucketed prefill of every prefix at ``width`` columns,
-        copied into the slots' rows ``[0, width)``."""
+        copied into the slots' rows ``[0, width)`` (a local layer's ring
+        into its ``min(width, W)`` rows)."""
         k = len(entries)
         params = self.params_fn()
         width = self._bucket_width(max(1, max(len(p) for p in pre)))
@@ -200,7 +208,8 @@ class SlotEngine:
         self.prefill_launches += 1
         idx = self._tensor(np.asarray(slots, np.int64))
         for name, arr in self.cache.items():
-            arr[:, idx, :width] = sub_cache[name][:, :k].to(arr.dtype)
+            sub = sub_cache[name]
+            arr[:, idx, :sub.shape[2]] = sub[:, :k].to(arr.dtype)
 
         t = self.slots
         t.uid[slots] = [e.uid for e in entries]
@@ -413,7 +422,7 @@ class SlotEngine:
                 params, token, self.cache, bt, kv_len, return_hidden=fused,
                 scales=self.kv_scales or None)
             self.kv.append_tokens(uids_act, t.next_token[act].tolist())
-        else:
+        else:          # the model's decode_step takes the pattern's decode
             out, _ = self.model.decode_step(params, token, self.cache,
                                             kv_len)
         return self._fused_greedy(params, out) if fused else \

@@ -6,7 +6,8 @@ paged engine (``slot``), with packed prefill (``slot_packed``), with
 fused greedy sampling (``slot_fused``), the dense layout
 (``slot_dense``) and int8 KV pages (``slot_int8``), all on
 ``device="cpu"`` with the suite's tiny model (``tiny_lm_config``,
-d_model 32, 1 layer, 2 heads).
+d_model 32, 1 layer, 2 heads); and the gemma2 smoke config (local/global
+layers, a 16-row ring, softcaps) on its dense layout (``slot_gemma2``).
 
 Left out, with the reason:
 
@@ -32,11 +33,12 @@ from engine_conformance import (  # noqa: F401  (collected here)
     test_scavenge_resume_cycle, test_step_events_and_budget,
     test_step_on_empty_engine, test_submit_accounting)
 from repro.data import logic
-from repro_torch.configs.base import tiny_lm_config
+from repro_torch.configs.base import get_smoke_config, tiny_lm_config
 from repro_torch.models.model import build_model
 from repro_torch.rollout.engine import SlotEngine
 
 _TINY = {}
+_GEMMA2 = {}
 
 
 def _tiny():
@@ -57,6 +59,19 @@ def make_slot(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1, **kw):
                       temperature=1.0, **kw)
 
 
+def make_slot_gemma2(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
+    if not _GEMMA2:
+        cfg = get_smoke_config("gemma2_2b").replace(
+            param_dtype=torch.float32, compute_dtype=torch.float32)
+        model = build_model(cfg, device="cpu")
+        _GEMMA2["model"] = model
+        _GEMMA2["params"] = model.init_params(torch.Generator().manual_seed(0))
+    return SlotEngine(_GEMMA2["model"], lambda: _GEMMA2["params"],
+                      capacity=capacity, max_total_len=MAX_TOTAL,
+                      max_gen_len=max_gen, eos_id=eos_id,
+                      pad_id=logic.VOCAB.pad_id, temperature=1.0)
+
+
 def make_slot_packed(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
     return make_slot(capacity, max_gen, eos_id, packed_prefill=True)
 
@@ -75,7 +90,7 @@ def make_slot_int8(capacity=CAPACITY, max_gen=MAX_GEN, eos_id=-1):
 
 ENGINES = [("slot", make_slot), ("slot_packed", make_slot_packed),
            ("slot_fused", make_slot_fused), ("slot_dense", make_slot_dense),
-           ("slot_int8", make_slot_int8)]
+           ("slot_int8", make_slot_int8), ("slot_gemma2", make_slot_gemma2)]
 
 
 @pytest.fixture(params=[name for name, _ in ENGINES])

@@ -7,6 +7,8 @@
   through ``repro.kernels.ops`` as ``tests/test_kernels.py`` runs them.
 * int8 pages stay within ``KV_INT8_DECODE_ATOL`` of the fp decode on the
   same pages.
+* ``chip_smoke.py``'s bf16 decode rule against the kernels' split-KV
+  arithmetic in f32, and against the same with one split weighted wrong.
 * The CUDA wrappers' guards: a CUDA-only argument and a non-CPU tensor
   raise instead of falling back (checked on meta tensors).
 * The CUDA kernels against their plain versions run on the card in
@@ -14,6 +16,9 @@
   ``test_torch_kernels_gpu.py`` (no JAX there, so it runs on the card's
   host).
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,6 +86,8 @@ def test_gather_pages_matches_reference():
     (2, 16, 8, 128, 16, 11, 5, 0.0),
     (3, 4, 4, 32, 16, 6, 2, 30.0),
     (2, 4, 1, 16, 8, 5, 3, 0.0),
+    (2, 24, 2, 192, 16, 7, 3, 50.0),            # Nemotron: D 192, G 12
+    (2, 4, 2, 256, 16, 7, 3, 50.0),             # Gemma2: D 256, G 2
 ])
 def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
     rng = np.random.RandomState(B * 100 + D)
@@ -100,6 +107,8 @@ def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
     (3, 300, 16, 8, 128, [299, 5, 400], 0.0),   # S % 128 != 0, kv_len > S
     (2, 48, 4, 4, 32, [17, 48], 30.0),           # softcap, G = 1
     (2, 16, 8, 1, 16, [3, 16], 0.0),             # G = 8
+    (2, 40, 8, 4, 256, [17, 40], 50.0),          # Gemma2: D 256, G 2
+    (3, 24, 24, 2, 192, [0, 5, 24], 50.0),       # D 192, G 12
 ])
 def test_ragged_decode_plain_matches_reference(B, S, H, Kh, D, lens, softcap):
     rng = np.random.RandomState(S + D)
@@ -227,6 +236,8 @@ def test_int8_decode_error_within_documented_atol():
     (2, 64, 8, 2, 16, 16, 0.0, False),          # sliding window
     (1, 48, 4, 4, 16, 0, 30.0, True),           # softcap + segments
     (3, 1, 2, 2, 8, 0, 0.0, False),             # S = 1
+    (1, 37, 8, 4, 256, 16, 50.0, False),        # Gemma2 local: D 256
+    (1, 33, 24, 2, 192, 0, 0.0, False),         # Nemotron: D 192, G 12
 ])
 def test_flash_plain_matches_reference(B, S, H, Kh, D, window, softcap,
                                        packed):
@@ -331,6 +342,46 @@ def test_split_merge_int8_new_row_on_split_edge(lens):
         views.append(jnp.asarray(g))
     want = jlayers.decode_attention(jnp.asarray(q), *views, jnp.asarray(kv))
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("S,lens,H,Kh,D,softcap", [
+    (2048, [2000, 1500, 700, 1], 8, 4, 256, 50.0),     # Gemma2's heads
+    (1024, [1000, 600, 37, 5], 96, 8, 192, 0.0),       # Nemotron's
+    (1024, [1024, 900, 64, 2], 64, 8, 128, 0.0),       # Qwen1.5's
+])
+def test_decode_rule_holds_split_decode_and_sees_a_wrong_merge(S, lens, H, Kh,
+                                                              D, softcap):
+    """``chip_smoke.py`` holds the bf16 decode kernels to 2^-7*|want| +
+    2^-5*rms(want[slot]) against the plain version, which rounds q/sqrt(D)
+    and the weights to bf16.  The kernels' arithmetic (f32 split partials
+    of 256 rows, the merge, the output rounded to bf16) stays inside it;
+    the same with split 1's partials weighted 5% high falls outside, where
+    a fixed 2e-2 lets it through."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(S + D)
+    q = torch.randn((len(lens), H, D), generator=g).bfloat16()
+    k, v = (torch.randn((len(lens), S, Kh, D), generator=g).bfloat16()
+            for _ in range(2))
+    kv = torch.tensor(lens, dtype=torch.int32)
+    want = ref.ragged_decode_attention_ref(q, k, v, kv, softcap=softcap)
+    m, l, acc = ref.decode_split_partials_ref(q, k, v, kv, 256,
+                                              softcap=softcap)
+    good = ref.merge_split_partials_ref(m, l, acc).bfloat16()
+    excess, share, _ = cs.decode_excess(good, want)
+    assert excess <= 0 and share < cs.DECODE_RMS
+    l[:, :, 1] *= 1.05
+    acc[:, :, 1] *= 1.05
+    bad = ref.merge_split_partials_ref(m, l, acc).bfloat16()
+    assert cs.decode_excess(bad, want)[0] > 0
+    assert float((bad.float() - want.float()).abs().max()) <= 2e-2
 
 
 # -- against the Pallas kernels in interpret mode -----------------------------

@@ -12,6 +12,9 @@ The kernels' results against their plain versions are checked on the card
 in one place, ``chip_smoke.py`` (``--phase kernels``), with the tolerance
 stated beside each case.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -123,3 +126,81 @@ def test_int8_decode_on_cuda_needs_the_new_rows(dev):
         q.cpu(), pages.cpu(), pages.cpu(), sc.cpu(), sc.cpu(), bt.cpu(),
         kv.cpu())
     assert out.device.type == "cpu" and not out.any()
+
+
+def _decode_excess(got, want):
+    """``chip_smoke.py``'s bf16 decode rule: <= 0 passes."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.decode_excess(got, want)[0]
+
+
+def _bf16(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+
+def test_wide_head_kernels_match_their_plain_versions(dev):
+    """The kernels at the heads of Gemma2-2B (D 256, G 2, softcap 50, a
+    window below a tile) and Nemotron-4-340B (D 192, G 12), and the fused
+    head with x streamed (Dm 8192): against the plain versions with
+    ``chip_smoke.py``'s bf16 tolerances (flash: 1e-3 + 2^-7 |want| + 2^-9
+    attn(|v|); decode 2^-7 |want| + 2^-5 rms(want[slot]); fused head 1e-3
+    on values and logsumexp)."""
+    from repro_torch.kernels import ref
+    for B, S, H, Kh, D, win, cap in ((2, 100, 8, 4, 256, 20, 50.0),
+                                     (1, 33, 24, 2, 192, 0, 0.0)):
+        q, k, v = (_bf16(dev, B, S, h, D, seed=i)
+                   for i, h in enumerate((H, Kh, Kh)))
+        out = ops.flash_attention(q, k, v, window=win, softcap=cap).float()
+        want = ref.flash_attention_ref(q, k, v, window=win,
+                                       softcap=cap).float()
+        wabs = ref.flash_attention_ref(q, k, v.abs(), window=win,
+                                       softcap=cap).float()
+        assert float(((out - want).abs() - 2.0 ** -7 * want.abs()
+                      - 2.0 ** -9 * wabs).max()) <= 1e-3
+    lens = torch.tensor([0, 17, 300, 299], dtype=torch.int32, device=dev)
+    q = _bf16(dev, 4, 8, 256, seed=3)
+    kc, vc = _bf16(dev, 4, 300, 4, 256, seed=4), _bf16(dev, 4, 300, 4, 256,
+                                                       seed=5)
+    got = ops.ragged_decode_attention(q, kc, vc, lens, softcap=50.0)
+    want = ref.ragged_decode_attention_ref(q, kc, vc, lens, softcap=50.0)
+    assert _decode_excess(got, want) <= 0
+    assert not got[0].any()
+    q = _bf16(dev, 2, 96, 192, seed=6)
+    kp, vp = _bf16(dev, 40, 16, 8, 192, seed=7), _bf16(dev, 40, 16, 8, 192,
+                                                       seed=8)
+    bt = torch.arange(1, 39, dtype=torch.int32, device=dev)[:38].view(2, 19)
+    lens = torch.tensor([257, 300], dtype=torch.int32, device=dev)
+    got = ops.paged_decode_attention(q, kp, vp, bt, lens)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens)
+    assert _decode_excess(got, want) <= 0
+    x, w = _bf16(dev, 17, 8192, seed=9), _bf16(dev, 8192, 3000, seed=10) / 90
+    vals, idx, lse = ops.fused_sample(x, w, top_k=4)
+    rv, _, rl = ref.fused_sample_ref(x, w, top_k=4)
+    assert float((vals - rv).abs().max()) <= 1e-3
+    assert float((lse - rl).abs().max()) <= 1e-3
+
+
+def test_wide_heads_stay_bf16_fp_only(dev):
+    """D 192/256 exist in bf16 on fp K/V only: f32 and int8 pages raise."""
+    before = ops.launch_counts()
+    q = torch.zeros((2, 24, 192), device=dev)
+    pages = torch.zeros((3, 16, 2, 192), device=dev)
+    bt = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    kv = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q, pages, pages, bt, kv)
+    p8 = pages.to(torch.int8)
+    sc = torch.ones((3,), device=dev)
+    rows = torch.zeros((2, 2, 192), device=dev).bfloat16()
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention_int8(q.bfloat16(), p8, p8, sc, sc, bt, kv,
+                                        k_new=rows, v_new=rows)
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.zeros((1, 4, 4, 256), device=dev),
+                            torch.zeros((1, 4, 2, 256), device=dev),
+                            torch.zeros((1, 4, 2, 256), device=dev))
+    assert ops.launch_counts() == before

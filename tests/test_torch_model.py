@@ -144,7 +144,7 @@ def test_qkv_project_matches_reference(name):
     pos = rng.randint(0, 50, size=(2, 7)).astype(np.int32)
     jl = jax.tree.map(lambda a: a[0], jp["layers"])
     want = JL.qkv_project(jl["attn"], jm.cfg, x, pos)
-    got = L.qkv_project(TF.layer(tp, 0)["attn"], tm.cfg, _t(x), _t(pos))
+    got = L.qkv_project(TF.layer(tp, 0, tm.cfg)["attn"], tm.cfg, _t(x), _t(pos))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATOL)
 
