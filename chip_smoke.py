@@ -9,6 +9,7 @@
                                             # plane (group, serve_tier,
                                             # long, the option sessions)
     python3 chip_smoke.py --phase families  # kernel checks + the families
+                                            # (dense and MoE) + rl_moe
 
 Phases, each printing one JSON line:
 
@@ -23,7 +24,10 @@ Phases, each printing one JSON line:
    port).  The same at the shapes of Gemma2-2B (D 256, G 2, softcap 50,
    window 4096), Qwen1.5-110B (H 64, an 8192 x 152,064 head) and
    Nemotron-4-340B (D 192, G 12, an 18,432 x 256,000 head, x streamed
-   through the fused head), and at their edges (``family_shapes``).
+   through the fused head), Granite-MoE-3B-A800M (D 64, G 3: fp pages,
+   int8 pages and dense; a tied head of V 49,155) and Qwen3-MoE-235B-A22B
+   (D 128, G 16; a 4096 x 151,936 head), and at their edges
+   (``family_shapes``).
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -75,14 +79,25 @@ Phases, each printing one JSON line:
    plain ``forward``) forward and backward at B=1, S=2304 on the full
    model: above ``FULL_ATTN_MAX_SEQ``, so every layer attends blockwise
    (counted); its time (twice), one traced run and peak memory.
-7. ``families``: Gemma2-2B at full width and depth (26 local/global
+7. ``moe_layer``: the MoE layer (the reference's capacity-drop
+   ``moe_mlp_dense``) at Granite-MoE's width and published capacity
+   factor on the card against the CPU, f32: routing and drops equal.
+   ``families``: Gemma2-2B at full width and depth (26 local/global
    layers, rings of 4096, the dense layout, 16 requests of 512-6144 ids
    in one 8192-wide wave), Qwen1.5-110B at full width cut to 4 layers and
    Nemotron-4-340B at full width cut to 2 (paged, fused greedy head, 32
    and 16 requests of 64-1024 ids), random weights, one after another:
    exactly each path's kernels, 3 requests each held to the plain
    forward (0.1 nats, tokens equal but at near-ties), step times,
-   tokens/s and peak memory.
+   tokens/s and peak memory.  Then Granite-MoE-3B-A800M at full width
+   and depth and Qwen3-MoE-235B-A22B at full width cut to 4 layers
+   (paged, fused head, 32 requests): served and timed at the published
+   capacity factor (dropped shares counted), then at capacity factor
+   E / k (no drops) with 3 requests held to the plain forward
+   (``held_to_f32``).  ``rl_moe``: SortedRL's loop on Granite-MoE at
+   full width and depth (the ``rl`` phase's loop, update batches of 8,
+   bf16 AdamW moments): every uid trained once, the router and the
+   experts moved, the engine-against-trainer gap reported.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -362,9 +377,9 @@ def ptxas_functions(log: str, pattern: str):
 # split-pass instantiations per decode kernel: 2 dtypes x D 64/128 x G
 # 1/2/4/8, bf16 (D, G) = (192, 12) and (256, 2) on fp K/V, and for fp
 # pages also f32 at D 32, G 1 (the RL session's LM)
-DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 19,
-                               "paged_decode_attention_int8": 16,
-                               "ragged_decode_attention": 18}
+DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 22,
+                               "paged_decode_attention_int8": 18,
+                               "ragged_decode_attention": 21}
 
 
 def decode_registers(build):
@@ -487,6 +502,7 @@ def phase_kernels(torch, dev, report):
     edges = [SR - 1, SR, SR + 1, 2 * SR]
     b33 = np.random.RandomState(12).randint(1, 1500, size=33).tolist()
     g8 = [600, 2 * SR + 7, 5]
+    g3 = [0, 1, 16, 17, SR, SR + 1, 2 * SR + 3]
     pd_cases = [
         ("serve_b32_bf16", bf16, serve_lens.tolist(), 16, 8, 128, 0.0),
         ("serve_b32_f32", f32, serve_lens.tolist(), 16, 8, 128, 0.0),
@@ -505,6 +521,12 @@ def phase_kernels(torch, dev, report):
         ("d64_g2_split_edges_bf16", bf16, edges, 8, 4, 64, 0.0),
         # the RL session's tiny LM (f32, D = 32, G = 1), across a split
         ("tiny_d32_g1_f32", f32, [1, 37, 159, SR + 3], 4, 4, 32, 0.0),
+        # Granite-MoE's G = 3 (24 query heads over 8): kv_len 0 and 1, a
+        # page's last and first row, a split's edge; all three heads of a
+        # group are checked
+        ("d64_g3_edges_f32", f32, g3, 24, 8, 64, 0.0),
+        ("d64_g3_edges_bf16", bf16, g3, 24, 8, 64, 0.0),
+        ("d64_g3_softcap_splits_f32", f32, g8, 6, 2, 64, 30.0),
     ]
     serve_pd = None
     for name, dt, lens, H, Kh, D, cap in pd_cases:
@@ -570,6 +592,8 @@ def phase_kernels(torch, dev, report):
         ("b1_s2048_bf16", bf16, [2048], 2048, 16, 8, 128, 0.0),
         ("b33_kh8_s1500_bf16", bf16, b33, 1500, 16, 8, 128, 0.0),
         ("g8_softcap_splits_s700_bf16", bf16, g8, 700, 8, 1, 128, 30.0),
+        ("d64_g3_edges_s600_f32", f32, g3, 600, 24, 8, 64, 0.0),
+        ("d64_g3_edges_s600_bf16", bf16, g3, 600, 24, 8, 64, 0.0),
     ]
     serve_rd = None
     for name, dt, lens, S, H, Kh, D, cap in rd_cases:
@@ -656,6 +680,8 @@ def phase_kernels(torch, dev, report):
         ("g8_softcap_splits_bf16", bf16, g8, 8, 1, 128, 30.0, None),
         ("d64_g4_softcap_splits_f32", f32, [600, SR + 1, 5], 8, 2, 64, 30.0,
          None),
+        ("d64_g3_edges_f32", f32, g3, 24, 8, 64, 0.0, None),
+        ("d64_g3_edges_bf16", bf16, g3, 24, 8, 64, 0.0, None),
     ]
     serve_i8 = None
     for name, dt, lens, H, Kh, D, cap, special in i8_cases:
@@ -920,10 +946,14 @@ def family_serve_lens(n, lo, hi, gen, seed):
 
 def kernels_family_shapes(torch, dev, report, record, decode_record,
                           maxerr):
-    """The four kernels at the shapes of Gemma2-2B (D 256, G 2, softcap 50,
+    """The kernels at the shapes of Gemma2-2B (D 256, G 2, softcap 50,
     window 4096, rings of 4096 and caches of 8192 rows), Qwen1.5-110B (D
-    128, G 8, H 64; an untied head of 8192 x 152,064) and Nemotron-4-340B
-    (D 192, G 12, H 96; an untied head of 18,432 x 256,000), each held
+    128, G 8, H 64; an untied head of 8192 x 152,064), Nemotron-4-340B
+    (D 192, G 12, H 96; an untied head of 18,432 x 256,000),
+    Granite-MoE-3B-A800M (D 64, G 3, H 24: fp pages, int8 pages and the
+    dense cache; a tied head of 1536 x 49,155, V odd) and
+    Qwen3-MoE-235B-A22B (D 128, G 16, H 64; an untied head of 4096 x
+    151,936), each held
     against its plain version with the tolerances of the Qwen3 cases (same
     arithmetic), and at edges: S not a multiple of a tile, a window smaller
     than a tile, kv_len at W and W + 1, splits' edges at D 192/256, x
@@ -974,6 +1004,15 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         ("d192_g12_kvlen_0_1_37", [0, 1, 37], 96, 8, 192, 0.0, False),
         ("d256_g2_softcap50_splits", [17, SR + 1, 3 * SR + 5], 8, 4, 256,
          50.0, False),
+        ("granite_moe_serve_b32_d64_g3",
+         family_serve_lens(32, 64, 1024, 64, 24), 24, 8, 64, 0.0, True),
+        ("qwen3_moe_serve_b32_d128_g16",
+         family_serve_lens(32, 64, 1024, 64, 25), 64, 4, 128, 0.0, True),
+        # kv_len 0, a page's last and first row, a split's edges
+        ("d64_g3_page_and_split_edges", [0, 16, 17] + edges, 24, 8, 64, 0.0,
+         False),
+        ("d128_g16_kvlen_0_and_split_edges", [0, 1] + edges, 64, 4, 128,
+         0.0, False),
     ]
     for case, lens, H, Kh, D, cap, is_timed in pd_cases:
         args = paged_inputs(torch, dev, bf16, lens, H, Kh, D)
@@ -1022,6 +1061,14 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         ("d256_split_edges_s700", 700, edges[:3] + [700], 8, 4, 256, 50.0,
          False),
         ("d192_g12_s700", 700, [600, SR + 1, 5], 96, 8, 192, 0.0, False),
+        ("granite_moe_serve_b32_s2048_d64_g3", 2048,
+         family_serve_lens(32, 64, 1024, 64, 24), 24, 8, 64, 0.0, True),
+        ("qwen3_moe_serve_b32_s2048_d128_g16", 2048,
+         family_serve_lens(32, 64, 1024, 64, 25), 64, 4, 128, 0.0, True),
+        ("d64_g3_edges_s300", 300, [0, 1, 16, 17, 299, 300], 24, 8, 64, 0.0,
+         False),
+        ("d128_g16_split_edges_s700", 700, [0] + edges[:3] + [700], 64, 4,
+         128, 0.0, False),
     ]
     for case, S, lens, H, Kh, D, cap, is_timed in rd_cases:
         args = dense_inputs(torch, dev, bf16, lens, S, H, Kh, D)
@@ -1034,13 +1081,25 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"ragged/{case}: kv_len 0 not zero")
         if is_timed:
-            q, kc, _, kvl = args
+            q, kc, vc, kvl = args
             live = int(kvl.clamp(max=S).sum())
+            library, note = None, NO_LIBRARY_SOFTCAP
+            if cap == 0:
+                G = H // Kh
+                kt = kc.transpose(1, 2).repeat_interleave(G, 1)
+                vt = vc.transpose(1, 2).repeat_interleave(G, 1)
+                mask = (torch.arange(S, device=dev)[None, :]
+                        < kvl[:, None])[:, None, None, :]
+
+                def library(q=q, kt=kt, vt=vt, mask=mask):
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], kt, vt, attn_mask=mask)
+                note = "SDPA, key mask, cache pre-transposed"
             timed("ragged_decode_attention", case, row,
                   lambda a=args, c=cap: ops.ragged_decode_attention(
                       *a, softcap=c),
                   lambda a=args, c=cap: ref.ragged_decode_attention_ref(
-                      *a, softcap=c), None,
+                      *a, softcap=c), library,
                   4 * q.numel() + 4 * live * Kh * D + 4 * kvl.numel(),
                   4 * live * H * D,
                   dict(B=len(lens), H=H, Kh=Kh, D=D, S=S, live_rows=live,
@@ -1048,8 +1107,62 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   regs("ragged_decode_attention",
                        rf"decode_split_kernelI13__nv_bfloat16S\w*Li{D}ELi"
                        rf"{H // Kh}E"),
-                  note=NO_LIBRARY_SOFTCAP)
+                  note=note)
+            del library
         del args, out, want
+        torch.cuda.empty_cache()
+
+    # -- decode: int8 pages at Granite-MoE's G = 3 -----------------------------
+    # the tolerance of the Qwen3 int8 cases: bf16 q 2e-2 (int8 pages are
+    # not served on the card)
+    for case, lens, is_timed in (
+            ("granite_moe_serve_b32_d64_g3",
+             family_serve_lens(32, 64, 1024, 64, 24), True),
+            ("d64_g3_new_row_on_page_and_split_edges",
+             [1, 16, 17] + edges, False)):
+        H, Kh, D = 24, 8, 64
+        args = int8_inputs(ref, paged_inputs(torch, dev, bf16, lens, H, Kh,
+                                             D))
+        gn = torch.Generator(device=dev).manual_seed(len(lens))
+        new = {n: torch.randn((len(lens), Kh, D), generator=gn,
+                              device=dev).to(bf16) for n in ("k_new", "v_new")}
+        out = ops.paged_decode_attention_int8(*args, **new)
+        want = ref.paged_decode_attention_int8_ref(*args, **new)
+        torch.cuda.synchronize()
+        row = record("paged_decode_attention_int8", case, maxerr(out, want),
+                     2e-2)
+        if is_timed:
+            q, k8, v8, ks, vs, bt, kvl = args
+            G, P = H // Kh, k8.shape[1]
+            live = int(kvl.sum())
+            live_pages = sum(-(-int(n) // P) for n in kvl.tolist())
+            mask = (torch.arange(bt.shape[1] * P, device=dev)[None, :]
+                    < kvl[:, None])[:, None, None, :]
+
+            def library(q=q, k8=k8, v8=v8, ks=ks, vs=vs, bt=bt, mask=mask,
+                        G=G, P=P):
+                def deq(pages, scales):
+                    g = ref.gather_pages(pages, bt).float() * scales[
+                        bt.long()].repeat_interleave(P, 1)[:, :, None, None]
+                    return g.to(q.dtype).transpose(1, 2) \
+                        .repeat_interleave(G, 1)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], deq(k8, ks), deq(v8, vs), attn_mask=mask)
+            B = len(lens)
+            timed("paged_decode_attention_int8", case, row,
+                  lambda a=args, n=new: ops.paged_decode_attention_int8(
+                      *a, **n),
+                  lambda a=args, n=new: ref.paged_decode_attention_int8_ref(
+                      *a, **n), library,
+                  4 * q.numel() + 2 * (live - B) * Kh * D + 4 * B * Kh * D
+                  + 8 * live_pages + 4 * (bt.numel() + kvl.numel()),
+                  4 * live * H * D,
+                  dict(B=B, H=H, Kh=Kh, D=D, P=P, live_rows=live,
+                       live_pages=live_pages),
+                  regs("paged_decode_attention",
+                       rf"decode_split_kernelI13__nv_bfloat16aLi{D}ELi{G}E"),
+                  note="gather + dequantise + SDPA, key mask")
+        del args, new, out, want
 
     # -- flash prefill ----------------------------------------------------------
     # The serve shapes are the families' prefill waves (16 x 8192 for
@@ -1075,6 +1188,13 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
          False),
         ("s2049_d256_window100_softcap50", 1, 2049, 8, 4, 256, False, 100,
          50.0, False),
+        ("granite_moe_b32_s1024_d64_g3", 32, 1024, 24, 8, 64, False, 0, 0.0,
+         True),
+        ("qwen3_moe_b32_s1024_d128_g16", 32, 1024, 64, 4, 128, False, 0,
+         0.0, True),
+        ("s65_d64_g3_seg", 2, 65, 24, 8, 64, True, 0, 0.0, False),
+        ("s129_d128_g16_window40", 1, 129, 64, 4, 128, False, 40, 0.0,
+         False),
     ]
     for case, B, S, H, Kh, D, seg, win, cap, is_timed in fa_cases:
         q, k, v, s_ = flash_inputs(torch, dev, bf16, B, S, H, Kh, D, seg)
@@ -1175,6 +1295,43 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                    rf"sample_tc_kernelILi{-(-B // 16)}ELb0ELb1E"),
               note="matmul + topk + logsumexp", plain_reps=(2, 1))
         del w, x, library
+        torch.cuda.empty_cache()
+
+    # the MoE family's heads: Granite's tied embedding (V = 49,155, odd:
+    # the vocab tail inside a tile) at B 32, 1 and 33, Qwen3-MoE's untied
+    # 4096 x 151,936
+    for Dm, V, model, tied in ((1536, 49155, "granite_moe", True),
+                               (4096, 151936, "qwen3_moe", False)):
+        shape = (V, Dm) if tied else (Dm, V)
+        w = (torch.randn(shape, generator=g, device=dev)
+             / math.sqrt(Dm)).to(bf16)
+        if tied:
+            w = w.T
+        x = torch.randn((33, Dm), generator=g, device=dev).to(bf16)
+        kind = "tied" if tied else "untied"
+        case = f"{model}_b32_dm{Dm}_v{V}_{kind}_k1"
+        row = fs_case(case, x[:32], w, 1, 0.0)
+        if tied:
+            fs_case(f"{model}_b1_v{V}_tied_k1", x[:1], w, 1, 0.0)
+            fs_case(f"{model}_b33_v{V}_tied_k8", x, w, 8, 0.0)
+        xs = x[:32]
+
+        def library(x=xs, w=w):
+            logits = torch.matmul(x, w).float()
+            return torch.topk(logits, 1), torch.logsumexp(logits, -1)
+        timed("fused_sample", case, row,
+              lambda x=xs, w=w: ops.fused_sample(x, w),
+              lambda x=xs, w=w: ref.fused_sample_ref(x, w), library,
+              V * Dm * 2 + 32 * Dm * 2 + 32 * 3 * 4, 2 * 32 * Dm * V,
+              dict(B=32, Dm=Dm, V=V, w=("embed.T (tied)" if tied else
+                                        "lm_head (untied, v contiguous)"),
+                   rows_per_cta=row["rows_per_cta"],
+                   x_streams=row["x_streams"]),
+              regs("fused_sample",
+                   rf"sample_tc_kernelILi2ELb{int(tied)}ELb"
+                   rf"{int(row['x_streams'])}E"),
+              note="matmul + topk + logsumexp", plain_reps=(2, 1))
+        del w, x, xs, library
         torch.cuda.empty_cache()
 
 
@@ -1688,6 +1845,71 @@ def near_tie_check(torch, model, params, served, tol):
             "mean_logprob_err": total / max(n, 1), "tol": tol}
 
 
+def f32_logprobs(torch, model, params, prompt, gen):
+    """Logprobs of the generated tokens under the plain forward in f32 on
+    the same (bf16) weights, each layer's weights cast to f32 only while
+    it runs (a whole f32 copy of a large model would not fit beside it)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    f32 = torch.float32
+    cfg = model.cfg.replace(param_dtype=f32, compute_dtype=f32)
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.float()
+    toks = torch.tensor([list(prompt) + [t for t, _ in gen]],
+                        device=model.device)
+    pos = torch.arange(toks.shape[1], device=toks.device)[None]
+    with torch.no_grad():
+        x = params["embed"][toks].float()
+        for i in range(cfg.num_layers):
+            x, _, _, _ = TF._block(
+                cast(TF.layer(params, i, cfg)), cfg, x, pos,
+                lambda q, k, v: L.full_attention(q, k, v, causal=True),
+                TF.mlp_fn(cfg, with_aux=False))
+        head = {"final_norm": cast(params["final_norm"])}
+        head["embed" if cfg.tie_embeddings else "lm_head"] = (
+            params["embed"] if cfg.tie_embeddings
+            else params["lm_head"]).float()
+        n = len(prompt)
+        logits = TF.lm_logits(head, cfg, x[0, n - 1:n - 1 + len(gen)])
+    lp = torch.log_softmax(logits, -1)
+    want = torch.tensor([t for t, _ in gen], device=lp.device)
+    return lp.gather(1, want[:, None])[:, 0].tolist()
+
+
+def against_f32(torch, model, params, served):
+    """The served logprobs and the plain bf16 forward's, each against the
+    plain forward in f32 on the same weights: max and mean |difference|
+    (how far each bf16 path sits from the f32 one)."""
+    eng, fwd = [], []
+    for prompt, gen in served.values():
+        want = f32_logprobs(torch, model, params, prompt, gen)
+        _, lp, _ = score(torch, model, params, prompt, gen)
+        eng += [abs(lt - w) for (_, lt), w in zip(gen, want)]
+        fwd += [abs(l - w) for l, w in zip(lp, want)]
+    return {"engine_max_abs": max(eng), "engine_mean_abs": statistics.mean(eng),
+            "forward_bf16_max_abs": max(fwd),
+            "forward_bf16_mean_abs": statistics.mean(fwd)}
+
+
+def held_to_f32(f):
+    """The MoE families' logprob check (``against_f32``): the served
+    logprobs within max(0.1 nats, the plain bf16 forward's own max
+    distance) of the plain forward in f32 on the same weights, and in
+    mean no farther than 1.25x the bf16 forward.  Routing makes the bf16
+    forward itself a noisy reference: an expert set can change where two
+    router probabilities nearly tie, moving a logprob by tenths of a nat
+    (on an H100, the bf16 forward sat 0.157 nats from the f32 one at
+    Qwen3-MoE's width), so the kernel path is held to the f32 forward
+    with the bf16 path's own spread."""
+    tol_max = max(NEAR_TIE_BF16, f["forward_bf16_max_abs"])
+    tol_mean = 1.25 * f["forward_bf16_mean_abs"]
+    return dict(f, tol_max=tol_max, tol_mean=tol_mean,
+                ok=f["engine_max_abs"] <= tol_max
+                and f["engine_mean_abs"] <= tol_mean)
+
+
 def to_cpu(tree):
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
@@ -1887,22 +2109,24 @@ def final_hidden(torch, model, params, prompts):
     with torch.no_grad():
         x = TF.embed_tokens(params, cfg, toks)
         for i in range(cfg.num_layers):
-            x, _, _ = TF._block(TF.layer(params, i, cfg), cfg, x, pos, attend)
+            x, _, _, _ = TF._block(TF.layer(params, i, cfg), cfg, x, pos,
+                                   attend, TF.mlp_fn(cfg, with_aux=False))
         h = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
         return torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
 
 
-def set_eos_row(torch, model, params, prompts):
-    """EOS's embedding row along the mean of the final normed hidden state
-    over ``prompts`` (one plain forward), scaled so that EOS's logit
-    averages ``RL_EOS_LOGIT`` there.  Returns what it measured."""
+def set_eos_row(torch, model, params, prompts, eos=RL_EOS):
+    """EOS's (``eos``) embedding row along the mean of the final normed
+    hidden state over ``prompts`` (one plain forward), scaled so that
+    EOS's logit averages ``RL_EOS_LOGIT`` there.  Returns what it
+    measured."""
     h = final_hidden(torch, model, params, prompts)
     with torch.no_grad():
         mean = h.mean(0)
         u = mean / mean.norm()
         along = float((h @ u).mean())
         row = u * (RL_EOS_LOGIT / along)
-        params["embed"][RL_EOS] = row.to(params["embed"].dtype)
+        params["embed"][eos] = row.to(params["embed"].dtype)
     return {"hidden_norm": float(h.norm(dim=-1).mean()),
             "mean_hidden_norm": float(mean.norm()),
             "eos_row_norm": float(row.norm()), "eos_logit_mean": RL_EOS_LOGIT}
@@ -1968,7 +2192,7 @@ def moved_after_first_update(torch, before, trainer):
     out = {"moved": [], "step_under_half_ulp": [], "bad": []}
     for (path, new), old, m, v in zip(leaf_paths(trainer.params()), before,
                                       leaf_paths(st.m), leaf_paths(st.v)):
-        m, v = m[1], v[1]
+        m, v, old = m[1].float(), v[1].float(), old.to(new.device)
         if not bool((m != 0).any()):
             out["bad"].append(f"{path}: no gradient")
         elif bool((new != old).any()):
@@ -1981,11 +2205,26 @@ def moved_after_first_update(torch, before, trainer):
     return out
 
 
-def phase_rl(torch, dev, model, params, launches):
+# Granite-MoE's rl phase: EOS is an id of its own (not the pad id 0),
+# the last of its 49,155
+GRANITE_RL_EOS = 49154
+
+
+def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
+             n_groups=16, update_batch=16, min_updates=3,
+             state_dtype=None):
     """Qwen3-0.6B at full width and depth (bf16, the serve phase's random
     weights): the paged SlotEngine rolls out GRPO groups at temperature 1
     under the sorted policy in partial mode, and RLTrainer updates the
-    weights the engine reads (PPO-clip, GRPO advantages, AdamW)."""
+    weights the engine reads (PPO-clip, GRPO advantages, AdamW).
+
+    An MoE model (Granite-MoE-3B-A800M) runs the same loop with its own
+    EOS id, batch and update count.  Its engine and trainer route the
+    same tokens in other batches, so their capacity drops differ (the
+    reference's behaviour): the engine-against-trainer logprob gap is
+    reported beside both sides' dropped shares, not held to 0.1 nats, and
+    no f32 forward is taken.  Checked instead: every uid trained once,
+    every update finite, the router and every expert leaf moved."""
     from repro_torch.core.buffer import Mode, StatefulRolloutBuffer
     from repro_torch.core.orchestrator import (RolloutOrchestrator,
                                                SortedRLConfig)
@@ -2001,19 +2240,21 @@ def phase_rl(torch, dev, model, params, launches):
 
     cfg = model.cfg
     nl = cfg.num_layers
-    max_total, update_batch = 384, 16
-    prompts, metas = rl_prompts(16, 4, 64, 192, cfg.vocab_size, seed=6)
-    eos_row = set_eos_row(torch, model, params, prompts[::4])
-    trainer = RLTrainer(model, params, rl_reward,
-                        opt_cfg=AdamWConfig(lr=1e-5), pad_id=0,
+    moe = cfg.family == "moe"
+    max_total = 384
+    prompts, metas = rl_prompts(n_groups, 4, 64, 192, cfg.vocab_size, seed=6)
+    eos_row = set_eos_row(torch, model, params, prompts[::4], eos)
+    opt_cfg = AdamWConfig(lr=1e-5, state_dtype=state_dtype or torch.float32)
+    trainer = RLTrainer(model, params, rl_reward, opt_cfg=opt_cfg, pad_id=0,
                         max_len=max_total, advantage_kind="grpo")
     engine = SlotEngine(model, trainer.params, capacity=32,
                         max_total_len=max_total, max_gen_len=128,
-                        eos_id=RL_EOS, pad_id=0, temperature=1.0, seed=3,
+                        eos_id=eos, pad_id=0, temperature=1.0, seed=3,
                         kv_retain_across_sync=True)
     leaves = tree_leaves(trainer.params())
     ptrs = [t.data_ptr() for t in leaves]
-    updates, first, step_ms, gen_lens = [], {}, [], []
+    updates, first, step_ms, gen_lens, trained = [], {}, [], [], []
+    drops = MoEDrops(torch)
     train_launches = {k: 0 for k in ops.launch_counts()}
     host_s = {"train": 0.0, "check": 0.0}
     decode_steps = [0]
@@ -2049,9 +2290,20 @@ def phase_rl(torch, dev, model, params, launches):
                                     device=dev)
         old, mask = batch["old_logprobs"], batch["loss_mask"] > 0
         with torch.no_grad():
+            drops.label = "trainer_forward"
             logits, _ = model.forward(trainer.params(), batch)
+            drops.label = None
             lp = token_logprobs(logits, batch["tokens"])[mask]
             del logits
+            if moe:
+                diff = lp - old[mask]
+                return {"tokens": int(mask.sum()),
+                        "max_abs": float(diff.abs().max()),
+                        "mean_abs": float(diff.abs().mean()),
+                        "mean": float(diff.mean()),
+                        "held": False, "batch": list(batch["tokens"].shape),
+                        "versions": sorted({v for e in req.entries
+                                            for v in e.versions})}
             f32 = torch.float32
             m32 = build_model(cfg.replace(param_dtype=f32, compute_dtype=f32),
                               device=dev)
@@ -2078,7 +2330,10 @@ def phase_rl(torch, dev, model, params, launches):
         before = None
         if not updates:
             first["logprobs"] = first_update_checks(req)
-            before = [p.clone() for p in leaves]
+            # an MoE model's copy waits on the host: beside the AdamW
+            # state and the update's activations it would not fit
+            before = [p.to("cpu", copy=True) if moe else p.clone()
+                      for p in leaves]
             torch.cuda.synchronize()
             host_s["check"] += time.perf_counter() - t
             t = time.perf_counter()
@@ -2089,6 +2344,7 @@ def phase_rl(torch, dev, model, params, launches):
         torch.cuda.synchronize()
         host_s["train"] += time.perf_counter() - t
         gen_lens.extend(e.gen_len for e in req.entries)
+        trained.extend(e.uid for e in req.entries)
         width = min(max_total, (max(e.total_len for e in req.entries)
                                 + 31) // 32 * 32)
         rec = dict(result.metrics, entries=len(req.entries), width=width,
@@ -2119,22 +2375,29 @@ def phase_rl(torch, dev, model, params, launches):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    orch.run_group(prompts, metas)
+    with drops:
+        orch.run_group(prompts, metas)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    launches["rl"] = counts
+    launches[label] = counts
     rollout = {k: n - train_launches[k] for k, n in counts.items()}
     rollout_s = wall - host_s["train"] - host_s["check"]
     tokens = sum(u["trained_tokens"] for u in updates)
 
-    check(len(updates) >= 3, f"rl: {len(updates)} updates, want >= 3")
+    check(len(updates) >= min_updates,
+          f"{label}: {len(updates)} updates, want >= {min_updates}")
+    check(sorted(trained) == sorted(set(trained))
+          and len(trained) == len(prompts),
+          f"{label}: {len(trained)} trained entries, {len(set(trained))} "
+          f"uids, {len(prompts)} prompts")
     for i, u in enumerate(updates, 1):
         check(all(math.isfinite(v) for v in u.values()
-                  if isinstance(v, float)), f"rl: update {i} not finite {u}")
-        check(u["grad_norm"] > 0, f"rl: update {i}: grad_norm 0")
-        if i > 1:
+                  if isinstance(v, float)),
+              f"{label}: update {i} not finite {u}")
+        check(u["grad_norm"] > 0, f"{label}: update {i}: grad_norm 0")
+        if i > 1 and not moe:
             # staleness is an entry's mean lag over its tokens; a stitched
             # entry's oldest token lags by at least one version
             check(u["stitched"] > 0 and u["staleness_max"] >= 1
@@ -2149,25 +2412,35 @@ def phase_rl(torch, dev, model, params, launches):
     # forward), so the kernel path must be no farther from the f32
     # forward than 1.25 times the trainer's own bf16 forward
     lp = first.get("logprobs", {})
-    check(lp.get("versions") == [0], f"rl: first batch versions {lp}")
-    check(lp.get("max_abs", 1.0) <= 0.1 and abs(lp.get("mean", 1.0)) <= 0.01
-          and lp.get("engine_vs_f32_mean_abs", 1.0)
-          <= 1.25 * lp.get("trainer_vs_f32_mean_abs", 0.0),
-          f"rl: engine vs trainer logprobs {lp}")
-    lp.update(tol_max_abs=0.1, tol_mean=0.01, tol_f32_ratio=1.25)
+    check(lp.get("versions") == [0], f"{label}: first batch versions {lp}")
+    if not moe:
+        check(lp.get("max_abs", 1.0) <= 0.1
+              and abs(lp.get("mean", 1.0)) <= 0.01
+              and lp.get("engine_vs_f32_mean_abs", 1.0)
+              <= 1.25 * lp.get("trainer_vs_f32_mean_abs", 0.0),
+              f"rl: engine vs trainer logprobs {lp}")
+        lp.update(tol_max_abs=0.1, tol_mean=0.01, tol_f32_ratio=1.25)
+    else:
+        check(math.isfinite(lp.get("max_abs", math.nan)),
+              f"{label}: engine vs trainer logprobs {lp}")
     lv = first.get("leaves", {"bad": ["not run"]})
     check(not lv["bad"] and lv["moved"],
-          f"rl: leaves after the first update {lv}")
+          f"{label}: leaves after the first update {lv}")
+    if moe:
+        want = [f"layers/mlp/{n}" for n in ("router", "w_gate", "w_in",
+                                            "w_out")]
+        check(all(w in lv["moved"] for w in want),
+              f"{label}: router or experts did not move {lv}")
     check(rollout["flash_attention"] > 0
           and rollout["paged_decode_attention"] > 0,
-          f"rl: rollout launches {rollout}")
+          f"{label}: rollout launches {rollout}")
     check(not any(train_launches.values()),
-          f"rl: train steps launched kernels {train_launches}")
-    check_launches("rl", counts, {
+          f"{label}: train steps launched kernels {train_launches}")
+    check_launches(label, counts, {
         "paged_decode_attention": nl * decode_steps[0],
         "flash_attention": nl * engine.prefill_launches})
     ms = sorted(u["step_ms"] for u in updates)
-    emit({"phase": "rl", "model": cfg.name, "layers": nl,
+    emit({"phase": label, "model": cfg.name, "layers": nl,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": "bfloat16",
           "card": card_name_and_power(),
           "setup": {"capacity": 32, "max_total_len": max_total,
@@ -2175,8 +2448,11 @@ def phase_rl(torch, dev, model, params, launches):
                     "policy": "sorted", "mode": "partial",
                     "rollout_batch": 32, "group_size": 2,
                     "update_batch": update_batch, "advantage": "grpo",
-                    "lr": 1e-5, "prompts": len(prompts),
+                    "lr": 1e-5,
+                    "adamw_state": str(opt_cfg.state_dtype).split(".")[-1],
+                    "prompts": len(prompts), "eos_id": eos,
                     "eos_row": eos_row},
+          "moe_pairs": drops.summary() if moe else None,
           "updates": len(updates), "rollout_tokens": tokens,
           "gen_len": {"ended_before_max": sum(n < 128 for n in gen_lens),
                       "at_max": sum(n >= 128 for n in gen_lens),
@@ -2197,6 +2473,24 @@ def phase_rl(torch, dev, model, params, launches):
           "peak_mem_gb": peak,
           "cache_stats": engine.cache_stats()})
     del engine, trainer, orch
+    release(torch)
+
+
+def phase_rl_moe(torch, dev, launches):
+    """Granite-MoE-3B-A800M at full width and depth through the rl phase's
+    loop (``phase_rl``): 8 GRPO groups of 4, update batches of 8 and
+    AdamW with bf16 moments (the reference's ``state_dtype`` option):
+    weights, gradients and f32 moments (39 GB) beside the activations of
+    8 x 320 tokens through 32 layers (f32 attention scores, the experts'
+    buffers; about 40 GB) would not fit in 80 GB."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    model = build_model(get_config("granite_moe_3b_a800m"))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1))
+    phase_rl(torch, dev, model, params, launches, label="rl_moe",
+             eos=GRANITE_RL_EOS, n_groups=8, update_batch=8, min_updates=2,
+             state_dtype=torch.bfloat16)
+    del model, params
     release(torch)
 
 
@@ -2866,8 +3160,244 @@ def phase_families(torch, dev, launches):
         models[label] = summ
         del model, params, outputs
         release(torch)
+    models.update(families_moe(torch, dev, launches))
     emit({"phase": "families", "dtype": "bfloat16",
           "weights": "random, from a seed", "models": models})
+
+
+class MoEDrops:
+    """While installed, counts the (token, expert) pairs of every MoE call
+    and the dropped ones, on the card (no synchronisation per call), by
+    kind: ``decode`` (one token a row), ``prefill`` (the engine's waves,
+    and any no-grad forward), ``train`` (under autograd), or ``label``
+    where one is set."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe as MOE
+        self.torch, self.MOE = torch, MOE
+        self.kind = self.label = None
+        self.pairs, self.dropped = {}, {}
+
+    def __enter__(self):
+        MOE = self.MOE
+        self._mlp, self._disp = MOE.moe_mlp_dense, MOE._dispatch_indices
+
+        def mlp(p, cfg, x, with_aux=True):
+            self.kind = "decode" if x.shape[1] == 1 else (
+                "train" if self.torch.is_grad_enabled() else "prefill")
+            return self._mlp(p, cfg, x, with_aux=with_aux)
+
+        def disp(idx, E, C):
+            pos, keep = self._disp(idx, E, C)
+            k = self.label or self.kind
+            self.pairs[k] = self.pairs.get(k, 0) + keep.numel()
+            d = (~keep).sum()
+            self.dropped[k] = self.dropped[k] + d if k in self.dropped else d
+            return pos, keep
+        MOE.moe_mlp_dense, MOE._dispatch_indices = mlp, disp
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.moe_mlp_dense = self._mlp
+        self.MOE._dispatch_indices = self._disp
+
+    def summary(self):
+        return {k: {"pairs": n, "dropped": int(self.dropped[k]),
+                    "dropped_share": int(self.dropped[k]) / n}
+                for k, n in self.pairs.items()}
+
+
+# (arch, layers (None: the full depth), slots, max_total_len, held uids,
+# the no-drop run's requests (None: the served ones again; else n groups
+# of 1, prompt lengths lo-hi) and its held uids)
+MOE_FAMILIES = {
+    "granite_moe": ("granite_moe_3b_a800m", None, 32, 2048, (0, 4, 8),
+                    None, (0, 4, 8)),
+    # at C = T a 32 x 1024 wave's (E, C, d) buffer alone is 34 GB: the
+    # no-drop run serves 8 requests of at most 512 ids
+    "qwen3_moe": ("qwen3_moe_235b_a22b", 4, 32, 2048, (0, 4, 8),
+                  (8, 64, 512), (0, 3, 6)),
+}
+
+
+def families_moe(torch, dev, launches):
+    """Granite-MoE-3B-A800M at full width and depth (32 layers) and
+    Qwen3-MoE-235B-A22B at full width cut to 4 of 94 layers, paged with
+    the fused greedy head, random weights, one after the other.  The run
+    at the published capacity factor (1.25) is the one served and timed:
+    every request answered, exactly its kernels' launches, the dropped
+    share of (token, expert) pairs in decode and prefill, and its gap to
+    the plain forward (each request alone: other drops), reported.  Then
+    the same weights at capacity factor E / k (C >= T at every T, so no
+    token's output depends on its batch): 3 requests' tokens equal to
+    the plain forward's but at 0.1-nat near-ties, their logprobs held to
+    the plain forward in f32 (``held_to_f32``), and the check must fail
+    against the forward with the last layer's attention output zeroed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.model import build_model
+    from repro_torch.rollout.engine import SlotEngine
+
+    models = {}
+    for label, (arch, layers, slots, max_len, held, nodrop, nd_held) in \
+            MOE_FAMILIES.items():
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(num_layers=layers)
+        m, nl = cfg.moe, cfg.num_layers
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        result = {}
+        nd_cfg = cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.experts_per_token))
+        for run, run_cfg in (("published", cfg), ("no_drop", nd_cfg)):
+            run_model = build_model(run_cfg)
+            path = f"families/{label}" + ("" if run == "published"
+                                          else "_no_drop")
+            reqs = family_requests(None, slots // 4, cfg.vocab_size, seed=41)
+            if run == "no_drop" and nodrop is not None:
+                reqs = make_requests(nodrop[0], 1, nodrop[1], nodrop[2],
+                                     cfg.vocab_size, seed=43)
+            prompts = {e.uid: list(e.prompt) for e in reqs}
+            engine = SlotEngine(run_model, lambda: params, capacity=slots,
+                                max_total_len=max_len,
+                                max_gen_len=FAMILY_GEN, eos_id=-1,
+                                temperature=0.0, fused_sampling=True)
+            with MoEDrops(torch) as drops:
+                outputs, summ = run_path(torch, ops, engine, reqs)
+            launches[path] = summ["launches"]
+            check_answers(path, outputs, len(reqs), cfg.vocab_size)
+            check_launches(path, summ["launches"], {
+                "flash_attention": nl * engine.prefill_launches,
+                "paged_decode_attention": nl * summ["steps"],
+                "fused_sample": summ["steps"]})
+            check(all(len(v) == FAMILY_GEN for v in outputs.values()),
+                  f"{path}: a request stopped short of {FAMILY_GEN}")
+            dropped = drops.summary()
+            check(dropped.get("decode", {}).get("pairs") ==
+                  nl * summ["steps"] * slots * m.experts_per_token,
+                  f"{path}: decode routed other than every slot {dropped}")
+            if run == "no_drop":
+                check(all(v["dropped"] == 0 for v in dropped.values()),
+                      f"{path}: pairs dropped at C >= T {dropped}")
+            del engine
+            release(torch)
+            uids = held if run == "published" else nd_held
+            served = {u: (prompts[u], outputs[u]) for u in uids}
+            tie = near_tie_check(torch, run_model, params, served,
+                                 NEAR_TIE_BF16)
+            tie["prompt_lens"] = [len(prompts[u]) for u in uids]
+            summ.update(capacity_factor=run_cfg.moe.capacity_factor,
+                        prompt_lens=sorted({len(p) for p in
+                                            prompts.values()}),
+                        moe_pairs=dropped, against_forward=tie,
+                        greedy_logprob_mean=statistics.mean(
+                            lp for v in outputs.values() for _, lp in v))
+            check(summ["greedy_logprob_mean"] < -1e-3,
+                  f"{path}: greedy logprobs all ~0: a one-hot head holds "
+                  "nothing")
+            if run == "no_drop":
+                # tokens against the bf16 forward but at near-ties, the
+                # logprobs against the f32 forward (held_to_f32)
+                held = held_to_f32(against_f32(torch, run_model, params,
+                                               served))
+                check(tie["flips_beyond_tol"] == 0,
+                      f"{path}: {tie['flips_beyond_tol']} tokens differ "
+                      f"beyond a near-tie of {NEAR_TIE_BF16}")
+                check(held["ok"], f"{path}: logprobs against the f32 "
+                      f"forward {held}")
+                summ["against_f32_forward"] = held
+                wo = TF.layer(params, nl - 1, cfg)["attn"]["wo"]
+                saved = wo.clone()
+                wo.zero_()
+                ablated = near_tie_check(torch, run_model, params, served,
+                                         NEAR_TIE_BF16)
+                ablated["against_f32_forward"] = held_to_f32(against_f32(
+                    torch, run_model, params, served))
+                wo.copy_(saved)
+                del saved
+                ablated["ablation"] = f"layer {nl - 1}'s attention output " \
+                    "zeroed"
+                ablated["detected"] = (
+                    not ablated["against_f32_forward"]["ok"]
+                    or ablated["flips_beyond_tol"] > 0)
+                check(ablated["detected"], f"{path}: the check does not see "
+                      f"the last layer's attention zeroed {ablated}")
+                summ["against_ablated_forward"] = ablated
+            else:
+                summ["against_forward"]["held"] = False
+            result[run] = summ
+            del outputs, run_model
+            release(torch)
+        models[label] = dict(
+            arch=arch, layers=nl, layers_published=full.num_layers,
+            depth="full" if layers is None else
+            f"cut to {nl} of {full.num_layers} layers",
+            d_model=cfg.d_model, head_dim=cfg.resolved_head_dim,
+            heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+            experts=f"{m.num_experts} top-{m.experts_per_token}, "
+                    f"d_ff {m.d_ff_expert}",
+            vocab=cfg.vocab_size, tied=cfg.tie_embeddings, layout="paged",
+            slots=slots, max_total_len=max_len, max_gen_len=FAMILY_GEN,
+            params_gb=sum(t.numel() * t.element_size()
+                          for _, t in leaf_paths(params)) / 1e9,
+            init_s=init_s, **result)
+        del model, params
+        release(torch)
+    return models
+
+
+def moe_layer_check(torch, dev):
+    """The reference's capacity-drop MoE layer on the card against the
+    same layer on the CPU: Granite-MoE-3B-A800M's width (d 1536, 40
+    experts top-8, d_ff 512) at its published capacity factor 1.25, f32
+    with TF32 off, one random layer from a seed, at T = 32 (a decode step
+    of 32 slots: C = 8) and T = 4 x 256 (a prefill wave: C = 256).
+    Routing (idx), capacity drops (keep) equal; the output within 1e-4 of
+    the CPU's largest |y| (max |card - cpu| <= 1e-4 * max |cpu|)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as MOE
+    cfg = get_config("granite_moe_3b_a800m").replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+    p_cpu = MOE.init_moe_mlp(torch.Generator().manual_seed(5), cfg,
+                             torch.float32, "cpu")
+    p_gpu = {k: v.to(dev) for k, v in p_cpu.items()}
+    m = cfg.moe
+    rows = []
+    for B, S in ((32, 1), (4, 256)):
+        x = torch.randn((B, S, cfg.d_model),
+                        generator=torch.Generator().manual_seed(B * S))
+        T = B * S
+        C = MOE._capacity(cfg, T)
+        got, want = [], []
+        for p, xx, out in ((p_gpu, x.to(dev), got), (p_cpu, x, want)):
+            with torch.no_grad():
+                _, idx, _ = MOE._route(p, cfg, xx.reshape(T, -1), False)
+                _, keep = MOE._dispatch_indices(idx, m.num_experts, C)
+                y, aux = MOE.moe_mlp_dense(p, cfg, xx)
+            out += [idx.cpu(), keep.cpu(), y.cpu(),
+                    {k: float(v) for k, v in aux.items()}]
+        err = float((got[2] - want[2]).abs().max())
+        scale = float(want[2].abs().max())
+        row = {"T": T, "B": B, "S": S, "capacity": C,
+               "pairs": int(keep.numel()),
+               "dropped_cpu": int((~want[1]).sum()),
+               "dropped_card": int((~got[1]).sum()),
+               "idx_equal": bool(torch.equal(got[0], want[0])),
+               "keep_equal": bool(torch.equal(got[1], want[1])),
+               "max_abs_err": err, "max_abs_cpu": scale,
+               "rel_err": err / scale, "aux_card": got[3], "aux_cpu": want[3]}
+        check(row["idx_equal"] and row["keep_equal"],
+              f"moe_layer T={T}: routing or drops differ from the CPU {row}")
+        check(row["rel_err"] <= 1e-4, f"moe_layer T={T}: {row}")
+        rows.append(row)
+    emit({"phase": "moe_layer", "model": cfg.name, "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "capacity_factor": m.capacity_factor, "tol_rel": 1e-4,
+          "cases": rows})
 
 
 # ---------------------------------------------------------------------------
@@ -2940,7 +3470,9 @@ def main() -> int:
         release(torch)
         phase_rl_session(torch, launches, extras_only=args.phase == "group")
     if args.phase in ("all", "families"):
+        moe_layer_check(torch, dev)
         phase_families(torch, dev, launches)
+        phase_rl_moe(torch, dev, launches)
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,

@@ -2,7 +2,7 @@
 
 Field names, defaults and meanings are the reference's; only
 ``param_dtype``/``compute_dtype`` hold ``torch.dtype`` values.  The
-registry holds the dense architectures this port serves so far.
+registry holds the dense and MoE architectures this port serves so far.
 """
 from __future__ import annotations
 
@@ -92,12 +92,15 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS = ("qwen3_0_6b", "nemotron_4_340b", "qwen1_5_110b", "gemma2_2b")
+ARCH_IDS = ("qwen3_moe_235b_a22b", "qwen3_0_6b", "nemotron_4_340b",
+            "qwen1_5_110b", "gemma2_2b", "granite_moe_3b_a800m")
 ARCH_ALIASES = {
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-0.6b": "qwen3_0_6b",
     "nemotron-4-340b": "nemotron_4_340b",
     "qwen1.5-110b": "qwen1_5_110b",
     "gemma2-2b": "gemma2_2b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 

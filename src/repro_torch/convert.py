@@ -4,7 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's side)
 and returns the same tree of torch tensors; ``to_numpy`` goes back.  The
 trees match key for key, stacked layer axis included, so conversion is a
-copy per leaf.
+copy per leaf, and each leaf keeps its own dtype (an MoE tree's f32
+router beside its bf16 experts).
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they go through f32 (exact) and are cast

@@ -168,6 +168,9 @@ __device__ __forceinline__ void load_v8(const unsigned char* row, int dc,
   }
 }
 
+// The G weights (or scores) of one row, G floats at p: vector loads where
+// G allows them, else one float at a time (G 1 and 3: a row of G = 3 is
+// 12 bytes, so rows are not 8-byte aligned).
 template <int G>
 __device__ __forceinline__ void load_g(const float* p, float (&x)[G]) {
   if constexpr (G % 4 == 0) {
@@ -180,7 +183,8 @@ __device__ __forceinline__ void load_g(const float* p, float (&x)[G]) {
     const float2 a = *reinterpret_cast<const float2*>(p);
     x[0] = a.x; x[1] = a.y;
   } else {
-    x[0] = p[0];
+#pragma unroll
+    for (int i = 0; i < G; ++i) x[i] = p[i];
   }
 }
 
@@ -544,14 +548,18 @@ static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
 
 // Instantiates `LAUNCH(D, G)` for every (D, G) the wrappers admit and
 // returns its result from the enclosing function, or falls through.
+// (64, 3) is Granite-MoE-3B-A800M (24 query heads over 8 KV heads).
 #define RT_DECODE_SHAPES(D_, G_, LAUNCH)                                     \
   RT_DECODE_CASE(64, 1, D_, G_, LAUNCH) RT_DECODE_CASE(64, 2, D_, G_, LAUNCH) \
+  RT_DECODE_CASE(64, 3, D_, G_, LAUNCH)                                      \
   RT_DECODE_CASE(64, 4, D_, G_, LAUNCH) RT_DECODE_CASE(64, 8, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 1, D_, G_, LAUNCH) RT_DECODE_CASE(128, 2, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 4, D_, G_, LAUNCH) RT_DECODE_CASE(128, 8, D_, G_, LAUNCH)
 // The wide heads, bf16 q and K/V only: Nemotron-4-340B (D 192, 96 query
-// heads over 8 KV heads) and Gemma2-2B (D 256, G 2).
-#define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH) \
-  RT_DECODE_CASE(192, 12, D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH)
+// heads over 8 KV heads), Gemma2-2B (D 256, G 2) and Qwen3-MoE-235B-A22B
+// (D 128, 64 query heads over 4 KV heads).
+#define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH)                                 \
+  RT_DECODE_CASE(192, 12, D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH) \
+  RT_DECODE_CASE(128, 16, D_, G_, LAUNCH)
 #define RT_DECODE_CASE(DD, GG, D_, G_, LAUNCH) \
   if (D_ == DD && G_ == GG) return LAUNCH(DD, GG);

@@ -20,9 +20,10 @@
 // instantiation reads each slot's new row (row kv_len - 1) unquantised
 // from k_new/v_new, as the reference engine attends before it requantises
 // the written page.  Rows at or past kv_len are never read, kv_len == 0
-// gives zeros.  Head shapes: D 64/128 with G 1/2/4/8 in f32 and bf16 (fp
-// or int8 pages), and on bf16 fp pages Nemotron-4-340B's D 192, G 12 and
-// Gemma2-2B's D 256, G 2.
+// gives zeros.  Head shapes: D 64/128 with G 1/2/4/8 and Granite-MoE's
+// D 64, G 3 in f32 and bf16 (fp or int8 pages), and on bf16 fp pages
+// Nemotron-4-340B's D 192, G 12, Gemma2-2B's D 256, G 2 and
+// Qwen3-MoE-235B-A22B's D 128, G 16.
 
 #include "decode_attention.cuh"
 

@@ -115,9 +115,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     fits = build.decode_shape_ok(D, H // Kh, q.dtype) and (
         kv_code != build.KV_INT8 or (D, H // Kh) in build.DECODE_SHAPES)
     build.require(H % Kh == 0 and (fits or tiny),
-                  name, f"needs G in (1, 2, 4, 8), D in (64, 128) (or G 1, "
-                  f"D 32 on f32 pages; or in bf16 fp pages (D, G) in "
-                  f"(192, 12), (256, 2)); got H={H} Kh={Kh} D={D} {q.dtype}")
+                  name, f"needs G in (1, 2, 4, 8), D in (64, 128), or (D, G) "
+                  f"(64, 3) (or G 1, D 32 on f32 pages; or in bf16 fp pages "
+                  f"(D, G) in (192, 12), (256, 2), (128, 16)); got H={H} "
+                  f"Kh={Kh} D={D} {q.dtype}")
     build.require(block_tables.shape == (B, nb) and kv_len.shape == (B,),
                   name, "block_tables (B, nb) and kv_len (B,) expected")
     build.require(block_tables.dtype == torch.int32

@@ -64,9 +64,9 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
                   NAME, f"cache shapes {tuple(k_cache.shape)}/"
                   f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
     build.require(H % Kh == 0 and build.decode_shape_ok(D, H // Kh, q.dtype),
-                  NAME, f"needs G in (1, 2, 4, 8) and D in (64, 128), or in "
-                  f"bf16 (D, G) in (192, 12), (256, 2); got H={H} Kh={Kh} "
-                  f"D={D} {q.dtype}")
+                  NAME, f"needs G in (1, 2, 4, 8) and D in (64, 128), or "
+                  f"(D, G) (64, 3), or in bf16 (D, G) in (192, 12), (256, 2),"
+                  f" (128, 16); got H={H} Kh={Kh} D={D} {q.dtype}")
     build.require(kv_len.shape == (B,) and kv_len.dtype == torch.int32, NAME,
                   "kv_len must be (B,) int32")
     build.require(all(t.is_contiguous() for t in args), NAME,

@@ -8,12 +8,16 @@ Batch dict conventions are the reference's:
 * decode  : token (B,), dense cache (``decode_step``) or page pool and
   block tables (B, nb) (``decode_step_paged``), kv_len (B,)
 
-Only the dense family is ported, with both layer patterns: the gemma2
+The dense family is ported with both layer patterns: the gemma2
 local/global pattern has a four-key cache, so it takes the dense layout
 only (``decode_step`` dispatches to its decode; ``prefill_packed`` and
-``decode_step_paged`` refuse it, as the reference's asserts do).  The
-model lives on one device, the card unless the caller passes
-``device="cpu"``.
+``decode_step_paged`` refuse it, as the reference's asserts do).  The MoE
+family is the same backbone and the same functions, its blocks' MLP the
+expert layer (``models/moe.py``, the reference's ``moe_mlp_dense``;
+``forward`` returns the router losses summed over the layers).  The
+reference's ``ep_mesh`` (expert parallelism over a device mesh) has no
+counterpart yet.  The model lives on one device, the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -76,6 +80,6 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
 
 def supports_paging(model: Model) -> bool:
     """Paged layout needs right padding and a plain {k, v} cache: every
-    family the port serves so far pads right; the local/global pattern's
-    four-key cache cannot be paged."""
+    family the port serves so far (dense and MoE) pads right; the
+    local/global pattern's four-key cache cannot be paged."""
     return set(model.init_cache(1, 1)) == {"k", "v"}

@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer (counterpart of
+"""Decoder-only transformer of the dense and MoE families (counterpart of
 ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree, with the stacked leading layer
@@ -7,6 +7,15 @@ axis: ``layers.attn.wq`` (L, d, H, hd), ``layers.mlp.w_in`` (L, d, ff),
 layer pairs as the reference does, (L/2, 2, ...): sub-layer 0 of a group
 is local (sliding window, ring cache), sub-layer 1 global.  The layer
 loop is a Python loop over the layers (the reference scans the groups).
+
+The MoE family is this backbone with ``mlp`` replaced by the expert
+layer (``repro_torch/models/moe.py``, the reference's ``moe_mlp_dense``):
+each block's MLP returns (y, aux), and ``forward`` returns the router
+losses summed over the layers.  The MoE sees exactly the tokens the
+reference's calls give it, which set its capacity and so its drops: the
+whole (B, S) batch in ``forward`` and ``prefill`` (the engine's bucketed
+wave, pad rows and columns included), every slot in a decode step.
+Prefill and decode discard the router losses and skip computing them.
 
 The pattern's cache has the reference's four keys: ``k_local``/
 ``v_local`` (L/2, B, W, Kh, D), a ring of W = min(window, max_len) rows
@@ -47,6 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 
@@ -56,13 +66,17 @@ FULL_ATTN_MAX_SEQ = L.FULL_ATTN_MAX_SEQ   # above this, attend blockwise
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The configs this module serves (the reference's rope branch of the
-    dense family, with either layer pattern)."""
-    if cfg.family != "dense":
+    """The configs this module serves: the reference's rope branch of the
+    dense family, with either layer pattern, and of the MoE family with
+    the global pattern (no MoE config has another)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.attn.layer_pattern not in ("global", "local_global"):
         raise NotImplementedError(
             f"layer pattern {cfg.attn.layer_pattern!r}")
+    if cfg.family == "moe" and cfg.attn.layer_pattern != "global":
+        raise NotImplementedError(
+            f"MoE with layer pattern {cfg.attn.layer_pattern!r}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"pos_embedding {cfg.pos_embedding!r}")
 
@@ -97,15 +111,21 @@ def layer(params: Params, i: int, cfg: ModelConfig) -> Params:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights with the reference's scales (``jax.random`` and
-    ``torch.Generator`` draw different numbers from one seed)."""
+    ``torch.Generator`` draw different numbers from one seed).  The MoE
+    family's ``mlp`` is the expert layer's tree, its router f32."""
     dtype = cfg.param_dtype
     d = cfg.d_model
+
+    def init_mlp():
+        if cfg.family == "moe":
+            return MOE.init_moe_mlp(generator, cfg, dtype, device)
+        return L.init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
+                          cfg.num_layers, dtype, device)
     blocks = []
     for _ in range(cfg.num_layers):
         blocks.append({
             "attn": L.init_attention(generator, cfg, dtype, device),
-            "mlp": L.init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
-                              cfg.num_layers, dtype, device),
+            "mlp": init_mlp(),
             "ln1": _init_norm(cfg, dtype, device),
             "ln2": _init_norm(cfg, dtype, device),
         })
@@ -166,14 +186,25 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     return logits
 
 
+def mlp_fn(cfg: ModelConfig, with_aux: bool = True):
+    """``fn(params, h) -> (y, aux)``, the block's MLP (the reference's
+    ``_apply_mlp``): the expert layer for the MoE family (aux None when
+    ``with_aux`` is off), else the dense MLP with ``ZERO_AUX``."""
+    if cfg.family == "moe":
+        return lambda p, h: MOE.moe_mlp_dense(p, cfg, h, with_aux=with_aux)
+    return lambda p, h: (L.mlp(p, h, cfg.mlp_act, cfg.gated_mlp),
+                         dict(ZERO_AUX))
+
+
 def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor, attend) -> Tuple[torch.Tensor, ...]:
+           positions: torch.Tensor, attend, mlp) -> Tuple[torch.Tensor, ...]:
+    """Returns (x, k, v, aux): ``mlp`` is an ``mlp_fn``."""
     h = L.norm(x, bp["ln1"], cfg.norm_type, cfg.norm_eps)
     q, k, v = L.qkv_project(bp["attn"], cfg, h, positions)
     x = x + L.attn_output(bp["attn"], attend(q, k, v))
     h = L.norm(x, bp["ln2"], cfg.norm_type, cfg.norm_eps)
-    x = x + L.mlp(bp["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
-    return x, k, v
+    y, aux = mlp(bp["mlp"], h)
+    return x + y, k, v, aux
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +213,9 @@ def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Returns (logits (B, S, V), aux).  Attention is plain PyTorch, as in
-    the reference's scoring path: ``full_attention`` up to
+    """Returns (logits (B, S, V), aux), aux the router losses summed over
+    the layers (``ZERO_AUX`` for the dense family).  Attention is plain
+    PyTorch, as in the reference's scoring path: ``full_attention`` up to
     ``FULL_ATTN_MAX_SEQ`` positions, ``blockwise_attention`` above (one
     score tile at a time; under autograd every tile is kept for the
     backward).  It is the independent check of the engine's kernel path,
@@ -194,13 +226,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
                  else L.blockwise_attention)
     pl = pattern_len(cfg)
+    mlp = mlp_fn(cfg)
+    aux_sum = dict(ZERO_AUX)
 
     for i in range(cfg.num_layers):
         def attend(q, k, v, window=_sub_window(cfg, i % pl)):
             return attention(q, k, v, causal=True, window=window,
                              softcap=cfg.attn.attn_softcap)
-        x, _, _ = _block(layer(params, i, cfg), cfg, x, positions, attend)
-    return lm_logits(params, cfg, x), dict(ZERO_AUX)
+        x, _, _, aux = _block(layer(params, i, cfg), cfg, x, positions,
+                              attend, mlp)
+        aux_sum = {n: aux_sum[n] + aux[n] for n in aux_sum}
+    return lm_logits(params, cfg, x), aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +314,15 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         ring = ring[:, :, None, None].expand(
             B, ring.shape[1], cfg.num_kv_heads, cfg.resolved_head_dim)
 
+    mlp = mlp_fn(cfg, with_aux=False)
     for i in range(cfg.num_layers):
         def attend(q, k, v, window=_sub_window(cfg, i % pl)):
             return ops.flash_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), seg_ids=seg_ids,
                                        window=window,
                                        softcap=cfg.attn.attn_softcap)
-        x, k, v = _block(layer(params, i, cfg), cfg, x, positions, attend)
+        x, k, v, _ = _block(layer(params, i, cfg), cfg, x, positions, attend,
+                            mlp)
         if pl == 1:
             kc, vc = cache["k"][i], cache["v"][i]
         else:
@@ -313,9 +351,11 @@ def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
     the result is the logits (B, V) or the final-normed hidden (B, d)."""
     x = embed_tokens(params, cfg, token[:, None])
     positions = kv_len[:, None]
+    mlp = mlp_fn(cfg, with_aux=False)
     for i in range(cfg.num_layers):
-        x, _, _ = _block(layer(params, i, cfg), cfg, x, positions,
-                         lambda q, k, v, i=i: attend_layer(i, q, k, v))
+        x, _, _, _ = _block(layer(params, i, cfg), cfg, x, positions,
+                            lambda q, k, v, i=i: attend_layer(i, q, k, v),
+                            mlp)
     if return_hidden:
         return L.norm(x[:, 0], params["final_norm"], cfg.norm_type,
                       cfg.norm_eps)
@@ -447,6 +487,15 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     in bf16 the reference also rounds the dequantised view to bf16, the
     kernel keeps it in f32.
 
+    Inactive slots all write row 0 of the garbage page, so on fp pages
+    each reads back whichever slot wrote last, where the reference's
+    slot attends its own new row.  Their outputs are discarded, but in
+    the MoE family every slot's hidden state takes expert capacity from
+    the others, so there a row with ``kv_len == 0`` (one row to attend:
+    softmax weight exactly 1) takes its own new V row, which is what the
+    kernel returns for such a row when no other slot shares its page.
+    int8 pages attend the new rows ``k_new``/``v_new`` and need nothing.
+
     Returns (logits (B, V) or the final-normed hidden (B, d) with
     ``return_hidden``, pool)."""
     if pattern_len(cfg) == 2:
@@ -458,6 +507,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     page = bt[b, (kv_len // P).long()].long()
     row = (kv_len % P).long()
     n_valid = (kv_len + 1).contiguous()
+    own_row = ((kv_len == 0)[:, None, None]
+               if cfg.family == "moe" and scales is None else None)
 
     def attend_layer(i, q, k, v):
         kp, vp = pool["k"][i], pool["v"][i]
@@ -468,6 +519,10 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             vp[page, row] = v[:, 0].to(vp.dtype)
             o = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt,
                                            n_valid, **attn)
+            if own_row is not None:
+                own = v[:, 0].to(vp.dtype).repeat_interleave(
+                    cfg.q_per_kv, dim=1).to(o.dtype)
+                o = torch.where(own_row, own, o)
             return o[:, None]
         ks, vs = scales["k"][i], scales["v"][i]
         k_new = k[:, 0].to(q.dtype).contiguous()

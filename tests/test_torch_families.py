@@ -48,6 +48,9 @@ STEP_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-4, atol=0.1 * 3e-4)     # 0.1 lr (AdamWConfig())
 OWN_FORWARD_TOL = 1e-5
 ARCHS = ["gemma2_2b", "qwen1_5_110b", "nemotron_4_340b"]
+# the MoE family: config parity and the init tree here, the rest in
+# tests/test_torch_moe.py
+MOE_ARCHS = ["granite_moe_3b_a800m", "qwen3_moe_235b_a22b"]
 _CACHE = {}
 
 
@@ -79,20 +82,23 @@ def _close_tree(want, got):
 
 # -- configs and init ----------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_reference_apart_from_dtype(arch):
     for j, t in ((jget_config(arch), get_config(arch)),
                  (jget_smoke(arch), get_smoke_config(arch))):
         for f in dataclasses.fields(j):
-            if f.name not in ("param_dtype", "compute_dtype", "attn"):
+            if f.name not in ("param_dtype", "compute_dtype", "attn", "moe"):
                 assert getattr(j, f.name) == getattr(t, f.name), f.name
         assert dataclasses.asdict(j.attn) == dataclasses.asdict(t.attn)
+        assert (j.moe is None) == (t.moe is None)
+        if j.moe is not None:
+            assert dataclasses.asdict(j.moe) == dataclasses.asdict(t.moe)
         assert t.param_dtype == t.compute_dtype == torch.bfloat16
     aliases = [a for a, m in JALIASES.items() if m == arch]
     assert aliases and all(get_config(a) == get_config(arch) for a in aliases)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_init_tree_matches_reference_key_for_key(arch):
     jm, jp, tm, _ = _models(arch)
     tp = tm.init_params(torch.Generator().manual_seed(0))

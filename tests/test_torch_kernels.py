@@ -88,6 +88,8 @@ def test_gather_pages_matches_reference():
     (2, 4, 1, 16, 8, 5, 3, 0.0),
     (2, 24, 2, 192, 16, 7, 3, 50.0),            # Nemotron: D 192, G 12
     (2, 4, 2, 256, 16, 7, 3, 50.0),             # Gemma2: D 256, G 2
+    (3, 24, 8, 64, 16, 9, 4, 0.0),              # Granite-MoE: D 64, G 3
+    (2, 32, 2, 128, 16, 7, 3, 0.0),             # Qwen3-MoE: D 128, G 16
 ])
 def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
     rng = np.random.RandomState(B * 100 + D)
@@ -109,6 +111,8 @@ def test_paged_decode_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
     (2, 16, 8, 1, 16, [3, 16], 0.0),             # G = 8
     (2, 40, 8, 4, 256, [17, 40], 50.0),          # Gemma2: D 256, G 2
     (3, 24, 24, 2, 192, [0, 5, 24], 50.0),       # D 192, G 12
+    (3, 40, 24, 8, 64, [0, 17, 40], 0.0),        # Granite-MoE: D 64, G 3
+    (2, 24, 32, 2, 128, [5, 24], 0.0),           # Qwen3-MoE: D 128, G 16
 ])
 def test_ragged_decode_plain_matches_reference(B, S, H, Kh, D, lens, softcap):
     rng = np.random.RandomState(S + D)
@@ -146,6 +150,7 @@ def test_quantize_and_dequantize_pages_match_reference():
     (4, 8, 2, 64, 16, 9, 4, 0.0),
     (2, 16, 8, 128, 16, 11, 5, 30.0),
     (3, 4, 1, 32, 8, 6, 3, 0.0),
+    (3, 24, 8, 64, 16, 9, 4, 0.0),              # Granite-MoE: D 64, G 3
 ])
 def test_paged_int8_plain_matches_reference(B, H, Kh, D, P, N, nb, softcap):
     rng = np.random.RandomState(N + D)

@@ -64,14 +64,14 @@ def test_dense_and_int8_decode_wrappers_raise_on_what_kernels_do_not_take(
     new = dict(k_new=rows, v_new=rows)
     before = ops.launch_counts()
     cases = [
-        # dense: D = 96, G = 3, bf16 cache under f32 q, int64 kv_len,
+        # dense: D = 96, G = 5, bf16 cache under f32 q, int64 kv_len,
         # a non-contiguous cache, a window
         (ValueError, lambda: ops.ragged_decode_attention(
             torch.zeros((2, 4, 96), device=dev),
             torch.zeros((2, 40, 2, 96), device=dev),
             torch.zeros((2, 40, 2, 96), device=dev), kv)),
         (ValueError, lambda: ops.ragged_decode_attention(
-            torch.zeros((2, 6, 64), device=dev), kc, kc, kv)),
+            torch.zeros((2, 10, 64), device=dev), kc, kc, kv)),
         (ValueError, lambda: ops.ragged_decode_attention(
             q, kc.bfloat16(), kc.bfloat16(), kv)),
         (ValueError, lambda: ops.ragged_decode_attention(q, kc, kc,
@@ -204,3 +204,49 @@ def test_wide_heads_stay_bf16_fp_only(dev):
                             torch.zeros((1, 4, 2, 256), device=dev),
                             torch.zeros((1, 4, 2, 256), device=dev))
     assert ops.launch_counts() == before
+
+
+def test_moe_head_shapes_match_their_plain_versions(dev):
+    """The decode kernels at Granite-MoE-3B-A800M's (D 64, G 3: fp pages,
+    int8 pages and dense, f32 and bf16) and Qwen3-MoE-235B-A22B's heads
+    (D 128, G 16, bf16: fp pages and dense), every head of a group
+    checked (a G-3 row group reading the wrong weights for heads 1 and 2
+    fails): f32 within 1e-4, int8 pages within 2e-2 of the plain int8
+    version, bf16 by ``chip_smoke.py``'s decode rule."""
+    from repro_torch.kernels import ref
+    lens = torch.tensor([0, 1, 255, 256, 257, 300], dtype=torch.int32,
+                        device=dev)
+    B = lens.numel()
+    bt = torch.arange(1, 1 + 19 * B, dtype=torch.int32,
+                      device=dev).view(B, 19)
+    for H, Kh, D, dtypes in ((24, 8, 64, (torch.float32, torch.bfloat16)),
+                             (64, 4, 128, (torch.bfloat16,))):
+        for dt in dtypes:
+            q = _bf16(dev, B, H, D, seed=H).to(dt)
+            kp = _bf16(dev, 1 + 19 * B, 16, Kh, D, seed=1).to(dt)
+            vp = _bf16(dev, 1 + 19 * B, 16, Kh, D, seed=2).to(dt)
+            kc = ref.gather_pages(kp, bt)
+            vc = ref.gather_pages(vp, bt)
+            for got, want in (
+                    (ops.paged_decode_attention(q, kp, vp, bt, lens),
+                     ref.paged_decode_attention_ref(q, kp, vp, bt, lens)),
+                    (ops.ragged_decode_attention(q, kc, vc, lens),
+                     ref.ragged_decode_attention_ref(q, kc, vc, lens))):
+                assert not got[0].any()
+                if dt == torch.float32:
+                    assert float((got - want).abs().max()) <= 1e-4
+                else:
+                    assert _decode_excess(got, want) <= 0
+            if D == 64:
+                (k8, ks), (v8, vs) = (ref.quantize_pages_ref(p.float())
+                                      for p in (kp, vp))
+                new = [ref.dequantize_pages_ref(p8, sc)[
+                    bt[torch.arange(B), ((lens - 1).clamp(min=0) // 16)
+                       .long()].long(), ((lens - 1).clamp(min=0) % 16)
+                    .long()].to(dt) for p8, sc in ((k8, ks), (v8, vs))]
+                got = ops.paged_decode_attention_int8(
+                    q, k8, v8, ks, vs, bt, lens, k_new=new[0], v_new=new[1])
+                want = ref.paged_decode_attention_int8_ref(
+                    q, k8, v8, ks, vs, bt, lens, k_new=new[0], v_new=new[1])
+                assert float((got.float() - want.float()).abs().max()) \
+                    <= 2e-2
