@@ -9,7 +9,8 @@
                                             # plane (group, serve_tier,
                                             # long, the option sessions)
     python3 chip_smoke.py --phase families  # kernel checks + the families
-                                            # (dense and MoE) + rl_moe
+                                            # (dense, MoE, VLM, audio) +
+                                            # rl_moe + rl_vlm
 
 Phases, each printing one JSON line:
 
@@ -25,8 +26,12 @@ Phases, each printing one JSON line:
    window 4096), Qwen1.5-110B (H 64, an 8192 x 152,064 head) and
    Nemotron-4-340B (D 192, G 12, an 18,432 x 256,000 head, x streamed
    through the fused head), Granite-MoE-3B-A800M (D 64, G 3: fp pages,
-   int8 pages and dense; a tied head of V 49,155) and Qwen3-MoE-235B-A22B
-   (D 128, G 16; a 4096 x 151,936 head), and at their edges
+   int8 pages and dense; a tied head of V 49,155), Qwen3-MoE-235B-A22B
+   (D 128, G 16; a 4096 x 151,936 head), Phi-3-Vision-4.2B (D 96, G 1:
+   flash over 576 patch rows and 1024 columns, fp pages and dense; a
+   3072 x 32,064 head) and Whisper-small (D 64, G 1: its decoder's
+   prefill wave, its 448-row self-attention cache and its
+   cross-attention over 1500 live rows), and at their edges
    (``family_shapes``).
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
@@ -94,10 +99,22 @@ Phases, each printing one JSON line:
    (paged, fused head, 32 requests): served and timed at the published
    capacity factor (dropped shares counted), then at capacity factor
    E / k (no drops) with 3 requests held to the plain forward
-   (``held_to_f32``).  ``rl_moe``: SortedRL's loop on Granite-MoE at
-   full width and depth (the ``rl`` phase's loop, update batches of 8,
-   bf16 AdamW moments): every uid trained once, the router and the
-   experts moved, the engine-against-trainer gap reported.
+   (``held_to_f32``).  Then Phi-3-Vision-4.2B at full width and depth
+   (32 layers, 576 zero patch rows before every prompt; paged with the
+   fused head, 32 requests, then the dense layout, 16) and Whisper-small
+   at full width and depth (12 + 12 layers, 1500 zero frames; the dense
+   layout and the plain head, 32 requests of 16-224 ids in 448 rows),
+   held to the plain forward as the dense family is (for Whisper the
+   zeroed-layer check runs on its self- and its cross-attention);
+   ``prefill_patches``: Phi-3-Vision's prefill on random patch rows
+   against the forward; Whisper's prefill wave timed in parts (the plain
+   encoder and cross-attention).  ``rl_moe``: SortedRL's loop on
+   Granite-MoE at full width and depth (the ``rl`` phase's loop, update
+   batches of 8, bf16 AdamW moments): every uid trained once, the router
+   and the experts moved, the engine-against-trainer gap reported.
+   ``rl_vlm``: the same loop on Phi-3-Vision-4.2B (``max_total_len``
+   1024 for the patch rows): the gap between the engine (behind patch
+   rows) and the trainer (without them, as in the reference) reported.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -344,8 +361,8 @@ BF16_FUNCTIONS = {
 }
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
 # decode kernel -> (library, regex of every instantiation: f32 and bf16,
-# D 64/128, G 1/2/4/8, bf16 D 192 G 12 and D 256 G 2 on fp K/V, f32 D 32
-# G 1 on fp pages, and the merge pass)
+# D 64/128, G 1/2/4/8 and (64, 3), the bf16 wide shapes on fp K/V, f32 D
+# 32 G 1 on fp pages, and the merge pass)
 DECODE_FUNCTIONS = {
     "paged_decode_attention": ("paged_decode_attention",
                                r"decode_split_kernelI(ff|13__nv_bfloat16S)"
@@ -374,12 +391,13 @@ def ptxas_functions(log: str, pattern: str):
     return out
 
 
-# split-pass instantiations per decode kernel: 2 dtypes x D 64/128 x G
-# 1/2/4/8, bf16 (D, G) = (192, 12) and (256, 2) on fp K/V, and for fp
-# pages also f32 at D 32, G 1 (the RL session's LM)
-DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 22,
+# split-pass instantiations per decode kernel: 2 dtypes x (D 64/128 x G
+# 1/2/4/8, and (64, 3)), bf16 (D, G) = (192, 12), (256, 2), (128, 16)
+# and (96, 1) on fp K/V, and for fp pages also f32 at D 32, G 1 (the RL
+# session's LM)
+DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 23,
                                "paged_decode_attention_int8": 18,
-                               "ragged_decode_attention": 21}
+                               "ragged_decode_attention": 22}
 
 
 def decode_registers(build):
@@ -931,6 +949,7 @@ def phase_kernels(torch, dev, report):
           "timing": report})
 
 
+PHI3_PATCHES = 576         # Phi-3-Vision's stub patch rows before a prompt
 NO_LIBRARY_SOFTCAP = ("none: no single PyTorch call computes attention "
                       "with a tanh softcap on the scores")
 
@@ -951,9 +970,13 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
     128, G 8, H 64; an untied head of 8192 x 152,064), Nemotron-4-340B
     (D 192, G 12, H 96; an untied head of 18,432 x 256,000),
     Granite-MoE-3B-A800M (D 64, G 3, H 24: fp pages, int8 pages and the
-    dense cache; a tied head of 1536 x 49,155, V odd) and
+    dense cache; a tied head of 1536 x 49,155, V odd),
     Qwen3-MoE-235B-A22B (D 128, G 16, H 64; an untied head of 4096 x
-    151,936), each held
+    151,936), Phi-3-Vision-4.2B (D 96, G 1, H 32: flash over 576 patch
+    rows and 1024 columns, fp pages and the dense cache; an untied head of
+    3072 x 32,064) and Whisper-small (D 64, G 1, H 12: its decoder's
+    prefill wave, its self-attention cache of 448 rows and its
+    cross-attention over 1500 live rows), each held
     against its plain version with the tolerances of the Qwen3 cases (same
     arithmetic), and at edges: S not a multiple of a tile, a window smaller
     than a tile, kv_len at W and W + 1, splits' edges at D 192/256, x
@@ -1013,6 +1036,12 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
          False),
         ("d128_g16_kvlen_0_and_split_edges", [0, 1] + edges, 64, 4, 128,
          0.0, False),
+        # Phi-3-Vision: every slot's rows start with its 576 patch rows
+        ("phi3_vision_serve_b32_d96_g1",
+         family_serve_lens(32, 64 + PHI3_PATCHES, 1024 + PHI3_PATCHES, 64,
+                           26), 32, 32, 96, 0.0, True),
+        ("d96_g1_kvlen_0_1_page_and_split_edges", [0, 1, 16, 17] + edges,
+         32, 32, 96, 0.0, False),
     ]
     for case, lens, H, Kh, D, cap, is_timed in pd_cases:
         args = paged_inputs(torch, dev, bf16, lens, H, Kh, D)
@@ -1069,6 +1098,21 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
          False),
         ("d128_g16_split_edges_s700", 700, [0] + edges[:3] + [700], 64, 4,
          128, 0.0, False),
+        ("phi3_vision_dense_b16_s2048_d96_g1", 2048,
+         family_serve_lens(16, 64 + PHI3_PATCHES, 1024 + PHI3_PATCHES, 64,
+                           27), 32, 32, 96, 0.0, True),
+        ("d96_g1_kvlen_0_1_page_and_split_edges_s700", 700,
+         [0, 1, 16, 17] + edges[:3] + [700], 32, 32, 96, 0.0, False),
+        # Whisper-small's decode: the decoder's own cache (448 rows,
+        # prompts of 16-224 ids plus up to 64 tokens and the new row) and
+        # the cross K/V of the encoder's 1500 rows, every row live
+        ("whisper_self_b32_s448_d64_g1", 448,
+         [n + 1 for n in family_serve_lens(32, 16, 224, 64, 28)], 12, 12,
+         64, 0.0, True),
+        ("whisper_cross_b32_s1500_d64_g1", 1500, [1500] * 32, 12, 12, 64,
+         0.0, True),
+        ("s1500_d64_g1_kvlen_0_1_and_split_edges", 1500,
+         [0, 1] + edges[:3] + [1499, 1500], 12, 12, 64, 0.0, False),
     ]
     for case, S, lens, H, Kh, D, cap, is_timed in rd_cases:
         args = dense_inputs(torch, dev, bf16, lens, S, H, Kh, D)
@@ -1195,6 +1239,21 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         ("s65_d64_g3_seg", 2, 65, 24, 8, 64, True, 0, 0.0, False),
         ("s129_d128_g16_window40", 1, 129, 64, 4, 128, False, 40, 0.0,
          False),
+        # Phi-3-Vision's prefill wave: 576 patch rows before a bucketed
+        # width of 1024; the edges of the 16-chunk pitch (rows 8-15 of a
+        # tile's swizzle), ragged S, segments, a window
+        ("phi3_vision_b32_s1600_d96_g1", 32, PHI3_PATCHES + 1024, 32, 32, 96,
+         False, 0, 0.0, True),
+        ("s16_d96_swizzle_rows_8_15", 2, 16, 32, 32, 96, False, 0, 0.0,
+         False),
+        ("s33_d96", 2, 33, 32, 32, 96, False, 0, 0.0, False),
+        ("s65_d96_seg", 2, 65, 32, 32, 96, True, 0, 0.0, False),
+        ("s97_d96", 1, 97, 32, 32, 96, False, 0, 0.0, False),
+        ("s129_d96_window40_softcap30", 1, 129, 32, 32, 96, False, 40, 30.0,
+         False),
+        # Whisper-small's decoder prefill wave (prompts of up to 224 ids)
+        ("whisper_b32_s256_d64_g1", 32, 256, 12, 12, 64, False, 0, 0.0,
+         True),
     ]
     for case, B, S, H, Kh, D, seg, win, cap, is_timed in fa_cases:
         q, k, v, s_ = flash_inputs(torch, dev, bf16, B, S, H, Kh, D, seg)
@@ -1299,9 +1358,10 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
 
     # the MoE family's heads: Granite's tied embedding (V = 49,155, odd:
     # the vocab tail inside a tile) at B 32, 1 and 33, Qwen3-MoE's untied
-    # 4096 x 151,936
+    # 4096 x 151,936; Phi-3-Vision's untied 3072 x 32,064 at B 32, 1, 33
     for Dm, V, model, tied in ((1536, 49155, "granite_moe", True),
-                               (4096, 151936, "qwen3_moe", False)):
+                               (4096, 151936, "qwen3_moe", False),
+                               (3072, 32064, "phi3_vision", False)):
         shape = (V, Dm) if tied else (Dm, V)
         w = (torch.randn(shape, generator=g, device=dev)
              / math.sqrt(Dm)).to(bf16)
@@ -1311,9 +1371,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         kind = "tied" if tied else "untied"
         case = f"{model}_b32_dm{Dm}_v{V}_{kind}_k1"
         row = fs_case(case, x[:32], w, 1, 0.0)
-        if tied:
-            fs_case(f"{model}_b1_v{V}_tied_k1", x[:1], w, 1, 0.0)
-            fs_case(f"{model}_b33_v{V}_tied_k8", x, w, 8, 0.0)
+        if tied or model == "phi3_vision":
+            fs_case(f"{model}_b1_v{V}_{kind}_k1", x[:1], w, 1, 0.0)
+            fs_case(f"{model}_b33_v{V}_{kind}_k8", x, w, 8, 0.0)
         xs = x[:32]
 
         def library(x=xs, w=w):
@@ -1811,15 +1871,24 @@ def phase_serve(torch, dev, launches, keep):
 # Phase 3: end-to-end against the plain forward
 # ---------------------------------------------------------------------------
 
+def stub_inputs(model, batch):
+    """The engine's stub frontend inputs for ``batch`` rows (zero patch
+    rows or frames; {} for a family without a stub frontend)."""
+    from repro_torch.rollout.engine import stub_inputs as engine_stub
+    return engine_stub(model.cfg, batch, model.device)
+
+
 def score(torch, model, params, prompt, gen):
     """Per generated token: (argmax, logprob of the token, max logprob)
-    from the plain full-sequence forward on prompt + generated tokens."""
-    from repro_torch.models import transformer as TF
+    from the plain full-sequence forward on prompt + generated tokens
+    (behind the engine's zero stub rows or frames, where the family has
+    a stub frontend)."""
     toks = torch.tensor([list(prompt) + [t for t, _ in gen]],
                         device=model.device)
     with torch.no_grad():
-        logits, _ = TF.forward(params, model.cfg, toks)
-    n = len(prompt)
+        logits, _ = model.forward(params, {"tokens": toks,
+                                           **stub_inputs(model, 1)})
+    n = len(prompt) + model.prefill_extra
     lp = torch.log_softmax(logits[0, n - 1:n - 1 + len(gen)].float(), -1)
     want = torch.tensor([t for t, _ in gen], device=lp.device)
     return (lp.argmax(-1).tolist(), lp.gather(1, want[:, None])[:, 0].tolist(),
@@ -1859,9 +1928,11 @@ def f32_logprobs(torch, model, params, prompt, gen):
             else t.float()
     toks = torch.tensor([list(prompt) + [t for t, _ in gen]],
                         device=model.device)
-    pos = torch.arange(toks.shape[1], device=toks.device)[None]
+    extra = model.prefill_extra            # the vlm's zero patch rows
+    pos = torch.arange(extra + toks.shape[1], device=toks.device)[None]
     with torch.no_grad():
         x = params["embed"][toks].float()
+        x = torch.cat([x.new_zeros((1, extra, x.shape[2])), x], dim=1)
         for i in range(cfg.num_layers):
             x, _, _, _ = TF._block(
                 cast(TF.layer(params, i, cfg)), cfg, x, pos,
@@ -1871,7 +1942,7 @@ def f32_logprobs(torch, model, params, prompt, gen):
         head["embed" if cfg.tie_embeddings else "lm_head"] = (
             params["embed"] if cfg.tie_embeddings
             else params["lm_head"]).float()
-        n = len(prompt)
+        n = extra + len(prompt)
         logits = TF.lm_logits(head, cfg, x[0, n - 1:n - 1 + len(gen)])
     lp = torch.log_softmax(logits, -1)
     want = torch.tensor([t for t, _ in gen], device=lp.device)
@@ -2093,7 +2164,9 @@ def leaf_paths(tree, prefix=""):
 
 def final_hidden(torch, model, params, prompts):
     """The final normed hidden state (f32) at every position of
-    ``prompts``, from one plain forward (no kernels): (positions, d)."""
+    ``prompts``, from one plain forward (no kernels): (positions, d).  A
+    vision-language model sees its zero patch rows first, as the engine
+    serves it."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     cfg, dev = model.cfg, model.device
@@ -2102,34 +2175,44 @@ def final_hidden(torch, model, params, prompts):
                        device=dev)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = torch.tensor(p, device=dev)
-    pos = torch.arange(toks.shape[1], device=dev).expand(*toks.shape)
+    extra = model.prefill_extra
 
     def attend(q, k, v):
         return L.full_attention(q, k, v, causal=True)
     with torch.no_grad():
         x = TF.embed_tokens(params, cfg, toks)
+        if extra:
+            x = torch.cat([x.new_zeros((x.shape[0], extra, x.shape[2])), x],
+                          dim=1)
+        pos = torch.arange(x.shape[1], device=dev).expand(*x.shape[:2])
         for i in range(cfg.num_layers):
             x, _, _, _ = TF._block(TF.layer(params, i, cfg), cfg, x, pos,
                                    attend, TF.mlp_fn(cfg, with_aux=False))
-        h = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+        h = L.norm(x[:, extra:], params["final_norm"], cfg.norm_type,
+                   cfg.norm_eps)
         return torch.cat([h[i, :n].float() for i, n in enumerate(lens)])
 
 
-def set_eos_row(torch, model, params, prompts, eos=RL_EOS):
-    """EOS's (``eos``) embedding row along the mean of the final normed
-    hidden state over ``prompts`` (one plain forward), scaled so that
-    EOS's logit averages ``RL_EOS_LOGIT`` there.  Returns what it
-    measured."""
+def set_eos_row(torch, model, params, prompts, eos=RL_EOS, logit=None):
+    """EOS's (``eos``) row of the head (its embedding row when the head is
+    tied, its ``lm_head`` column otherwise) along the mean of the final
+    normed hidden state over ``prompts`` (one plain forward), scaled so
+    that EOS's logit averages ``logit`` (``RL_EOS_LOGIT`` by default)
+    there.  Returns what it measured."""
+    logit = logit or RL_EOS_LOGIT
     h = final_hidden(torch, model, params, prompts)
     with torch.no_grad():
         mean = h.mean(0)
         u = mean / mean.norm()
         along = float((h @ u).mean())
-        row = u * (RL_EOS_LOGIT / along)
-        params["embed"][eos] = row.to(params["embed"].dtype)
+        row = u * (logit / along)
+        if model.cfg.tie_embeddings:
+            params["embed"][eos] = row.to(params["embed"].dtype)
+        else:
+            params["lm_head"][:, eos] = row.to(params["lm_head"].dtype)
     return {"hidden_norm": float(h.norm(dim=-1).mean()),
             "mean_hidden_norm": float(mean.norm()),
-            "eos_row_norm": float(row.norm()), "eos_logit_mean": RL_EOS_LOGIT}
+            "eos_row_norm": float(row.norm()), "eos_logit_mean": logit}
 
 
 def set_eos_row_greedy(torch, model, params, seqs, starts, rate):
@@ -2212,7 +2295,7 @@ GRANITE_RL_EOS = 49154
 
 def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
              n_groups=16, update_batch=16, min_updates=3,
-             state_dtype=None):
+             state_dtype=None, max_total=384, eos_logit=None):
     """Qwen3-0.6B at full width and depth (bf16, the serve phase's random
     weights): the paged SlotEngine rolls out GRPO groups at temperature 1
     under the sorted policy in partial mode, and RLTrainer updates the
@@ -2224,7 +2307,13 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
     reference's behaviour): the engine-against-trainer logprob gap is
     reported beside both sides' dropped shares, not held to 0.1 nats, and
     no f32 forward is taken.  Checked instead: every uid trained once,
-    every update finite, the router and every expert leaf moved."""
+    every update finite, the router and every expert leaf moved.
+
+    Phi-3-Vision-4.2B runs it too, with a ``max_total`` that holds its
+    576 patch rows: the engine serves every prompt behind zero patch rows
+    and the trainer scores the same tokens without them (the reference's
+    ``entries_to_batch`` builds no ``patch_embeds``), so that gap is
+    reported, not held, as well."""
     from repro_torch.core.buffer import Mode, StatefulRolloutBuffer
     from repro_torch.core.orchestrator import (RolloutOrchestrator,
                                                SortedRLConfig)
@@ -2241,9 +2330,10 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
     cfg = model.cfg
     nl = cfg.num_layers
     moe = cfg.family == "moe"
-    max_total = 384
+    held = cfg.family not in ("moe", "vlm")   # engine and trainer agree
     prompts, metas = rl_prompts(n_groups, 4, 64, 192, cfg.vocab_size, seed=6)
-    eos_row = set_eos_row(torch, model, params, prompts[::4], eos)
+    eos_row = set_eos_row(torch, model, params, prompts[::4], eos,
+                          eos_logit or RL_EOS_LOGIT)
     opt_cfg = AdamWConfig(lr=1e-5, state_dtype=state_dtype or torch.float32)
     trainer = RLTrainer(model, params, rl_reward, opt_cfg=opt_cfg, pad_id=0,
                         max_len=max_total, advantage_kind="grpo")
@@ -2295,7 +2385,7 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
             drops.label = None
             lp = token_logprobs(logits, batch["tokens"])[mask]
             del logits
-            if moe:
+            if not held:
                 diff = lp - old[mask]
                 return {"tokens": int(mask.sum()),
                         "max_abs": float(diff.abs().max()),
@@ -2330,9 +2420,9 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
         before = None
         if not updates:
             first["logprobs"] = first_update_checks(req)
-            # an MoE model's copy waits on the host: beside the AdamW
+            # a large model's copy waits on the host: beside the AdamW
             # state and the update's activations it would not fit
-            before = [p.to("cpu", copy=True) if moe else p.clone()
+            before = [p.to("cpu", copy=True) if not held else p.clone()
                       for p in leaves]
             torch.cuda.synchronize()
             host_s["check"] += time.perf_counter() - t
@@ -2397,7 +2487,7 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
                   if isinstance(v, float)),
               f"{label}: update {i} not finite {u}")
         check(u["grad_norm"] > 0, f"{label}: update {i}: grad_norm 0")
-        if i > 1 and not moe:
+        if i > 1 and held:
             # staleness is an entry's mean lag over its tokens; a stitched
             # entry's oldest token lags by at least one version
             check(u["stitched"] > 0 and u["staleness_max"] >= 1
@@ -2413,7 +2503,7 @@ def phase_rl(torch, dev, model, params, launches, label="rl", eos=RL_EOS,
     # forward than 1.25 times the trainer's own bf16 forward
     lp = first.get("logprobs", {})
     check(lp.get("versions") == [0], f"{label}: first batch versions {lp}")
-    if not moe:
+    if held:
         check(lp.get("max_abs", 1.0) <= 0.1
               and abs(lp.get("mean", 1.0)) <= 0.01
               and lp.get("engine_vs_f32_mean_abs", 1.0)
@@ -2490,6 +2580,36 @@ def phase_rl_moe(torch, dev, launches):
     phase_rl(torch, dev, model, params, launches, label="rl_moe",
              eos=GRANITE_RL_EOS, n_groups=8, update_batch=8, min_updates=2,
              state_dtype=torch.bfloat16)
+    del model, params
+    release(torch)
+
+
+# Phi-3's <|end|>.  With its 32,064 ids, EOS's mean logit at RL_EOS_LOGIT
+# (8.5) gave a mean length of 11 tokens on an H100, and at 7.0 still 30:
+# EOS's logit varies widely between positions, and two GRPO groups of 4
+# whose prompts end far above the mean answered EOS at once, so the
+# first update batch held 8 one-token answers of one reward (no
+# gradient).  5.0 makes such answers rarer.
+PHI3_RL_EOS = 32007
+PHI3_RL_EOS_LOGIT = 5.0
+
+
+def phase_rl_vlm(torch, dev, launches):
+    """Phi-3-Vision-4.2B at full width and depth through the rl phase's
+    loop (``phase_rl``): 8 GRPO groups of 4, update batches of 8, AdamW
+    with bf16 moments, and a ``max_total_len`` of 1024, which holds the
+    576 patch rows, a prompt of up to 192 ids and 128 generated tokens.
+    The engine serves each prompt behind zero patch rows and the trainer
+    scores the tokens without them, as the reference does: the gap
+    between the two is reported, not held."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    model = build_model(get_config("phi_3_vision_4_2b"))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(2))
+    phase_rl(torch, dev, model, params, launches, label="rl_vlm",
+             eos=PHI3_RL_EOS, n_groups=8, update_batch=8, min_updates=2,
+             state_dtype=torch.bfloat16, max_total=1024,
+             eos_logit=PHI3_RL_EOS_LOGIT)
     del model, params
     release(torch)
 
@@ -3029,9 +3149,10 @@ def phase_long(torch, dev, model, params, launches):
 
 # label -> (arch, layers served (None: all), engine options, slots,
 # max_total_len, prompt lengths of the GRPO groups of 4 (None: drawn from
-# 64-1024), uids of the 3 requests held against the plain forward, scale
-# of the residual updates' output projections); max_gen_len 64, greedy,
-# random weights, no EOS (eos_id -1).
+# 64-1024), uids of the 3 requests held against the plain forward,
+# factors on the residual updates' output projections: attention's "wo"
+# and the MLP's "w_out"); max_gen_len 64, greedy, random weights, no EOS
+# (eos_id -1).
 # Gemma2's scaled, tied embedding dominates the residual stream at the
 # init scale: its own row then wins the tied head at the 30-nat softcap
 # and every greedy logprob reads 0.0 in both the engine and the forward,
@@ -3039,26 +3160,45 @@ def phase_long(torch, dev, model, params, launches):
 # H100).  Output projections (wo, w_out) at 8x their init scale
 # put the residual updates ~4x the embedding's norm and the self logit
 # near 12 nats, below the logsumexp of the other 256k (~13).
+# Phi-3-Vision at the init scale: random q and k spread a long context's
+# attention over ~1000 keys (576 of them zero patch rows), so its output
+# is a near-uniform average of random values and the check cannot see
+# it: on an H100 the last layer's attention output zeroed moved the
+# served logprobs by 0.109 nats where the bf16 noise alone was 0.103
+# (paged) and 0.095 against 0.094 (dense).  Its attention output
+# projections (wo) at 4x their init scale give attention a share of the
+# residual updates like the MLPs'.
 FAMILIES = {
     # a prompt past the 4096 window, and the 8192 bucket holding shorter
     # rows (the reference's ring-prefill fault would show on them)
     "gemma2": ("gemma2_2b", None, {"paged": False}, 16, 8192,
-               [6144, 4500, 1800, 512], (0, 8, 12), 8.0),
+               [6144, 4500, 1800, 512], (0, 8, 12),
+               {"wo": 8.0, "w_out": 8.0}),
     "qwen1_5": ("qwen1_5_110b", 4, {"fused_sampling": True}, 32, 2048,
-                None, (0, 4, 8), 1.0),
+                None, (0, 4, 8), {}),
     "nemotron": ("nemotron_4_340b", 2, {"fused_sampling": True}, 16, 2048,
-                 None, (0, 4, 8), 1.0),
+                 None, (0, 4, 8), {}),
+    # 576 zero patch rows before every prompt (the engine's stub inputs)
+    "phi3_vision": ("phi_3_vision_4_2b", None, {"fused_sampling": True}, 32,
+                    2048, None, (0, 4, 8), {"wo": 4.0}),
+    "phi3_vision_dense": ("phi_3_vision_4_2b", None, {"paged": False}, 16,
+                          2048, None, (0, 4, 8), {"wo": 4.0}),
+    # 1500 zero frames through the encoder; 448 is Whisper's decoder
+    # context
+    "whisper": ("whisper_small", None, {}, 32, 448, range(16, 225),
+                (0, 4, 8), {}),
 }
 FAMILY_GEN = 64
 
 
 def family_requests(lens, n_groups, vocab, seed):
-    """GRPO groups of 4 sharing a prompt: of the given lengths, or of
-    lengths drawn from 64-1024."""
+    """GRPO groups of 4 sharing a prompt: of the given lengths (a list),
+    of lengths drawn from a range, or from 64-1024 (None)."""
     import numpy as np
     from repro_torch.core.buffer import BufferEntry
-    if lens is None:
-        return make_requests(n_groups, 4, 64, 1024, vocab, seed)
+    if lens is None or isinstance(lens, range):
+        lo, hi = (64, 1024) if lens is None else (lens.start, lens.stop - 1)
+        return make_requests(n_groups, 4, lo, hi, vocab, seed)
     rng = np.random.RandomState(seed)
     out = []
     for gi, n in enumerate(lens):
@@ -3068,18 +3208,172 @@ def family_requests(lens, n_groups, vocab, seed):
     return out
 
 
+def attention_outputs(params, cfg):
+    """(name, tensor) of the last layer's attention output projections:
+    whisper's self- and cross-attention, one otherwise (views)."""
+    from repro_torch.models import transformer as TF
+    nl = cfg.num_layers
+    if cfg.family == "audio":
+        dec = params["dec_layers"]
+        return [(f"layer {nl - 1}'s self-attention output",
+                 dec["attn"]["wo"][nl - 1]),
+                (f"layer {nl - 1}'s cross-attention output",
+                 dec["xattn"]["wo"][nl - 1])]
+    return [(f"layer {nl - 1}'s attention output",
+             TF.layer(params, nl - 1, cfg)["attn"]["wo"])]
+
+
+def ablated_checks(torch, label, model, params, check_fn):
+    """The check's power: ``check_fn()`` (a near-tie record) again with
+    each of the last layer's attention outputs zeroed (what the engine
+    would serve from kernels returning zeros there) must fail it."""
+    out = []
+    for name, wo in attention_outputs(params, model.cfg):
+        saved = wo.clone()
+        wo.zero_()
+        ablated = check_fn()
+        wo.copy_(saved)
+        del saved
+        ablated["ablation"] = f"{name} zeroed"
+        ablated["detected"] = (ablated["max_logprob_err"] > NEAR_TIE_BF16
+                               or ablated["flips_beyond_tol"] > 0)
+        check(ablated["detected"], f"families/{label}: the 0.1-nat check "
+              f"does not see {name} zeroed {ablated}")
+        out.append(ablated)
+    return out
+
+
+def prefill_patches_check(torch, model, params, launches):
+    """Random patch rows (0.1 N(0, 1), as the reference's model tests)
+    through the engine's prefill on the card (flash over 576 + 1024 rows)
+    against the plain forward on each row's patch rows and prompt: at
+    every position of a row (patch rows and tokens), the logprob of the
+    forward's argmax within 0.1 nats and the argmax equal but at
+    near-ties; and the same comparison against the forward with the last
+    layer's attention output zeroed must fail.  Zero patch rows stay zero
+    through every layer (no bias, norm of 0 is 0), so the served path
+    tests only their dilution of the softmax; these test the kernels over
+    rows that are not zero."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    P = cfg.num_stub_positions
+    lens = [1024, 700, 333, 64]
+    rng = np.random.RandomState(51)
+    toks = torch.zeros((len(lens), max(lens)), dtype=torch.int32,
+                       device=model.device)
+    for i, n in enumerate(lens):
+        toks[i, :n] = torch.tensor(rng.randint(1, cfg.vocab_size, size=n),
+                                   device=toks.device)
+    g = torch.Generator(device=toks.device).manual_seed(52)
+    patches = (0.1 * torch.randn((len(lens), P, cfg.d_model), generator=g,
+                                 device=toks.device)).to(cfg.compute_dtype)
+    batch = {"tokens": toks, "patch_embeds": patches,
+             "prompt_lens": torch.tensor(lens, dtype=torch.int32,
+                                         device=toks.device)}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        logits, _ = model.prefill(params, batch,
+                                  model.init_cache(len(lens), P + max(lens)))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        counts = ops.launch_counts()
+        launches["families/prefill_patches"] = counts
+        check_launches("families/prefill_patches", counts,
+                       {"flash_attention": cfg.num_layers})
+        served = torch.log_softmax(logits.float(), -1)
+        del logits
+
+        def compare():
+            err, total, flips, bad, n = 0.0, 0.0, 0, 0, 0
+            for i, m in enumerate(lens):
+                fwd, _ = model.forward(params, {
+                    "tokens": toks[i:i + 1, :m],
+                    "patch_embeds": patches[i:i + 1]})
+                want = torch.log_softmax(fwd[0].float(), -1)
+                got = served[i, :P + m]
+                best = want.argmax(-1)
+                d = (got.gather(1, best[:, None])
+                     - want.gather(1, best[:, None])).abs()
+                err = max(err, float(d.max()))
+                total += float(d.sum())
+                n += P + m
+                other = got.argmax(-1) != best
+                flips += int(other.sum())
+                gap = (want.max(-1).values
+                       - want.gather(1, got.argmax(-1)[:, None])[:, 0])
+                bad += int((other & (gap > NEAR_TIE_BF16)).sum())
+                del fwd, want
+            return {"requests": len(lens), "tokens": n, "argmax_flips": flips,
+                    "flips_beyond_tol": bad, "max_logprob_err": err,
+                    "mean_logprob_err": total / n, "tol": NEAR_TIE_BF16}
+        tie = compare()
+        check(tie["max_logprob_err"] <= NEAR_TIE_BF16
+              and tie["flips_beyond_tol"] == 0,
+              f"families/prefill_patches: {tie}")
+        ablated = ablated_checks(torch, "prefill_patches", model, params,
+                                 compare)
+    del served
+    return {"prompt_lens": lens, "patch_rows": P, "patch_scale": 0.1,
+            "prefill_s": prefill_s, "launches": counts,
+            "against_forward": tie, "against_ablated_forward": ablated}
+
+
+def whisper_prefill_parts(torch, model, params, B=32, S=256):
+    """Device time (CUDA events) of a Whisper prefill wave of B rows at
+    width S with zero frames, and of its plain parts: the encoder (12
+    layers of bidirectional attention over 1500 frames), the cross K/V
+    projections and the decoder's 12 cross-attentions (B x S queries
+    over 1500 rows), which the reference computes outside any kernel."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as WH
+    cfg, dev = model.cfg, model.device
+    frames = stub_inputs(model, B)["frames"]
+    toks = torch.randint(1, cfg.vocab_size, (B, S), device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "frames": frames,
+             "prompt_lens": torch.full((B,), S, dtype=torch.int32,
+                                       device=dev)}
+    cache = model.init_cache(B, S)
+    with torch.no_grad():
+        enc = WH.encode(params, cfg, frames)
+        kx, vx = WH.cross_kv(params, cfg, enc)
+        qx = torch.randn((B, S, cfg.num_heads, cfg.resolved_head_dim),
+                         device=dev).to(cfg.compute_dtype)
+        out = {
+            "wave": {"B": B, "S": S, "frames": cfg.encoder_positions},
+            "prefill_ms": cuda_ms(torch, lambda: model.prefill(
+                params, batch, cache, return_logits=False), 3, 1),
+            "encoder_ms": cuda_ms(torch, lambda: WH.encode(params, cfg,
+                                                           frames), 3, 1),
+            "cross_kv_ms": cuda_ms(torch, lambda: WH.cross_kv(params, cfg,
+                                                              enc), 3, 1),
+            "cross_attention_ms_all_layers": cfg.num_layers * cuda_ms(
+                torch, lambda: L.full_attention(qx, kx[0], vx[0],
+                                                causal=False), 3, 1)}
+    del enc, kx, vx, qx, cache
+    return out
+
+
 def phase_families(torch, dev, launches):
     """Gemma2-2B at full width and depth (26 layers: local/global, rings of
     4096, softcaps; the dense layout), Qwen1.5-110B at full width cut to 4
     layers and Nemotron-4-340B at full width cut to 2 (paged, fused greedy
-    head), one after another, each freed before the next: every request
-    served, exactly its path's kernels launched, 3 requests' logprobs
-    within 0.1 nats of the port's plain forward (tokens equal but at
-    near-ties), and beyond 0.1 nats of the forward with one layer's
-    attention output zeroed."""
+    head), Phi-3-Vision-4.2B at full width and depth (32 layers, 576 zero
+    patch rows before every prompt; paged with the fused head, then the
+    dense layout) and Whisper-small at full width and depth (12 + 12
+    layers, 1500 zero frames; the dense layout, plain head), one after
+    another, each freed before the next: every request served, exactly
+    its path's kernels launched, 3 requests' logprobs within 0.1 nats of
+    the port's plain forward (tokens equal but at near-ties), and beyond
+    0.1 nats of the forward with the last layer's attention output (for
+    Whisper each of its two) zeroed.  Phi-3-Vision's prefill is also
+    held to the forward on random patch rows (``prefill_patches``), and
+    Whisper's prefill wave is timed in parts."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as TF
     from repro_torch.models.model import build_model
     from repro_torch.rollout.engine import SlotEngine
 
@@ -3091,11 +3385,12 @@ def phase_families(torch, dev, launches):
         t0 = time.perf_counter()
         model = build_model(cfg)
         params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-        params["layers"]["attn"]["wo"].mul_(scale)
-        params["layers"]["mlp"]["w_out"].mul_(scale)
+        for leaf, factor in scale.items():
+            params["layers"]["attn" if leaf == "wo" else "mlp"][leaf].mul_(
+                factor)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        n_groups = len(lens) if lens else slots // 4
+        n_groups = len(lens) if isinstance(lens, list) else slots // 4
         reqs = family_requests(lens, n_groups, cfg.vocab_size, seed=41)
         prompts = {e.uid: list(e.prompt) for e in reqs}
         engine = SlotEngine(model, lambda: params, capacity=slots,
@@ -3109,8 +3404,9 @@ def phase_families(torch, dev, launches):
         if engine.paged:
             want.update(paged_decode_attention=nl * summ["steps"],
                         fused_sample=summ["steps"])
-        else:
-            want["ragged_decode_attention"] = nl * summ["steps"]
+        else:              # whisper: a self- and a cross-attention a layer
+            want["ragged_decode_attention"] = (
+                (2 if cfg.family == "audio" else 1) * nl * summ["steps"])
         check_launches(f"families/{label}", summ["launches"], want)
         check(all(len(v) == FAMILY_GEN for v in outputs.values()),
               f"families/{label}: a request stopped short of {FAMILY_GEN}")
@@ -3124,20 +3420,10 @@ def phase_families(torch, dev, launches):
         check(tie["flips_beyond_tol"] == 0,
               f"families/{label}: {tie['flips_beyond_tol']} tokens differ "
               f"beyond a near-tie of {NEAR_TIE_BF16}")
-        # the check's power: the same comparison against the forward with
-        # the last layer's attention output zeroed (what the engine would
-        # serve from kernels returning zeros there) must fail it
-        wo = TF.layer(params, nl - 1, cfg)["attn"]["wo"]
-        saved = wo.clone()
-        wo.zero_()
-        ablated = near_tie_check(torch, model, params, served, NEAR_TIE_BF16)
-        wo.copy_(saved)
-        del saved
-        ablated["ablation"] = f"layer {nl - 1}'s attention output zeroed"
-        ablated["detected"] = (ablated["max_logprob_err"] > NEAR_TIE_BF16
-                               or ablated["flips_beyond_tol"] > 0)
-        check(ablated["detected"], f"families/{label}: the 0.1-nat check "
-              f"does not see the last layer's attention zeroed {ablated}")
+        ablated = ablated_checks(
+            torch, label, model, params,
+            lambda: near_tie_check(torch, model, params, served,
+                                   NEAR_TIE_BF16))
         lp_mean = statistics.mean(lp for v in outputs.values()
                                   for _, lp in v)
         check(lp_mean < -1e-3, f"families/{label}: greedy logprobs all ~0 "
@@ -3152,12 +3438,20 @@ def phase_families(torch, dev, launches):
                 "fused_sampling") else "dense",
             slots=slots, max_total_len=max_len, max_gen_len=FAMILY_GEN,
             prompt_lens=sorted({len(p) for p in prompts.values()}),
+            stub_rows=cfg.num_stub_positions, prefill_extra=model.prefill_extra,
             params_gb=sum(t.numel() * t.element_size()
                           for _, t in leaf_paths(params)) / 1e9,
-            init_s=init_s, output_projection_scale=scale,
+            init_s=init_s, output_projection_scale=scale or None,
             greedy_logprob_mean=lp_mean,
             against_forward=tie, against_ablated_forward=ablated)
+        if cfg.family == "audio":
+            summ["encoder_layers"] = cfg.encoder_layers
+            summ["prefill_parts"] = whisper_prefill_parts(torch, model,
+                                                          params)
         models[label] = summ
+        if label == "phi3_vision":
+            models["prefill_patches"] = prefill_patches_check(
+                torch, model, params, launches)
         del model, params, outputs
         release(torch)
     models.update(families_moe(torch, dev, launches))
@@ -3473,6 +3767,7 @@ def main() -> int:
         moe_layer_check(torch, dev)
         phase_families(torch, dev, launches)
         phase_rl_moe(torch, dev, launches)
+        phase_rl_vlm(torch, dev, launches)
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,

@@ -2,7 +2,8 @@
 
 Field names, defaults and meanings are the reference's; only
 ``param_dtype``/``compute_dtype`` hold ``torch.dtype`` values.  The
-registry holds the dense and MoE architectures this port serves so far.
+registry holds the dense, MoE, vision-language and audio architectures
+this port serves so far.
 """
 from __future__ import annotations
 
@@ -93,7 +94,8 @@ class ModelConfig:
 
 
 ARCH_IDS = ("qwen3_moe_235b_a22b", "qwen3_0_6b", "nemotron_4_340b",
-            "qwen1_5_110b", "gemma2_2b", "granite_moe_3b_a800m")
+            "qwen1_5_110b", "gemma2_2b", "granite_moe_3b_a800m",
+            "phi_3_vision_4_2b", "whisper_small")
 ARCH_ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-0.6b": "qwen3_0_6b",
@@ -101,6 +103,8 @@ ARCH_ALIASES = {
     "qwen1.5-110b": "qwen1_5_110b",
     "gemma2-2b": "gemma2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-small": "whisper_small",
 }
 
 

@@ -162,9 +162,10 @@ def split_scratch(splits: int, B: int, H: int, D: int,
 
 # (head dim, query heads per KV head) of the decode kernels: every pair of
 # these in f32 and bf16 (and (64, 3), Granite-MoE-3B-A800M), and the wide
-# heads in bf16 only (Nemotron-4-340B, Gemma2-2B, Qwen3-MoE-235B-A22B)
+# heads in bf16 on fp K/V only (Nemotron-4-340B, Gemma2-2B,
+# Qwen3-MoE-235B-A22B, Phi-3-Vision-4.2B)
 DECODE_SHAPES = {(d, g) for d in (64, 128) for g in (1, 2, 4, 8)} | {(64, 3)}
-DECODE_WIDE_SHAPES = {(192, 12), (256, 2), (128, 16)}
+DECODE_WIDE_SHAPES = {(192, 12), (256, 2), (128, 16), (96, 1)}
 
 
 def decode_shape_ok(D: int, G: int, dtype: torch.dtype) -> bool:

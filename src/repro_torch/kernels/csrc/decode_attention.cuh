@@ -32,7 +32,7 @@
 //   * P V: a thread owns 8 columns of D and a row group, accumulates its
 //     rows in f32 registers, and the row groups are summed in shared
 //     memory once at the end (at D = 192, 5 row groups of 24 threads: the
-//     last 8 threads sit out);
+//     last 8 threads sit out; at D = 96, 10 row groups of 12: the last 8);
 //   * int8 rows become f32 by a byte permute and one add (no I2F), and the
 //     page scale multiplies the score (K) or the weight (V) once per row;
 //     the int8 slot's new row (row len - 1, unquantised, in q's dtype) is
@@ -68,8 +68,9 @@ struct DecodeShape {
   static constexpr int kChunkElems = 16 / (int)sizeof(KV);
   // rows of a ring stage: kDecodeTileBytes, but 32 for the wide bf16 rows
   // (D 192 and 256), where 8 KB is 21 1/3 or 16 rows and score_tile wants
-  // 8 rows for each of the 4 warps
-  static constexpr int kTileRows = (sizeof(KV) == 2 && D > 128)
+  // 8 rows for each of the 4 warps, and for bf16 D 96, where 8 KB is
+  // 42 2/3 rows (32 rows x 12 chunks is 3 copies of the 128 threads)
+  static constexpr int kTileRows = (sizeof(KV) == 2 && (D > 128 || D == 96))
                                        ? 32 : kDecodeTileBytes / kRowBytes;
   static constexpr int kStageBytes = kTileRows * kRowPitch;
   static constexpr int kVChunks = D / 8;                 // P V: 8 columns
@@ -556,10 +557,11 @@ static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
   RT_DECODE_CASE(128, 1, D_, G_, LAUNCH) RT_DECODE_CASE(128, 2, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 4, D_, G_, LAUNCH) RT_DECODE_CASE(128, 8, D_, G_, LAUNCH)
 // The wide heads, bf16 q and K/V only: Nemotron-4-340B (D 192, 96 query
-// heads over 8 KV heads), Gemma2-2B (D 256, G 2) and Qwen3-MoE-235B-A22B
-// (D 128, 64 query heads over 4 KV heads).
+// heads over 8 KV heads), Gemma2-2B (D 256, G 2), Qwen3-MoE-235B-A22B
+// (D 128, 64 query heads over 4 KV heads) and Phi-3-Vision-4.2B (D 96,
+// G 1: 32 query heads, 32 KV heads).
 #define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH)                                 \
   RT_DECODE_CASE(192, 12, D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH) \
-  RT_DECODE_CASE(128, 16, D_, G_, LAUNCH)
+  RT_DECODE_CASE(128, 16, D_, G_, LAUNCH) RT_DECODE_CASE(96, 1, D_, G_, LAUNCH)
 #define RT_DECODE_CASE(DD, GG, D_, G_, LAUNCH) \
   if (D_ == DD && G_ == GG) return LAUNCH(DD, GG);

@@ -34,6 +34,13 @@
 //     registers, not 32) and the ring to 64 KB, which keeps two CTAs on an
 //     SM.  A row of 24 chunks (D = 192) swizzles within its groups of 8
 //     (24 is a multiple of 8, so every row starts on bank group 0);
+//   * Phi-3-Vision's D = 96 is 12 chunks a row: the swizzle XORs a chunk
+//     index with row % 8 and would send chunks 8-11 up to chunk 15, into
+//     the next row, so a shared tile's row pitch is its chunks rounded up
+//     to a multiple of 8 (`flash_pitch`: 16 at D = 96, 4 chunks of each
+//     row unused).  Every chunk then stays in its row and 8 rows' same
+//     chunk still land in 8 bank groups.  6 k-steps of Q K^T, 12 n-tiles
+//     of P V;
 //   * masks (causal, only on tiles that cross the diagonal or S; window;
 //     segment ids) and softcap act on the score fragment in registers;
 //     the online softmax (max, sum, rescale) stays in f32, in the log2
@@ -212,6 +219,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // keys per K/V tile: 64, or 32 for the wide heads (see the header)
 template <int D>
 __host__ __device__ constexpr int flash_tk() { return D > 128 ? 32 : 64; }
+// 16-byte chunks of a shared tile's row: D / 8 rounded up to a multiple
+// of 8, so that `swz` (chunk ^ row % 8) stays inside the row (16 at D 96)
+template <int D>
+__host__ __device__ constexpr int flash_pitch() { return (D / 8 + 7) / 8 * 8; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 4 warps of 1 m-tile (16 query rows each): 64 query rows a CTA, a 2-stage
@@ -221,12 +232,13 @@ constexpr int kFlashWarps = 4, kFlashMT = 1, kFlashStages = 2;
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)D *
+  return sizeof(__nv_bfloat16) * (size_t)(8 * flash_pitch<D>()) *
          (16 * kFlashMT * kFlashWarps + 2 * kFlashStages * flash_tk<D>());
 }
 
 // Async copy of ROWS rows [r0, r0 + ROWS) of a (S, row_stride) bf16 matrix
-// (D elements a row) into a swizzled [ROWS][D] tile; rows >= S are zeros.
+// (D elements a row) into a swizzled tile of ROWS rows of flash_pitch<D>()
+// chunks; rows >= S are zeros.
 // The trip count is a constant, so the loop unrolls; where THREADS is a
 // multiple of DC a thread's chunk column and swizzle stay fixed across it
 // (D = 192, DC = 24: each trip recomputes them).
@@ -235,7 +247,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int r0,
                                           int S) {
-  constexpr int DC = D / 8;
+  constexpr int DC = D / 8, PC = flash_pitch<D>();
   if constexpr (THREADS % DC == 0) {
     constexpr int STEP = THREADS / DC;
     static_assert(ROWS % STEP == 0, "tile shape");
@@ -244,7 +256,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
     for (int j = 0; j < ROWS / STEP; ++j) {
       const int r = r_lo + j * STEP, s = r0 + r;
       const bool ok = s < S;
-      cp_async16(dst + swz(r, c, DC), base + (ok ? s * row_stride : 0) + c * 8,
+      cp_async16(dst + swz(r, c, PC), base + (ok ? s * row_stride : 0) + c * 8,
                  ok ? 16 : 0);
     }
   } else {
@@ -254,7 +266,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
       const int i = (int)threadIdx.x + j * THREADS;
       const int r = i / DC, c = i % DC, s = r0 + r;
       const bool ok = s < S;
-      cp_async16(dst + swz(r, c, DC), base + (ok ? s * row_stride : 0) + c * 8,
+      cp_async16(dst + swz(r, c, PC), base + (ok ? s * row_stride : 0) + c * 8,
                  ok ? 16 : 0);
     }
   }
@@ -270,15 +282,15 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NW = kFlashWarps, MT = kFlashMT, STAGES = kFlashStages;
   constexpr int TK = flash_tk<D>();
   constexpr int WR = 16 * MT, TQ = WR * NW, THREADS = 32 * NW;
-  constexpr int DC = D / 8;       // 16-byte chunks of a row
+  constexpr int PC = flash_pitch<D>();  // 16-byte chunks of a tile's row
   constexpr int KD = D / 16;      // k-steps of Q K^T
   constexpr int NS = TK / 8;      // score n-tiles (8 keys each)
   constexpr int ND = D / 8;       // output n-tiles (8 columns each)
-  constexpr uint32_t kTile = TK * D * 2;
+  constexpr uint32_t kTile = TK * PC * 16;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   const uint32_t sQ = smem_u32(smem_tc);
-  const uint32_t sK = sQ + TQ * D * 2;      // [STAGES][TK][D]
-  const uint32_t sV = sK + STAGES * kTile;  // [STAGES][TK][D]
+  const uint32_t sK = sQ + TQ * PC * 16;    // [STAGES][TK][PC chunks]
+  const uint32_t sV = sK + STAGES * kTile;  // [STAGES][TK][PC chunks]
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -361,12 +373,12 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
         ldmatrix_x4(qa[mt], sQ + swz(warp * WR + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1),
-                                     2 * kk + (lane >> 4), DC));
+                                     2 * kk + (lane >> 4), PC));
 #pragma unroll
       for (int p = 0; p < NS / 2; ++p) {
         uint32_t kf[4];
         ldmatrix_x4(kf, kt_s + swz(16 * p + (lane & 7) + 8 * (lane >> 4),
-                                   2 * kk + ((lane >> 3) & 1), DC));
+                                   2 * kk + ((lane >> 3) & 1), PC));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(sc[mt][2 * p], qa[mt], kf[0], kf[1]);
@@ -463,7 +475,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int p = 0; p < ND / 2; ++p) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, vt_s + swz(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
-                                         2 * p + (lane >> 4), DC));
+                                         2 * p + (lane >> 4), PC));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(o[mt][2 * p], pa[mt], vf[0], vf[1]);
@@ -550,6 +562,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return launch_f32<128>(q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   if (dtype == kBF16 && D == 64)
     return launch_bf16<64>(
+        q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
+  if (dtype == kBF16 && D == 96)              // Phi-3-Vision-4.2B
+    return launch_bf16<96>(
         q, k, v, seg, out, B, S, H, Kh, window, softcap, s);
   if (dtype == kBF16 && D == 128)
     return launch_bf16<128>(

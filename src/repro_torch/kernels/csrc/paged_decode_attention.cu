@@ -22,8 +22,10 @@
 // the written page.  Rows at or past kv_len are never read, kv_len == 0
 // gives zeros.  Head shapes: D 64/128 with G 1/2/4/8 and Granite-MoE's
 // D 64, G 3 in f32 and bf16 (fp or int8 pages), and on bf16 fp pages
-// Nemotron-4-340B's D 192, G 12, Gemma2-2B's D 256, G 2 and
-// Qwen3-MoE-235B-A22B's D 128, G 16.
+// Nemotron-4-340B's D 192, G 12, Gemma2-2B's D 256, G 2,
+// Qwen3-MoE-235B-A22B's D 128, G 16 and Phi-3-Vision-4.2B's D 96, G 1
+// (int8 pages do not take D 96: a 96-byte row is 6 chunks, not a
+// multiple of the 4 lanes that share a row's scores).
 
 #include "decode_attention.cuh"
 

@@ -17,7 +17,10 @@
 // and nothing past S or kv_len is read.  kv_len == 0 gives zeros.  It
 // serves both of Gemma2's caches: a local layer passes its ring with
 // min(kv_len + 1, W) rows (the ring holds exactly the window, so no
-// window is applied), a global layer its cache with kv_len + 1.
+// window is applied), a global layer its cache with kv_len + 1.  It also
+// serves Whisper-small's decode step (D 64, G 1): the decoder's own cache
+// with kv_len + 1 rows, and the cross K/V of the encoder's 1500 rows with
+// every row live; and Phi-3-Vision-4.2B's dense layout (bf16 D 96, G 1).
 
 #include "decode_attention.cuh"
 

@@ -9,9 +9,10 @@ bf16 operands, f32 accumulators, P rounded to bf16 for P V), streams
 and softcap on the score fragments in registers and keeps the online
 softmax in f32; it visits only the tiles inside the causal range and
 the window, heaviest query tiles first, and masks a ragged S where the
-TPU kernel asserted S % 128 == 0.  Head dims 64 and 128, and in bf16 192
-(Nemotron-4-340B) and 256 (Gemma2-2B), whose key tiles halve to 32.  f32 keeps an f32 FMA kernel (TF32
-would not hold its tolerance).  See the source.
+TPU kernel asserted S % 128 == 0.  Head dims 64 and 128, and in bf16 96
+(Phi-3-Vision-4.2B, shared rows padded to 16 chunks), 192 (Nemotron-4-340B)
+and 256 (Gemma2-2B), whose key tiles halve to 32.  f32 keeps an f32 FMA
+kernel (TF32 would not hold its tolerance).  See the source.
 
 CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
 tensors launch the kernel or raise.
@@ -60,9 +61,9 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
                   f"{tuple(q.shape)}")
     build.require(H % Kh == 0 and (
         D in (64, 128) or (D == 32 and q.dtype == torch.float32)
-        or (D in (192, 256) and q.dtype == torch.bfloat16)),
+        or (D in (96, 192, 256) and q.dtype == torch.bfloat16)),
                   NAME, f"needs H % Kh == 0 and D in (64, 128) (or 32 in "
-                  f"f32, 192 and 256 in bf16); got H={H} Kh={Kh} D={D} "
+                  f"f32, 96, 192 and 256 in bf16); got H={H} Kh={Kh} D={D} "
                   f"{q.dtype}")
     build.require(window >= 0, NAME, f"window must be >= 0, got {window}")
     build.require(all(t.is_contiguous() for t in (q, k, v)), NAME,

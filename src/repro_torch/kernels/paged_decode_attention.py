@@ -117,8 +117,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
     build.require(H % Kh == 0 and (fits or tiny),
                   name, f"needs G in (1, 2, 4, 8), D in (64, 128), or (D, G) "
                   f"(64, 3) (or G 1, D 32 on f32 pages; or in bf16 fp pages "
-                  f"(D, G) in (192, 12), (256, 2), (128, 16)); got H={H} "
-                  f"Kh={Kh} D={D} {q.dtype}")
+                  f"(D, G) in (192, 12), (256, 2), (128, 16), (96, 1)); "
+                  f"got H={H} Kh={Kh} D={D} {q.dtype}")
     build.require(block_tables.shape == (B, nb) and kv_len.shape == (B,),
                   name, "block_tables (B, nb) and kv_len (B,) expected")
     build.require(block_tables.dtype == torch.int32

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``ragged_decode_attention`` (``_kernel`` +
 one query token per slot over a dense ``(B, S, Kh, D)`` cache, rows at or
 past ``kv_len`` skipped.  It serves the engine's dense layout
 (``SlotEngine(paged=False)``), Gemma2-2B's ring and global caches
-included.  Bound on the H100: bytes, the live K/V rows over 3.35 TB/s.  The body is the paged kernel's with contiguous rows
-(``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
+included, and Whisper-small's decode: its self-attention cache and its
+cross-attention over the encoder's 1500 rows, every row live.  Bound on
+the H100: bytes, the live K/V rows over 3.35 TB/s.  The body is the
+paged kernel's with contiguous rows (``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
 ``cp.async`` ring, a merge pass, splits from S so ``kv_len`` stays on the
 card); unlike the TPU kernel it takes any S, not only multiples of 128.
 
@@ -66,7 +68,7 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     build.require(H % Kh == 0 and build.decode_shape_ok(D, H // Kh, q.dtype),
                   NAME, f"needs G in (1, 2, 4, 8) and D in (64, 128), or "
                   f"(D, G) (64, 3), or in bf16 (D, G) in (192, 12), (256, 2),"
-                  f" (128, 16); got H={H} Kh={Kh} D={D} {q.dtype}")
+                  f" (128, 16), (96, 1); got H={H} Kh={Kh} D={D} {q.dtype}")
     build.require(kv_len.shape == (B,) and kv_len.dtype == torch.int32, NAME,
                   "kv_len must be (B,) int32")
     build.require(all(t.is_contiguous() for t in args), NAME,

@@ -1,6 +1,6 @@
 """Shared model building blocks (counterpart of ``repro/models/layers.py``):
-norms, rotary embeddings, plain attention (full and blockwise),
-projections, MLP.
+norms, rotary and sinusoidal position embeddings, plain attention (full
+and blockwise), projections, MLP.
 
 Plain functions on tensors and dicts of parameters, in the reference's
 layouts: q (B, S, H, D), k/v (B, S, Kh, D), ``wq`` (d, H, hd), ``wo``
@@ -69,6 +69,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) f32: sin at even columns, cos at odd ones, of position
+    times 10000^(-2i/d) (whisper's encoder positions)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    emb = torch.zeros((length, d), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(pos * div)
+    emb[:, 1::2] = torch.cos(pos * div)
+    return emb
 
 
 # ---------------------------------------------------------------------------

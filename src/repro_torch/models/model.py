@@ -2,9 +2,10 @@
 ``build_model(cfg)`` returns a :class:`Model` bundle of functions.
 
 Batch dict conventions are the reference's:
-* scoring : {"tokens": (B, S)}
+* scoring : {"tokens": (B, S)} (+ "patch_embeds" (B, P, d) for vlm,
+  "frames" (B, T_enc, d) for audio: the stub frontends' inputs)
 * prefill : {"tokens": (B, S), "prompt_lens": (B,)} (+ "seg_ids",
-  "positions" for ``prefill_packed``)
+  "positions" for ``prefill_packed``; + the stub inputs as above)
 * decode  : token (B,), dense cache (``decode_step``) or page pool and
   block tables (B, nb) (``decode_step_paged``), kv_len (B,)
 
@@ -15,6 +16,14 @@ only (``decode_step`` dispatches to its decode; ``prefill_packed`` and
 family is the same backbone and the same functions, its blocks' MLP the
 expert layer (``models/moe.py``, the reference's ``moe_mlp_dense``;
 ``forward`` returns the router losses summed over the layers).  The
+vision-language family (``vlm``) is the dense backbone behind the
+reference's stub frontend: a batch's ``patch_embeds`` (B, P, d) go
+before its tokens' embeddings in ``forward`` and ``prefill``, so a
+prefill fills P + S cache rows (``prefill_extra`` = P), and it has no
+packed prefill (``prefill_packed`` None), as in the reference.  The
+audio family is the whisper encoder-decoder (``models/whisper.py``):
+``frames`` feed the encoder, its four-key cache takes the dense layout
+only, and it has neither a packed prefill nor a paged decode.  The
 reference's ``ep_mesh`` (expert parallelism over a device mesh) has no
 counterpart yet.  The model lives on one device, the card unless the
 caller passes ``device="cpu"``.
@@ -22,13 +31,14 @@ caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as TF
+from repro_torch.models import whisper as WH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,27 +49,42 @@ class Model:
     forward: Callable              # (params, batch) -> (logits, aux)
     init_cache: Callable           # (batch_size, max_len) -> cache
     prefill: Callable              # (params, batch, cache) -> (logits, cache)
-    decode_step_paged: Callable    # (params, token, pool, bt, kv_len, **kw)
-    prefill_packed: Callable       # (params, batch, cache) -> (logits, cache)
+    decode_step_paged: Optional[Callable]  # (params, token, pool, bt, kv_len)
+    prefill_packed: Optional[Callable]     # (params, batch, cache)
     decode_step: Callable          # (params, token, cache, kv_len, **kw)
+    padding_side: str = "right"    # every family ported so far pads right
+    prefill_extra: int = 0         # cache rows prepended by the stub frontend
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    TF.check_supported(cfg)
+    if cfg.family != "audio":
+        TF.check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        return _build_audio(cfg, dev)
+    vlm = cfg.family == "vlm"
+
+    def embeds(params, batch):
+        """The stub patch rows, then the tokens' embeddings (vlm only)."""
+        if not (vlm and "patch_embeds" in batch):
+            return None
+        tok = TF.embed_tokens(params, cfg, batch["tokens"])
+        return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
 
     def init_params(generator: torch.Generator):
         return TF.init_params(cfg, generator, dev)
 
     def forward(params, batch):
-        return TF.forward(params, cfg, batch["tokens"])
+        return TF.forward(params, cfg, batch["tokens"],
+                          embeds=embeds(params, batch))
 
     def init_cache(batch_size, max_len):
         return TF.init_cache(cfg, batch_size, max_len, dev)
 
     def prefill(params, batch, cache, return_logits=True):
         return TF.prefill(params, cfg, batch["tokens"], cache,
-                          batch["prompt_lens"], return_logits=return_logits)
+                          batch["prompt_lens"], return_logits=return_logits,
+                          embeds=embeds(params, batch))
 
     def prefill_packed(params, batch, cache, return_logits=True):
         return TF.prefill(params, cfg, batch["tokens"], cache,
@@ -74,12 +99,38 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     def decode_step(params, token, cache, kv_len, **kw):
         return TF.decode(params, cfg, token, cache, kv_len, **kw)
 
+    # vlm prepends stub patch rows to each prompt, which the packed
+    # layout's contiguous segments cannot hold (the reference's reason)
     return Model(cfg, dev, init_params, forward, init_cache, prefill,
-                 decode_step_paged, prefill_packed, decode_step)
+                 decode_step_paged, None if vlm else prefill_packed,
+                 decode_step,
+                 prefill_extra=cfg.num_stub_positions if vlm else 0)
+
+
+def _build_audio(cfg: ModelConfig, dev: torch.device) -> Model:
+    def forward(params, batch):
+        return (WH.forward(params, cfg, batch["tokens"], batch["frames"]),
+                dict(TF.ZERO_AUX))
+
+    def prefill(params, batch, cache, return_logits=True):
+        return WH.prefill(params, cfg, batch["tokens"], cache,
+                          batch["prompt_lens"], frames=batch.get("frames"),
+                          return_logits=return_logits)
+
+    def decode_step(params, token, cache, kv_len, **kw):
+        if kw.get("return_hidden"):
+            raise ValueError("return_hidden: the audio family has none")
+        return WH.decode_step(params, cfg, token, cache, kv_len)
+
+    return Model(cfg, dev, lambda g: WH.init_params(cfg, g, dev), forward,
+                 lambda b, m: WH.init_cache(cfg, b, m, dev), prefill,
+                 None, None, decode_step)
 
 
 def supports_paging(model: Model) -> bool:
-    """Paged layout needs right padding and a plain {k, v} cache: every
-    family the port serves so far (dense and MoE) pads right; the
-    local/global pattern's four-key cache cannot be paged."""
+    """Paged layout needs right padding and a plain {k, v} cache, as in
+    the reference: the local/global pattern's and whisper's four-key
+    caches cannot be paged."""
+    if model.padding_side != "right":
+        return False
     return set(model.init_cache(1, 1)) == {"k", "v"}

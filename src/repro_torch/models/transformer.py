@@ -1,5 +1,5 @@
-"""Decoder-only transformer of the dense and MoE families (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only transformer of the dense, MoE and vision-language families
+(counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the reference's tree, with the stacked leading layer
 axis: ``layers.attn.wq`` (L, d, H, hd), ``layers.mlp.w_in`` (L, d, ff),
@@ -16,6 +16,11 @@ reference's calls give it, which set its capacity and so its drops: the
 whole (B, S) batch in ``forward`` and ``prefill`` (the engine's bucketed
 wave, pad rows and columns included), every slot in a decode step.
 Prefill and decode discard the router losses and skip computing them.
+
+The vision-language family is the dense backbone fed ``embeds``: its
+stub frontend's patch rows, then the tokens' embeddings, one sequence at
+positions ``arange(S)`` (``forward``, ``prefill``); decode is the dense
+family's, with the patch rows in the cache before the tokens' rows.
 
 The pattern's cache has the reference's four keys: ``k_local``/
 ``v_local`` (L/2, B, W, Kh, D), a ring of W = min(window, max_len) rows
@@ -67,9 +72,10 @@ FULL_ATTN_MAX_SEQ = L.FULL_ATTN_MAX_SEQ   # above this, attend blockwise
 
 def check_supported(cfg: ModelConfig) -> None:
     """The configs this module serves: the reference's rope branch of the
-    dense family, with either layer pattern, and of the MoE family with
-    the global pattern (no MoE config has another)."""
-    if cfg.family not in ("dense", "moe"):
+    dense family, with either layer pattern, of the MoE family with the
+    global pattern (no MoE config has another), and of the vision-language
+    family (the dense backbone behind stub patch rows)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.attn.layer_pattern not in ("global", "local_global"):
         raise NotImplementedError(
@@ -92,15 +98,17 @@ def _sub_window(cfg: ModelConfig, j: int) -> int:
     return cfg.attn.sliding_window
 
 
+def pick(tree: Params, idx) -> Params:
+    """Every leaf of a stacked tree indexed by ``idx`` (views)."""
+    return {k: pick(v, idx) if isinstance(v, dict) else v[idx]
+            for k, v in tree.items()}
+
+
 def layer(params: Params, i: int, cfg: ModelConfig) -> Params:
     """Layer ``i``'s parameters out of the stacked tree (views): sub-layer
     ``i % 2`` of group ``i // 2`` under the local/global pattern."""
     idx = (i // 2, i % 2) if pattern_len(cfg) == 2 else (i,)
-
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[idx]
-    return pick(params["layers"])
+    return pick(params["layers"], idx)
 
 
 # ---------------------------------------------------------------------------
@@ -108,40 +116,43 @@ def layer(params: Params, i: int, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def init_block(cfg: ModelConfig, generator: torch.Generator, dtype,
+               device) -> Params:
+    """One block's {attn, mlp, ln1, ln2}; the MoE family's ``mlp`` is the
+    expert layer's tree, its router f32."""
+    attn = L.init_attention(generator, cfg, dtype, device)
+    if cfg.family == "moe":
+        mlp = MOE.init_moe_mlp(generator, cfg, dtype, device)
+    else:
+        mlp = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                         cfg.num_layers, dtype, device)
+    return {"attn": attn, "mlp": mlp,
+            "ln1": init_norm(cfg, dtype, device),
+            "ln2": init_norm(cfg, dtype, device)}
+
+
+def stack(trees):
+    """Trees of equal structure -> one tree of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights with the reference's scales (``jax.random`` and
-    ``torch.Generator`` draw different numbers from one seed).  The MoE
-    family's ``mlp`` is the expert layer's tree, its router f32."""
+    ``torch.Generator`` draw different numbers from one seed)."""
     dtype = cfg.param_dtype
     d = cfg.d_model
-
-    def init_mlp():
-        if cfg.family == "moe":
-            return MOE.init_moe_mlp(generator, cfg, dtype, device)
-        return L.init_mlp(generator, d, cfg.d_ff, cfg.gated_mlp,
-                          cfg.num_layers, dtype, device)
-    blocks = []
-    for _ in range(cfg.num_layers):
-        blocks.append({
-            "attn": L.init_attention(generator, cfg, dtype, device),
-            "mlp": init_mlp(),
-            "ln1": _init_norm(cfg, dtype, device),
-            "ln2": _init_norm(cfg, dtype, device),
-        })
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
-
+    blocks = [init_block(cfg, generator, dtype, device)
+              for _ in range(cfg.num_layers)]
     if pattern_len(cfg) == 2:             # (L/2, 2, ...), as the reference
         blocks = [stack(blocks[i:i + 2]) for i in range(0, len(blocks), 2)]
     params: Params = {
         "embed": (torch.randn((cfg.vocab_size, d), generator=generator,
                               device=device) / math.sqrt(d)).to(dtype),
         "layers": stack(blocks),
-        "final_norm": _init_norm(cfg, dtype, device),
+        "final_norm": init_norm(cfg, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn(
@@ -150,7 +161,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _init_norm(cfg, dtype, device):
+def init_norm(cfg, dtype, device):
     p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
     if cfg.norm_type != "rmsnorm":
         p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
@@ -212,15 +223,20 @@ def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None):
     """Returns (logits (B, S, V), aux), aux the router losses summed over
-    the layers (``ZERO_AUX`` for the dense family).  Attention is plain
+    the layers (``ZERO_AUX`` for the dense family).  ``embeds`` (B, S, d)
+    in the compute dtype replace the token embeddings (the vision-language
+    family's patch rows followed by its tokens' embeddings); positions are
+    ``arange(S)`` over them all.  Attention is plain
     PyTorch, as in the reference's scoring path: ``full_attention`` up to
     ``FULL_ATTN_MAX_SEQ`` positions, ``blockwise_attention`` above (one
     score tile at a time; under autograd every tile is kept for the
     backward).  It is the independent check of the engine's kernel path,
     and the trainer's path."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
@@ -287,19 +303,24 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Dict[str, torch.Tensor], prompt_lens: torch.Tensor,
             seg_ids: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            return_logits: bool = True):
+            return_logits: bool = True,
+            embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) right-padded.  Fills ``cache[:, :, :S]`` in place and
     returns (logits (B, S, V) or None, cache).  Padded positions are
-    masked downstream via kv_len.  Under the local/global pattern the
-    global layers fill ``k_global``/``v_global`` so, and the local layers
-    each row's ring from its ``prompt_lens`` (module docstring).
+    masked downstream via kv_len.  ``embeds`` (B, S', d) replace the token
+    embeddings, as in ``forward``: the vision-language family passes its
+    patch rows and then the tokens' embeddings, so S' rows are prefilled
+    (the stub rows first) at positions ``arange(S')``.  Under the
+    local/global pattern the global layers fill ``k_global``/``v_global``
+    so, and the local layers each row's ring from its ``prompt_lens``
+    (module docstring).
 
     Packed mode (``seg_ids`` given): each row holds several prompts back
     to back, ``seg_ids`` (B, S) the row-local segment (-1 for padding) and
     ``positions`` each token's position inside its segment; the pattern
     refuses it, as the reference does.  Attention goes through
     ``ops.flash_attention`` (the kernel on CUDA)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     pl = pattern_len(cfg)
     if pl == 2 and seg_ids is not None:

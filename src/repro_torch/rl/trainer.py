@@ -160,10 +160,15 @@ def value_and_grad(fn: Callable[..., Tuple[torch.Tensor, Any]], params: Any,
 def make_train_step(model: Model, loss_cfg: LossConfig, opt_cfg: AdamWConfig):
     """Returns (params, opt_state, batch) -> (params, opt_state, metrics):
     the loss on ``model.forward``, its gradient through autograd, then
-    AdamW in place."""
+    AdamW in place.  A vision-language batch with ``patch_embeds`` scores
+    only its token positions, as the reference's does; ``entries_to_batch``
+    builds none, so the trainer scores the tokens without the stub rows
+    the engine served them after (the reference's behaviour, kept)."""
 
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch)
+        if model.cfg.family == "vlm" and "patch_embeds" in batch:
+            logits = logits[:, model.prefill_extra:]
         return total_loss(logits, aux, batch, loss_cfg)
 
     def train_step(params, opt_state, batch):

@@ -43,12 +43,22 @@ The gemma2 local/global pattern (a four-key cache: a ring of the
 window's rows per local layer, a full cache per global layer) cannot be
 paged and takes the dense layout, as in the reference; its ring holds
 exactly the window, so its decode needs no window in the kernel.
+Whisper's four-key cache (its own K/V and the encoder's cross K/V) takes
+the dense layout too.
 
-Not ported yet, and refused with ``NotImplementedError``: families other
-than dense, and a window on every layer (the ``"global"`` pattern) on
-CUDA, where the decode kernels take no window.  As in the reference,
-``kv_quant``, ``packed_prefill`` and ``fused_sampling`` need the paged
-layout (``ValueError`` otherwise).
+Stub frontends, as in the reference: every prefill batch carries zero
+``patch_embeds`` (vlm) or ``frames`` (audio) in the compute dtype.  The
+vlm's patch rows sit in the cache before each prompt's rows
+(``Model.prefill_extra`` of them): a slot's ``kv_len`` counts them, the
+page tables cover them (``PagedKVCache(extra_rows=...)``), so shared,
+resumed, exported and imported sequences carry them with their pages.
+
+Refused with ``NotImplementedError``: a window on every layer (the
+``"global"`` pattern) on CUDA, where the decode kernels take no window.
+As in the reference, ``kv_quant``, ``packed_prefill`` and
+``fused_sampling`` need the paged layout, and ``packed_prefill`` a family
+with a segment-masked prefill and no stub rows (``ValueError``
+otherwise).
 """
 from __future__ import annotations
 
@@ -65,6 +75,17 @@ from repro_torch.models import transformer as TF
 from repro_torch.models.model import Model, supports_paging
 
 DEFAULT_PAGE_SIZE = 16
+
+
+def stub_inputs(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs the reference engine feeds a prefill of
+    ``batch`` rows: zero patch rows (vlm) or frames (audio) in the compute
+    dtype; none for the other families."""
+    name = {"vlm": "patch_embeds", "audio": "frames"}.get(cfg.family)
+    if name is None:
+        return {}
+    return {name: torch.zeros((batch, cfg.num_stub_positions, cfg.d_model),
+                              dtype=cfg.compute_dtype, device=device)}
 
 
 def next_pow2(n: int) -> int:
@@ -103,6 +124,11 @@ class SlotEngine:
                          ("fused_sampling", fused_sampling)):
             if on and not paged:
                 raise ValueError(f"{flag} requires the paged layout")
+        if packed_prefill and (model.prefill_packed is None
+                               or model.prefill_extra):
+            raise ValueError("packed_prefill requires a family with "
+                             "segment-masked prefill and no stub frontend "
+                             "rows")
         self.paged = paged
         self.kv_quant = kv_quant
         self.model = model
@@ -142,6 +168,7 @@ class SlotEngine:
         else:
             self.cache = model.init_cache(self.num_pages, page_size)
         self.kv = PagedKVCache(self.num_pages, page_size,
+                               extra_rows=model.prefill_extra,
                                retain_across_sync=kv_retain_across_sync)
 
     # -- time / slot queries ------------------------------------------------
@@ -188,11 +215,13 @@ class SlotEngine:
             self._submit_dense(entries, slots, seqs, pre)
 
     def _submit_dense(self, entries, slots, seqs, pre) -> None:
-        """One bucketed prefill of every prefix at ``width`` columns,
-        copied into the slots' rows ``[0, width)`` (a local layer's ring
-        into its ``min(width, W)`` rows)."""
+        """One bucketed prefill of every prefix at ``width`` columns
+        (after the stub rows, if any), copied into the slots' rows
+        ``[0, extra + width)`` (a local layer's ring into its
+        ``min(width, W)`` rows; whisper's cross K/V whole)."""
         k = len(entries)
         params = self.params_fn()
+        extra = self.model.prefill_extra
         width = self._bucket_width(max(1, max(len(p) for p in pre)))
         kb = self._bucket_batch(k)
         toks = np.full((kb, width), self.pad_id, np.int32)
@@ -202,7 +231,8 @@ class SlotEngine:
             toks[i, :len(p)] = p                # right padding
         batch = {"tokens": self._tensor(toks),
                  "prompt_lens": self._tensor(plens)}
-        sub_cache = self.model.init_cache(kb, width)
+        batch.update(stub_inputs(self.model.cfg, kb, self.device))
+        sub_cache = self.model.init_cache(kb, width + extra)
         _, sub_cache = self.model.prefill(params, batch, sub_cache,
                                           return_logits=False)
         self.prefill_launches += 1
@@ -215,7 +245,7 @@ class SlotEngine:
         t.uid[slots] = [e.uid for e in entries]
         t.active[slots] = True
         t.next_token[slots] = [s[-1] for s in seqs]
-        t.kv_len[slots] = plens[:k]
+        t.kv_len[slots] = plens[:k] + extra
         t.kv_start[slots] = 0
         t.gen_count[slots] = [len(e.generated) for e in entries]
         t.gen_budget[slots] = self.max_gen_len
@@ -248,10 +278,11 @@ class SlotEngine:
             kv.share(entries[i].uid, entries[li].uid, tuple(pre[i]))
 
         t = self.slots
+        extra = self.model.prefill_extra
         t.uid[slots] = [e.uid for e in entries]
         t.active[slots] = True
         t.next_token[slots] = [s[-1] for s in seqs]
-        t.kv_len[slots] = [len(p) for p in pre]
+        t.kv_len[slots] = [len(p) + extra for p in pre]
         t.kv_start[slots] = 0
         t.gen_count[slots] = [len(e.generated) for e in entries]
         t.gen_budget[slots] = self.max_gen_len
@@ -264,9 +295,10 @@ class SlotEngine:
             return
         params = self.params_fn()
         P = self.page_size
+        extra = self.model.prefill_extra
         width = self._bucket_width(max(1, max(len(p) for p in pres)))
         kb = self._bucket_batch(len(entries))
-        cache_len = -(-width // P) * P
+        cache_len = -(-(width + extra) // P) * P
         toks = np.full((kb, width), self.pad_id, np.int32)
         plens = np.zeros(kb, np.int32)
         for i, p in enumerate(pres):
@@ -274,6 +306,7 @@ class SlotEngine:
             toks[i, :len(p)] = p                # paged => right padding
         batch = {"tokens": self._tensor(toks),
                  "prompt_lens": self._tensor(plens)}
+        batch.update(stub_inputs(self.model.cfg, kb, self.device))
         sub_cache = self.model.init_cache(kb, cache_len)
         _, sub_cache = self.model.prefill(params, batch, sub_cache,
                                           return_logits=False)

@@ -31,8 +31,8 @@ def dev():
 
 
 def test_cuda_wrappers_raise_on_what_kernels_do_not_take(dev):
-    q = torch.zeros((2, 4, 96), device=dev)     # D = 96: not instantiated
-    pages = torch.zeros((3, 16, 2, 96), device=dev)
+    q = torch.zeros((2, 4, 80), device=dev)     # D = 80: not instantiated
+    pages = torch.zeros((3, 16, 2, 80), device=dev)
     bt = torch.zeros((2, 1), dtype=torch.int32, device=dev)
     kv = torch.ones((2,), dtype=torch.int32, device=dev)
     before = ops.launch_counts()
@@ -64,12 +64,12 @@ def test_dense_and_int8_decode_wrappers_raise_on_what_kernels_do_not_take(
     new = dict(k_new=rows, v_new=rows)
     before = ops.launch_counts()
     cases = [
-        # dense: D = 96, G = 5, bf16 cache under f32 q, int64 kv_len,
+        # dense: D = 80, G = 5, bf16 cache under f32 q, int64 kv_len,
         # a non-contiguous cache, a window
         (ValueError, lambda: ops.ragged_decode_attention(
-            torch.zeros((2, 4, 96), device=dev),
-            torch.zeros((2, 40, 2, 96), device=dev),
-            torch.zeros((2, 40, 2, 96), device=dev), kv)),
+            torch.zeros((2, 4, 80), device=dev),
+            torch.zeros((2, 40, 2, 80), device=dev),
+            torch.zeros((2, 40, 2, 80), device=dev), kv)),
         (ValueError, lambda: ops.ragged_decode_attention(
             torch.zeros((2, 10, 64), device=dev), kc, kc, kv)),
         (ValueError, lambda: ops.ragged_decode_attention(
@@ -250,3 +250,46 @@ def test_moe_head_shapes_match_their_plain_versions(dev):
                     q, k8, v8, ks, vs, bt, lens, k_new=new[0], v_new=new[1])
                 assert float((got.float() - want.float()).abs().max()) \
                     <= 2e-2
+
+
+def test_head_dim_96_matches_its_plain_versions(dev):
+    """Phi-3-Vision-4.2B's heads (bf16, D 96, G 1): flash at S 33, 65 and
+    97 (the 16-chunk pitch's rows 8-15 of a tile) with segments, the
+    dense and paged decode at kv_len 0, 1, a page's last and first row and
+    a split's edges, against the plain versions with ``chip_smoke.py``'s
+    bf16 tolerances; int8 pages and f32 raise at D 96."""
+    from repro_torch.kernels import ref
+    for S, seg in ((33, False), (65, True), (97, False)):
+        q, k, v = (_bf16(dev, 2, S, 4, 96, seed=i) for i in range(3))
+        s_ = None
+        if seg:
+            s_ = torch.zeros((2, S), dtype=torch.int32, device=dev)
+            s_[:, 32:] = 1
+            s_[:, 60:] = -1
+        out = ops.flash_attention(q, k, v, seg_ids=s_).float()
+        want = ref.flash_attention_ref(q, k, v, seg_ids=s_).float()
+        wabs = ref.flash_attention_ref(q, k, v.abs(), seg_ids=s_).float()
+        assert float(((out - want).abs() - 2.0 ** -7 * want.abs()
+                      - 2.0 ** -9 * wabs).max()) <= 1e-3
+    lens = torch.tensor([0, 1, 16, 17, 255, 256, 257, 300],
+                        dtype=torch.int32, device=dev)
+    B = lens.numel()
+    q = _bf16(dev, B, 4, 96, seed=3)
+    kp, vp = (_bf16(dev, 1 + 19 * B, 16, 4, 96, seed=s) for s in (4, 5))
+    bt = torch.arange(1, 1 + 19 * B, dtype=torch.int32,
+                      device=dev).view(B, 19)
+    kc, vc = ref.gather_pages(kp, bt), ref.gather_pages(vp, bt)
+    for got, want in ((ops.paged_decode_attention(q, kp, vp, bt, lens),
+                       ref.paged_decode_attention_ref(q, kp, vp, bt, lens)),
+                      (ops.ragged_decode_attention(q, kc, vc, lens),
+                       ref.ragged_decode_attention_ref(q, kc, vc, lens))):
+        assert not got[0].any()
+        assert _decode_excess(got, want) <= 0
+    before = ops.launch_counts()
+    p8, sc = kp.to(torch.int8), torch.ones((kp.shape[0],), device=dev)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention_int8(q, p8, p8, sc, sc, bt, lens,
+                                        k_new=q, v_new=q)
+    with pytest.raises(ValueError):
+        ops.ragged_decode_attention(q.float(), kc.float(), vc.float(), lens)
+    assert ops.launch_counts() == before
