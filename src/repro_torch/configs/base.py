@@ -2,8 +2,9 @@
 
 Field names, defaults and meanings are the reference's; only
 ``param_dtype``/``compute_dtype`` hold ``torch.dtype`` values.  The
-registry holds the dense, MoE, vision-language and audio architectures
-this port serves so far.
+registry holds every architecture of the reference's: dense, MoE,
+hybrid (Mamba2 with a shared attention block), ssm (xLSTM),
+vision-language and audio.
 """
 from __future__ import annotations
 
@@ -94,13 +95,15 @@ class ModelConfig:
 
 
 ARCH_IDS = ("qwen3_moe_235b_a22b", "qwen3_0_6b", "nemotron_4_340b",
-            "qwen1_5_110b", "gemma2_2b", "granite_moe_3b_a800m",
-            "phi_3_vision_4_2b", "whisper_small")
+            "qwen1_5_110b", "zamba2_1_2b", "xlstm_125m", "gemma2_2b",
+            "granite_moe_3b_a800m", "phi_3_vision_4_2b", "whisper_small")
 ARCH_ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-0.6b": "qwen3_0_6b",
     "nemotron-4-340b": "nemotron_4_340b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "xlstm-125m": "xlstm_125m",
     "gemma2-2b": "gemma2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",

@@ -41,7 +41,14 @@
 //   * a slot with one live split writes its output; otherwise each split
 //     writes f32 partials (max, sum, unnormalised accumulator) and
 //     `decode_merge_kernel`, launched behind it on the same stream, merges
-//     the live splits.  kv_len <= 0 gives zeros.
+//     the live splits.  kv_len <= 0 gives zeros;
+//   * the dense kernel may start a slot's rows at kv_start (left-padded
+//     prefills): the live rows are [kv_start, min(kv_len, S)), the
+//     slot's row base moves to kv_start and the splits cut that range,
+//     so the split pass, the merge and the one-split fast path count
+//     splits from kv_start, and kv_start >= kv_len gives zeros.  Only
+//     the dense kernel's entry (`DecodeStartParams`) runs it; the paged
+//     kernel's code is what it was.
 #pragma once
 
 #include <type_traits>
@@ -114,6 +121,7 @@ struct DecodeParams {
   const void* k_new;         // int8: (B, Kh, D) of T, the new rows
   const void* v_new;
   const int* kv_len;         // (B,)
+  const int* kv_start;       // dense: (B,) first live row, or null for 0
   void* out;                 // (B, H, D) of T
   float* part_ml;            // (B, H, splits, 2): max, sum
   float* part_acc;           // (B, H, splits, D)
@@ -300,10 +308,11 @@ __device__ __forceinline__ void split_softmax(float* sc, float* ml,
   }
 }
 
-// The CTA of (KV head blockIdx.x, slot blockIdx.y, split blockIdx.z).
-template <typename T, typename KV, int D, int G>
-__global__ void __launch_bounds__(kDecodeThreads)
-decode_split_kernel(const DecodeParams p) {
+// The split pass of the CTA of (KV head blockIdx.x, slot blockIdx.y,
+// split blockIdx.z).  kStart: the slot's rows start at p.kv_start (the
+// dense kernel's entry below); the paged kernel's entry runs it without.
+template <typename T, typename KV, int D, int G, bool kStart>
+__device__ __forceinline__ void decode_split(const DecodeParams p) {
   using Sh = DecodeShape<KV, D>;
   constexpr int TR = Sh::kTileRows, NCV = Sh::kVChunks;
   constexpr int NT = kDecodeThreads, SR = kDecodeSplitRows;
@@ -317,11 +326,14 @@ decode_split_kernel(const DecodeParams p) {
   constexpr int QR = kQReg ? D / 4 : 1;
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(p.kv_len[b], p.cap);
+  // the live rows are [st, min(kv_len, cap)); splits count from st
+  int st = 0;
+  if constexpr (kStart) st = p.kv_start != nullptr ? max(p.kv_start[b], 0) : 0;
+  const int len = min(p.kv_len[b], p.cap) - st;
   const int r0 = split * SR;
   T* out = static_cast<T*>(p.out) + ((long long)b * p.H + kh * G) * D;
   if (r0 >= len) {
-    if (split == 0)                           // len <= 0: zeros
+    if (split == 0)                           // no live row: zeros
       for (int i = tid; i < G * D; i += NT) out[i] = from_f<T>(0.f);
     return;
   }
@@ -369,7 +381,7 @@ decode_split_kernel(const DecodeParams p) {
       }
     }
   } else {
-    for (int i = tid; i < nk; i += NT) rows[i] = b * p.S + r0 + i;
+    for (int i = tid; i < nk; i += NT) rows[i] = b * p.S + st + r0 + i;
   }
   if (has_new && tid == 0) vsr[nk] = 1.f;     // the new row: unquantised
   __syncthreads();
@@ -497,16 +509,38 @@ decode_split_kernel(const DecodeParams p) {
   }
 }
 
+// The paged kernel's entry: rows from 0, its code as before kv_start.
+template <typename T, typename KV, int D, int G>
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_split_kernel(const DecodeParams p) {
+  decode_split<T, KV, D, G, false>(p);
+}
+
+// The dense kernel's entry, rows from p.kv_start: an overload on the
+// parameters' type, so both entries keep one name.  One block a
+// multiprocessor is all it needs: under the default bound ptxas held its
+// bf16 (128, 1) and f32 (64, 2) instantiations at 96 registers and
+// spilled 8 bytes.
+struct DecodeStartParams : DecodeParams {};
+
+template <typename T, typename KV, int D, int G>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+decode_split_kernel(const DecodeStartParams p) {
+  decode_split<T, KV, D, G, true>(p);
+}
+
 // Merges the live splits of a slot with more than one: weights
 // exp(m_s - M), an empty split (m = -inf) weighs 0.  Grid (H, B), D threads.
-template <typename T>
+template <typename T, bool kStart>
 __global__ void decode_merge_kernel(const float* __restrict__ pml,
                                     const float* __restrict__ pacc,
                                     const int* __restrict__ kv_len,
+                                    const int* __restrict__ kv_start,
                                     T* __restrict__ out, int H, int D,
                                     int splits, int cap) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const int len = min(kv_len[b], cap);
+  int len = min(kv_len[b], cap);
+  if constexpr (kStart) len -= kv_start != nullptr ? max(kv_start[b], 0) : 0;
   if (len <= kDecodeSplitRows) return;        // written by its one split
   const int live = (len + kDecodeSplitRows - 1) / kDecodeSplitRows;
   const long long base = ((long long)b * H + h) * splits;
@@ -528,20 +562,23 @@ __global__ void decode_merge_kernel(const float* __restrict__ pml,
 // an external template is one symbol across every loaded library (GNU
 // unique), so the paged and dense libraries would share it and the second
 // would launch without raising its own kernel's shared-memory limit.
-template <typename T, typename KV, int D, int G>
+template <typename T, typename KV, int D, int G, bool kStart = false>
 static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
+  using P = typename std::conditional<kStart, DecodeStartParams,
+                                      DecodeParams>::type;
+  void (*kernel)(P) = decode_split_kernel<T, KV, D, G>;
   constexpr int smem = decode_smem_bytes<KV, D, G>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<T, KV, D, G>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  decode_split_kernel<T, KV, D, G>
-      <<<dim3(p.Kh, B, p.splits), kDecodeThreads, smem, s>>>(p);
+  P args;
+  static_cast<DecodeParams&>(args) = p;
+  kernel<<<dim3(p.Kh, B, p.splits), kDecodeThreads, smem, s>>>(args);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return e;
-  decode_merge_kernel<T><<<dim3(p.H, B), D, 0, s>>>(
-      p.part_ml, p.part_acc, p.kv_len, static_cast<T*>(p.out), p.H, D,
-      p.splits, p.cap);
+  decode_merge_kernel<T, kStart><<<dim3(p.H, B), D, 0, s>>>(
+      p.part_ml, p.part_acc, p.kv_len, p.kv_start, static_cast<T*>(p.out),
+      p.H, D, p.splits, p.cap);
   return cudaGetLastError();
 }
 

@@ -3,10 +3,12 @@
 Replaces the Pallas TPU kernel ``ragged_decode_attention`` (``_kernel`` +
 ``_flash_decode_block``) in ``repro/kernels/ragged_decode_attention.py``:
 one query token per slot over a dense ``(B, S, Kh, D)`` cache, rows at or
-past ``kv_len`` skipped.  It serves the engine's dense layout
-(``SlotEngine(paged=False)``), Gemma2-2B's ring and global caches
-included, and Whisper-small's decode: its self-attention cache and its
-cross-attention over the encoder's 1500 rows, every row live.  Bound on
+past ``kv_len`` skipped, and with ``kv_start`` the rows before it too.
+It serves the engine's dense layout (``SlotEngine(paged=False)``),
+Gemma2-2B's ring and global caches included, Whisper-small's decode (its
+self-attention cache and its cross-attention over the encoder's 1500
+rows, every row live) and Zamba2-1.2B's shared attention, whose
+left-padded slots start at ``kv_start``.  Bound on
 the H100: bytes, the live K/V rows over 3.35 TB/s.  The body is the
 paged kernel's with contiguous rows (``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
 ``cp.async`` ring, a merge pass, splits from S so ``kv_len`` stays on the
@@ -34,7 +36,7 @@ def _bind():
     if _lib is None:
         lib = build.load(NAME)
         lib.ragged_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.ragged_decode_attention.restype = ctypes.c_int
         lib.ragged_decode_splits.argtypes = [ctypes.c_int]
@@ -44,17 +46,20 @@ def _bind():
 
 
 def ragged_decode_attention(q, k_cache, v_cache, kv_len,
-                            softcap: float = 0.0, window: int = 0
-                            ) -> torch.Tensor:
+                            softcap: float = 0.0, window: int = 0,
+                            kv_start=None) -> torch.Tensor:
     """q (B, H, D); k/v_cache (B, S, Kh, D); kv_len (B,) int32 ->
     (B, H, D).  Rows at or past ``kv_len`` are masked (all S rows when
-    ``kv_len > S``); ``kv_len == 0`` gives zeros.  ``window`` is applied by
+    ``kv_len > S``), and with ``kv_start`` (B,) int32 the rows before it
+    (a left-padded slot's pads); no live row (``kv_len == 0``, or
+    ``kv_start >= kv_len``) gives zeros.  ``window`` is applied by
     the plain version only: the kernel takes none, so a window on CUDA
     raises instead of being ignored."""
-    args = (q, k_cache, v_cache, kv_len)
+    args = (q, k_cache, v_cache, kv_len, kv_start)
     if build.all_on_cpu(*args):
         return ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
-                                           softcap=softcap, window=window)
+                                           softcap=softcap, window=window,
+                                           kv_start=kv_start)
     if window:
         raise NotImplementedError(
             f"{NAME}: the CUDA kernel has no sliding window (got {window})")
@@ -69,9 +74,12 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
                   NAME, f"needs G in (1, 2, 4, 8) and D in (64, 128), or "
                   f"(D, G) (64, 3), or in bf16 (D, G) in (192, 12), (256, 2),"
                   f" (128, 16), (96, 1); got H={H} Kh={Kh} D={D} {q.dtype}")
-    build.require(kv_len.shape == (B,) and kv_len.dtype == torch.int32, NAME,
-                  "kv_len must be (B,) int32")
-    build.require(all(t.is_contiguous() for t in args), NAME,
+    for name, t in (("kv_len", kv_len), ("kv_start", kv_start)):
+        build.require(t is None or (t.shape == (B,)
+                                    and t.dtype == torch.int32), NAME,
+                      f"{name} must be (B,) int32")
+    build.require(all(t.is_contiguous() for t in args
+                      if t is not None), NAME,
                   "all inputs must be contiguous")
     out = torch.empty_like(q)
     if B == 0:
@@ -81,7 +89,8 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
                                             H, D, dev)
     rc = lib.ragged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), build.data_ptr(part_ml),
+        kv_len.data_ptr(), build.data_ptr(kv_start), out.data_ptr(),
+        build.data_ptr(part_ml),
         build.data_ptr(part_acc), B, H, S, Kh, D, float(softcap), code,
         build.stream_ptr(dev))
     build.check(rc, NAME)

@@ -17,11 +17,12 @@ KV_INT8_DECODE_ATOL = 0.05
 
 
 def ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
-                                softcap: float = 0.0, window: int = 0
-                                ) -> torch.Tensor:
-    """(B, H, D) x (B, S, Kh, D) x (B,) -> (B, H, D)."""
+                                softcap: float = 0.0, window: int = 0,
+                                kv_start=None) -> torch.Tensor:
+    """(B, H, D) x (B, S, Kh, D) x (B,) -> (B, H, D); rows
+    ``[kv_start, kv_len)`` (``kv_start`` (B,) or None for 0)."""
     return L.decode_attention(q, k_cache, v_cache, kv_len, softcap=softcap,
-                              window=window)
+                              window=window, kv_start=kv_start)
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor

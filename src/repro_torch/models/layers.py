@@ -211,10 +211,12 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, kv_start=None) -> torch.Tensor:
     """Single-token ragged decode attention.
 
-    q: (B, H, D); k/v_cache: (B, S, Kh, D); kv_len: (B,) valid lengths.
+    q: (B, H, D); k/v_cache: (B, S, Kh, D); kv_len: (B,) valid lengths;
+    ``kv_start``: (B,) first valid row (left-padded prefills), so rows
+    ``[kv_start, kv_len)`` are attended (zeros where none is).
     As in the reference, q/sqrt(D) is rounded to the cache dtype and the
     products accumulate in f32 (exact products of the cache dtype).
     """
@@ -227,6 +229,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     pos = torch.arange(S, device=q.device)
     kv_len = kv_len.to(q.device)
     valid = pos[None, :] < kv_len[:, None]
+    if kv_start is not None:
+        valid &= pos[None, :] >= kv_start.to(q.device)[:, None]
     if window:
         valid &= pos[None, :] >= (kv_len[:, None] - window)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))

@@ -24,6 +24,12 @@ packed prefill (``prefill_packed`` None), as in the reference.  The
 audio family is the whisper encoder-decoder (``models/whisper.py``):
 ``frames`` feed the encoder, its four-key cache takes the dense layout
 only, and it has neither a packed prefill nor a paged decode.  The
+hybrid family (Zamba2: Mamba2 layers and a shared attention block,
+``models/hybrid.py``) and the ssm family (xLSTM, ``models/xlstm.py``)
+carry recurrent state, so they pad prompts on the left
+(``padding_side == "left"``) and take the dense layout only; the
+hybrid's ``decode_step`` takes ``kv_start``, a slot's first live cache
+row (its attention reads rows ``[kv_start, kv_len]``).  The
 reference's ``ep_mesh`` (expert parallelism over a device mesh) has no
 counterpart yet.  The model lives on one device, the card unless the
 caller passes ``device="cpu"``.
@@ -37,8 +43,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
 from repro_torch.models import whisper as WH
+from repro_torch.models import xlstm as XL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,16 +60,23 @@ class Model:
     decode_step_paged: Optional[Callable]  # (params, token, pool, bt, kv_len)
     prefill_packed: Optional[Callable]     # (params, batch, cache)
     decode_step: Callable          # (params, token, cache, kv_len, **kw)
-    padding_side: str = "right"    # every family ported so far pads right
+    padding_side: str = "right"    # "right" | "left" (hybrid, ssm)
     prefill_extra: int = 0         # cache rows prepended by the stub frontend
 
 
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    if cfg.family != "audio":
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r}")
+    if cfg.family not in ("ssm", "audio"):
         TF.check_supported(cfg)
     dev = resolve_device(device)
     if cfg.family == "audio":
         return _build_audio(cfg, dev)
+    if cfg.family in ("hybrid", "ssm"):
+        return _build_recurrent(cfg, dev)
     vlm = cfg.family == "vlm"
 
     def embeds(params, batch):
@@ -125,6 +140,32 @@ def _build_audio(cfg: ModelConfig, dev: torch.device) -> Model:
     return Model(cfg, dev, lambda g: WH.init_params(cfg, g, dev), forward,
                  lambda b, m: WH.init_cache(cfg, b, m, dev), prefill,
                  None, None, decode_step)
+
+
+def _build_recurrent(cfg: ModelConfig, dev: torch.device) -> Model:
+    """Zamba2 (``hybrid``) or xLSTM (``ssm``): left padding, the dense
+    layout, no packed prefill, no paged decode."""
+    mod = HY if cfg.family == "hybrid" else XL
+
+    def forward(params, batch):
+        return mod.forward(params, cfg, batch["tokens"]), dict(TF.ZERO_AUX)
+
+    def prefill(params, batch, cache, return_logits=True):
+        return mod.prefill(params, cfg, batch["tokens"], cache,
+                           batch["prompt_lens"], return_logits=return_logits)
+
+    def decode_step(params, token, cache, kv_len, **kw):
+        if kw.get("return_hidden"):
+            raise ValueError(f"return_hidden: the {cfg.family} family has "
+                             "none")
+        if cfg.family == "hybrid":
+            return HY.decode_step(params, cfg, token, cache, kv_len,
+                                  kv_start=kw.get("kv_start"))
+        return XL.decode_step(params, cfg, token, cache, kv_len)
+
+    return Model(cfg, dev, lambda g: mod.init_params(cfg, g, dev), forward,
+                 lambda b, m: mod.init_cache(cfg, b, m, dev), prefill,
+                 None, None, decode_step, padding_side="left")
 
 
 def supports_paging(model: Model) -> bool:

@@ -71,12 +71,12 @@ FULL_ATTN_MAX_SEQ = L.FULL_ATTN_MAX_SEQ   # above this, attend blockwise
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The configs this module serves: the reference's rope branch of the
-    dense family, with either layer pattern, of the MoE family with the
-    global pattern (no MoE config has another), and of the vision-language
-    family (the dense backbone behind stub patch rows)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """The configs whose blocks this module serves: the reference's rope
+    branch of the dense family, with either layer pattern, of the MoE
+    family with the global pattern (no MoE config has another), of the
+    vision-language family (the dense backbone behind stub patch rows)
+    and of the hybrid family's shared block.  ``model.build_model``
+    checks the family."""
     if cfg.attn.layer_pattern not in ("global", "local_global"):
         raise NotImplementedError(
             f"layer pattern {cfg.attn.layer_pattern!r}")

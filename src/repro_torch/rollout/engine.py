@@ -46,6 +46,17 @@ exactly the window, so its decode needs no window in the kernel.
 Whisper's four-key cache (its own K/V and the encoder's cross K/V) takes
 the dense layout too.
 
+The recurrent families (Zamba2's Mamba2 states and shared-attention
+caches, xLSTM's states) pad prompts on the left, as in the reference:
+a dense prefill writes each prompt right-aligned in its bucketed width,
+so its last token sits at the last column, sets ``kv_len = width`` and
+``kv_start = width - len`` (the pads), and the decode passes
+``kv_start`` to the model.  The width bucket keeps the generation budget
+(``_bucket_width``).  Each cache key is copied into the slots along its
+own batch axis (``CACHE_BATCH_AXIS``): a state has no row axis, and the
+hybrid's ``ssm_main`` carries its batch on axis 2.  Interrupted entries
+re-prefill on resume, and the dense layout migrates nothing.
+
 Stub frontends, as in the reference: every prefill batch carries zero
 ``patch_embeds`` (vlm) or ``frames`` (audio) in the compute dtype.  The
 vlm's patch rows sit in the cache before each prompt's rows
@@ -75,6 +86,17 @@ from repro_torch.models import transformer as TF
 from repro_torch.models.model import Model, supports_paging
 
 DEFAULT_PAGE_SIZE = 16
+
+# the batch axis of every cache key of every family (the reference's map)
+CACHE_BATCH_AXIS = {
+    "k": 1, "v": 1, "k_local": 1, "v_local": 1, "k_global": 1, "v_global": 1,
+    "k_x": 1, "v_x": 1,
+    "ssm_main": 2, "conv_x_main": 2, "conv_bc_main": 2, "ssm_tail": 1,
+    "conv_x_tail": 1, "conv_bc_tail": 1,
+    "attn_k": 1, "attn_v": 1,
+    "mlstm_C": 1, "mlstm_n": 1, "mlstm_conv": 1,
+    "slstm_c": 1, "slstm_n": 1, "slstm_h": 1, "slstm_m": 1,
+}
 
 
 def stub_inputs(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
@@ -216,9 +238,11 @@ class SlotEngine:
 
     def _submit_dense(self, entries, slots, seqs, pre) -> None:
         """One bucketed prefill of every prefix at ``width`` columns
-        (after the stub rows, if any), copied into the slots' rows
-        ``[0, extra + width)`` (a local layer's ring into its
-        ``min(width, W)`` rows; whisper's cross K/V whole)."""
+        (after the stub rows, if any; right-aligned for a left-padding
+        family), copied into the slots along each key's batch axis: an
+        attention cache into rows ``[0, extra + width)`` (a local layer's
+        ring into its ``min(width, W)`` rows; whisper's cross K/V whole),
+        a recurrent state whole."""
         k = len(entries)
         params = self.params_fn()
         extra = self.model.prefill_extra
@@ -226,9 +250,13 @@ class SlotEngine:
         kb = self._bucket_batch(k)
         toks = np.full((kb, width), self.pad_id, np.int32)
         plens = np.zeros(kb, np.int32)
+        left = self.model.padding_side == "left"
         for i, p in enumerate(pre):
             plens[i] = len(p)
-            toks[i, :len(p)] = p                # right padding
+            if left:
+                toks[i, width - len(p):] = p
+            else:
+                toks[i, :len(p)] = p
         batch = {"tokens": self._tensor(toks),
                  "prompt_lens": self._tensor(plens)}
         batch.update(stub_inputs(self.model.cfg, kb, self.device))
@@ -238,15 +266,21 @@ class SlotEngine:
         self.prefill_launches += 1
         idx = self._tensor(np.asarray(slots, np.int64))
         for name, arr in self.cache.items():
-            sub = sub_cache[name]
-            arr[:, idx, :sub.shape[2]] = sub[:, :k].to(arr.dtype)
+            ax = CACHE_BATCH_AXIS[name]
+            sub = sub_cache[name].narrow(ax, 0, k)
+            corner = tuple(slice(0, n) for n in sub.shape[ax + 1:])
+            arr[(slice(None),) * ax + (idx,) + corner] = sub.to(arr.dtype)
 
         t = self.slots
         t.uid[slots] = [e.uid for e in entries]
         t.active[slots] = True
         t.next_token[slots] = [s[-1] for s in seqs]
-        t.kv_len[slots] = plens[:k] + extra
-        t.kv_start[slots] = 0
+        if left:
+            t.kv_len[slots] = width
+            t.kv_start[slots] = width - plens[:k]
+        else:
+            t.kv_len[slots] = plens[:k] + extra
+            t.kv_start[slots] = 0
         t.gen_count[slots] = [len(e.generated) for e in entries]
         t.gen_budget[slots] = self.max_gen_len
 
@@ -400,8 +434,15 @@ class SlotEngine:
 
     def _bucket_width(self, width: int) -> int:
         assert width <= self.max_total_len, (width, self.max_total_len)
-        # padded positions beyond prompt_lens are masked via kv_len
-        return min(next_pow2(width), self.max_total_len)
+        if self.model.padding_side == "right":
+            # padded positions beyond prompt_lens are masked via kv_len
+            return min(next_pow2(width), self.max_total_len)
+        # left padding: the tokens end at the bucketed width, so kv_len =
+        # width and every pad column takes generation headroom out of the
+        # cache; bucket only while the whole generation budget still
+        # fits, else take the exact width (the reference's rule)
+        safe = self.max_total_len - self.max_gen_len - 1
+        return max(width, min(next_pow2(width), max(safe, 1)))
 
     def _bucket_batch(self, k: int) -> int:
         return min(next_pow2(k), self.capacity)
@@ -456,8 +497,10 @@ class SlotEngine:
                 scales=self.kv_scales or None)
             self.kv.append_tokens(uids_act, t.next_token[act].tolist())
         else:          # the model's decode_step takes the pattern's decode
+            kw = ({"kv_start": self._tensor(self.slots.kv_start)}
+                  if self.model.padding_side == "left" else {})
             out, _ = self.model.decode_step(params, token, self.cache,
-                                            kv_len)
+                                            kv_len, **kw)
         return self._fused_greedy(params, out) if fused else \
             self._sample(out)
 

@@ -293,3 +293,32 @@ def test_head_dim_96_matches_its_plain_versions(dev):
     with pytest.raises(ValueError):
         ops.ragged_decode_attention(q.float(), kc.float(), vc.float(), lens)
     assert ops.launch_counts() == before
+
+
+def test_dense_decode_kernel_with_kv_start_matches_its_plain_version(dev):
+    """The dense decode kernel over rows [kv_start, kv_len) at Zamba2's
+    head (D 64, G 1), bf16 and f32, S 700 (three splits of 256 rows):
+    kv_start 0, one live row, on and inside a split's edge, kv_start ==
+    kv_len and a slot with kv_len 0 (zeros); f32 within 1e-4, bf16 by
+    ``chip_smoke.py``'s decode rule.  A bad kv_start raises."""
+    from repro_torch.kernels import ref
+    S, H = 700, 8
+    lens = torch.tensor([600, 600, 600, 700, 300, 0], dtype=torch.int32,
+                        device=dev)
+    starts = torch.tensor([0, 599, 256, 300, 300, 0], dtype=torch.int32,
+                          device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(13)
+        q = torch.randn((6, H, 64), generator=g, device=dev).to(dtype)
+        kc, vc = (torch.randn((6, S, H, 64), generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        got = ops.ragged_decode_attention(q, kc, vc, lens, kv_start=starts)
+        want = ref.ragged_decode_attention_ref(q, kc, vc, lens,
+                                               kv_start=starts)
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4
+        else:
+            assert _decode_excess(got, want) <= 0
+        assert not got[4:].any()
+    with pytest.raises(ValueError):
+        ops.ragged_decode_attention(q, kc, vc, lens, kv_start=starts.long())

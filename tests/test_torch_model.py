@@ -384,7 +384,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
             build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="hybrid"), device="cpu")
+        build_model(cfg.replace(family="no_such_family"), device="cpu")
 
 
 def test_convert_lands_on_the_card_unless_the_cpu_is_asked():
