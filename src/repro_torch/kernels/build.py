@@ -162,15 +162,21 @@ def split_scratch(splits: int, B: int, H: int, D: int,
 
 # (head dim, query heads per KV head) of the decode kernels: every pair of
 # these in f32 and bf16 (and (64, 3), Granite-MoE-3B-A800M), and the wide
-# heads in bf16 on fp K/V only (Nemotron-4-340B, Gemma2-2B,
-# Qwen3-MoE-235B-A22B, Phi-3-Vision-4.2B)
+# heads in bf16 (Nemotron-4-340B, Gemma2-2B, Qwen3-MoE-235B-A22B,
+# Phi-3-Vision-4.2B); int8 pages take every wide head but Gemma2-2B's,
+# which serves on the dense layout only
 DECODE_SHAPES = {(d, g) for d in (64, 128) for g in (1, 2, 4, 8)} | {(64, 3)}
 DECODE_WIDE_SHAPES = {(192, 12), (256, 2), (128, 16), (96, 1)}
+DECODE_INT8_WIDE_SHAPES = {(192, 12), (128, 16), (96, 1)}
 
 
-def decode_shape_ok(D: int, G: int, dtype: torch.dtype) -> bool:
+def decode_shape_ok(D: int, G: int, dtype: torch.dtype,
+                    int8: bool = False) -> bool:
+    """Whether a decode kernel is instantiated at (D, G) for q of
+    ``dtype``, over fp K/V or (``int8``) int8 pages."""
+    wide = DECODE_INT8_WIDE_SHAPES if int8 else DECODE_WIDE_SHAPES
     return (D, G) in DECODE_SHAPES or (
-        dtype == torch.bfloat16 and (D, G) in DECODE_WIDE_SHAPES)
+        dtype == torch.bfloat16 and (D, G) in wide)
 
 
 def data_ptr(t) -> int | None:

@@ -19,16 +19,25 @@
 //     entries (and, for int8 pages, the pages' scales) are read once per
 //     page into shared memory and expanded to one row index (and scale)
 //     per row, so no row waits on a table lookup;
-//   * K and then V tiles of the split (kDecodeTileBytes each, or 32 rows
-//     of the wide bf16 rows, 16 B per row of padding so reads have no bank
-//     conflicts) stream through a kDecodeStages-deep shared-memory ring
-//     filled with `cp.async.cg`, 16 bytes a thread, several tiles in
+//   * K and then V tiles of the split (kDecodeTileBytes each, or 32 or
+//     64 rows of the wide rows, 16 B per row of padding so reads have no
+//     bank conflicts) stream through a kDecodeStages-deep shared-memory
+//     ring filled with `cp.async.cg`, 16 bytes a thread, several tiles in
 //     flight;
-//   * scores: 4 lanes own a row (a quarter of D each) and sum over 2
-//     shuffles for all G heads at once; q sits in registers (or, for wide
-//     G x D, in shared memory).  The scores of the whole split stay in
-//     shared memory, so the softmax runs once per split (one max and one
-//     sum per head), with no running rescale;
+//   * scores: 4 lanes own a row (a quarter of its 16-B chunks each) and
+//     sum over 2 shuffles for all G heads at once; q sits in registers
+//     (or, for wide G x D, in shared memory).  The scores of the whole
+//     split stay in shared memory, so the softmax runs once per split
+//     (one max and one sum per head), with no running rescale.  An int8
+//     D 96 row is 6 chunks, which 4 lanes cannot share evenly: its row is
+//     padded in shared memory to 8 chunks (a 144-B pitch) and its lanes
+//     take 2 each.  The pad chunks are never copied or written, and q is
+//     zero at their columns: any byte decodes to a finite integer in
+//     [-128, 127], so they add exactly 0 to a score.  Padding keeps the
+//     one row split that every other shape runs, where a split of its
+//     own (3 lanes of 2 chunks, or 2 of 3) would need other shuffles and
+//     another owner for each head's score; the 2 pad chunks cost FMAs on
+//     zeros, at G 1 a small share of a byte-bound kernel;
 //   * P V: a thread owns 8 columns of D and a row group, accumulates its
 //     rows in f32 registers, and the row groups are summed in shared
 //     memory once at the end (at D = 192, 5 row groups of 24 threads: the
@@ -67,23 +76,41 @@ inline int decode_splits(int rows) {
   return rows <= 0 ? 1 : (rows + kDecodeSplitRows - 1) / kDecodeSplitRows;
 }
 
+// Rows of a ring stage for rows of D elements, `load_chunks` 16-B copies
+// each: the most rows that fit kDecodeTileBytes, a multiple of 8
+// (score_tile takes 8 rows for each of the 4 warps) whose copies the 128
+// threads divide evenly; rows wider than 128 elements take at least 32,
+// a full pass of the 4 warps (their 8 KB holds 16 or 21).  So bf16 D 96
+// takes 32 rows (8 KB is 42 2/3; 40 x 12 chunks does not divide), int8
+// D 96 64 (85 1/3), int8 D 192 32 (42 2/3), bf16 D 192 and D 256 32,
+// f32 D 128 16, and the other shapes the 8 KB tile.
+constexpr int decode_tile_rows(int d, int row_bytes, int load_chunks) {
+  int rows = kDecodeTileBytes / row_bytes / 8 * 8;
+  while (rows > 0 && rows * load_chunks % kDecodeThreads != 0) rows -= 8;
+  return d > 128 && rows < 32 ? 32 : rows;
+}
+
 template <typename KV, int D>
 struct DecodeShape {
   static constexpr int kRowBytes = D * (int)sizeof(KV);
-  static constexpr int kRowPitch = kRowBytes + 16;       // padded in shared
-  static constexpr int kChunks = kRowBytes / 16;         // 16-B pieces a row
+  static constexpr int kLoadChunks = kRowBytes / 16;     // 16-B pieces copied
+  // pieces the 4 lanes of a row split: the row's, rounded up to a
+  // multiple of 4 (int8 D 96: 6 -> 8, two pad chunks; see the header)
+  static constexpr int kChunks = (kLoadChunks + 3) / 4 * 4;
+  static constexpr int kRowPitch = kChunks * 16 + 16;    // padded in shared
   static constexpr int kChunkElems = 16 / (int)sizeof(KV);
-  // rows of a ring stage: kDecodeTileBytes, but 32 for the wide bf16 rows
-  // (D 192 and 256), where 8 KB is 21 1/3 or 16 rows and score_tile wants
-  // 8 rows for each of the 4 warps, and for bf16 D 96, where 8 KB is
-  // 42 2/3 rows (32 rows x 12 chunks is 3 copies of the 128 threads)
-  static constexpr int kTileRows = (sizeof(KV) == 2 && (D > 128 || D == 96))
-                                       ? 32 : kDecodeTileBytes / kRowBytes;
+  static constexpr int kQCols = kChunks * kChunkElems;   // q's padded width
+  static constexpr int kTileRows = decode_tile_rows(D, kRowBytes,
+                                                    kLoadChunks);
   static constexpr int kStageBytes = kTileRows * kRowPitch;
   static constexpr int kVChunks = D / 8;                 // P V: 8 columns
   static constexpr int kRowGroups = kDecodeThreads / kVChunks;
   static constexpr int kPVThreads = kRowGroups * kVChunks;   // <= 128
-  static_assert(kTileRows % 8 == 0 && kChunks % 4 == 0, "decode tile shape");
+  static_assert(kTileRows > 0 && kTileRows % 8 == 0 &&
+                kTileRows * kLoadChunks % kDecodeThreads == 0,
+                "decode tile shape");
+  static_assert(kChunks == kLoadChunks || sizeof(KV) == 1,
+                "only int8 rows are padded (other bytes may decode to NaN)");
 };
 
 // Dynamic shared memory: a region that holds the ring (and, before it
@@ -102,7 +129,8 @@ __host__ __device__ constexpr int decode_region_bytes() {
 template <typename KV, int D, int G>
 __host__ __device__ constexpr int decode_smem_bytes() {
   return decode_region_bytes<KV, D, G>()
-         + (G * D + kDecodeSplitRows * G + 3 * kDecodeSplitRows + 2 * G) * 4;
+         + (G * DecodeShape<KV, D>::kQCols + kDecodeSplitRows * G
+            + 3 * kDecodeSplitRows + 2 * G) * 4;
 }
 
 // Where the rows are and what the kernel writes.  Row r of the CTA's slot
@@ -212,7 +240,7 @@ __device__ __forceinline__ void score_tile(
     int warp) {
   using Sh = DecodeShape<KV, D>;
   constexpr int TR = Sh::kTileRows, QC = Sh::kChunks / 4;
-  constexpr int CE = Sh::kChunkElems;
+  constexpr int CE = Sh::kChunkElems, QD = Sh::kQCols;
   const int j = lane >> 3;
 #pragma unroll
   for (int rr0 = 0; rr0 < TR; rr0 += 32) {
@@ -222,26 +250,51 @@ __device__ __forceinline__ void score_tile(
       float s[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) s[g] = 0.f;
+      // 4 elements of q, the chunk's e4-th to e4+3-th, of head g
+      auto q4 = [&](int g, int c, int e4) {
+        if constexpr (kQReg) {
+          return make_float4(qr[g][c * CE + e4], qr[g][c * CE + e4 + 1],
+                             qr[g][c * CE + e4 + 2], qr[g][c * CE + e4 + 3]);
+        } else {
+          return *reinterpret_cast<const float4*>(
+              qs + g * QD + (j * QC + c) * CE + e4);
+        }
+      };
 #pragma unroll
       for (int c = 0; c < QC; ++c) {
-        float kf[CE];
-        unpack16<KV>(*reinterpret_cast<const uint4*>(row + c * 16), kf);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
+        const uint4 w4 = *reinterpret_cast<const uint4*>(row + c * 16);
+        if constexpr (sizeof(KV) == 1) {
+          // a word (4 int8) at a time for every head: 4 K values live
+          // where the whole chunk's 16 would be (beside G x 8
+          // accumulators at G 12 and 16); each s[g] sums in the same
+          // order as the branch below
+          const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
           for (int e4 = 0; e4 < CE; e4 += 4) {
-            float4 qv;
-            if constexpr (kQReg) {
-              qv = make_float4(qr[g][c * CE + e4], qr[g][c * CE + e4 + 1],
-                               qr[g][c * CE + e4 + 2], qr[g][c * CE + e4 + 3]);
-            } else {
-              qv = *reinterpret_cast<const float4*>(
-                  qs + g * D + (j * QC + c) * CE + e4);
+            float kf[4];
+            unpack_i8x4(w[e4 / 4], kf);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float4 qv = q4(g, c, e4);
+              s[g] = fmaf(qv.x, kf[0], s[g]);
+              s[g] = fmaf(qv.y, kf[1], s[g]);
+              s[g] = fmaf(qv.z, kf[2], s[g]);
+              s[g] = fmaf(qv.w, kf[3], s[g]);
             }
-            s[g] = fmaf(qv.x, kf[e4], s[g]);
-            s[g] = fmaf(qv.y, kf[e4 + 1], s[g]);
-            s[g] = fmaf(qv.z, kf[e4 + 2], s[g]);
-            s[g] = fmaf(qv.w, kf[e4 + 3], s[g]);
+          }
+        } else {
+          float kf[CE];
+          unpack16<KV>(w4, kf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+#pragma unroll
+            for (int e4 = 0; e4 < CE; e4 += 4) {
+              const float4 qv = q4(g, c, e4);
+              s[g] = fmaf(qv.x, kf[e4], s[g]);
+              s[g] = fmaf(qv.y, kf[e4 + 1], s[g]);
+              s[g] = fmaf(qv.z, kf[e4 + 2], s[g]);
+              s[g] = fmaf(qv.w, kf[e4 + 3], s[g]);
+            }
           }
         }
       }
@@ -321,9 +374,10 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
   // accumulators without spilling (checked by ptxas for every shape);
   // Gemma2's D 256, G 2 spills 4 bytes with q in shared memory (at 80
   // registers) and none with it in registers (217)
-  constexpr bool kQReg = G * D / 4 <= (sizeof(KV) == 4 ? 32 : 64) ||
+  constexpr int QD = Sh::kQCols;
+  constexpr bool kQReg = G * QD / 4 <= (sizeof(KV) == 4 ? 32 : 64) ||
                          (sizeof(KV) == 2 && D == 256 && G == 2);
-  constexpr int QR = kQReg ? D / 4 : 1;
+  constexpr int QR = kQReg ? QD / 4 : 1;
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // the live rows are [st, min(kv_len, cap)); splits count from st
@@ -346,14 +400,17 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
   unsigned char* ring = rt_decode_smem;
   constexpr int kRegion = decode_region_bytes<KV, D, G>();
   float* qs = reinterpret_cast<float*>(rt_decode_smem + kRegion);
-  float* sc = qs + G * D;                     // (SR, G) scores, then weights
+  float* sc = qs + G * QD;                    // (SR, G) scores, then weights
   int* rows = reinterpret_cast<int*>(sc + SR * G);
   float* ksr = reinterpret_cast<float*>(rows + SR);   // int8: row scales
   float* vsr = ksr + SR;
   float* ml = vsr + SR;                       // (2, G): max, sum
 
   const T* q = static_cast<const T*>(p.q) + ((long long)b * p.H + kh * G) * D;
-  for (int i = tid; i < G * D; i += NT) qs[i] = to_f(q[i]) * p.scale;
+  for (int i = tid; i < G * QD; i += NT) {   // (G, QD): zero past D
+    const int g = i / QD, d = i % QD;
+    qs[i] = d < D ? to_f(q[g * D + d]) * p.scale : 0.f;
+  }
   if (p.table != nullptr) {
     // the split's table entries (and page scales) once per page, then one
     // row index (and scale) per row; the ring is not in use yet
@@ -391,7 +448,7 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int x = 0; x < QR; ++x) qr[g][x] = qs[g * D + (lane >> 3) * QR + x];
+      for (int x = 0; x < QR; ++x) qr[g][x] = qs[g * QD + (lane >> 3) * QR + x];
   }
   if constexpr (kInt8) {
     if (has_new && warp == 0) {               // the new row's scores
@@ -400,7 +457,7 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s = fmaf(qs[g * D + d], to_f(kn[d]), s);
+        for (int d = lane; d < D; d += 32) s = fmaf(qs[g * QD + d], to_f(kn[d]), s);
         s = warp_sum(s);
         if (lane == 0) sc[nk * G + g] = cap_score(s, p.softcap);
       }
@@ -419,8 +476,9 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
       const char* src = isv ? vbase : kbase;
       const uint32_t dst = smem_u32(ring + (it % kDecodeStages) * Sh::kStageBytes);
 #pragma unroll
-      for (int c0 = 0; c0 < TR * Sh::kChunks; c0 += NT) {
-        const int c = c0 + tid, rr = c / Sh::kChunks, ch = c % Sh::kChunks;
+      for (int c0 = 0; c0 < TR * Sh::kLoadChunks; c0 += NT) {
+        const int c = c0 + tid, rr = c / Sh::kLoadChunks;
+        const int ch = c % Sh::kLoadChunks;
         if (row0 + rr < nk)
           cp_async16(dst + rr * Sh::kRowPitch + ch * 16,
                      src + (long long)rows[row0 + rr] * row_stride + ch * 16,
@@ -593,12 +651,15 @@ static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
   RT_DECODE_CASE(64, 4, D_, G_, LAUNCH) RT_DECODE_CASE(64, 8, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 1, D_, G_, LAUNCH) RT_DECODE_CASE(128, 2, D_, G_, LAUNCH) \
   RT_DECODE_CASE(128, 4, D_, G_, LAUNCH) RT_DECODE_CASE(128, 8, D_, G_, LAUNCH)
-// The wide heads, bf16 q and K/V only: Nemotron-4-340B (D 192, 96 query
-// heads over 8 KV heads), Gemma2-2B (D 256, G 2), Qwen3-MoE-235B-A22B
-// (D 128, 64 query heads over 4 KV heads) and Phi-3-Vision-4.2B (D 96,
-// G 1: 32 query heads, 32 KV heads).
-#define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH)                                 \
-  RT_DECODE_CASE(192, 12, D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH) \
+// The wide heads, bf16 q only: Nemotron-4-340B (D 192, 96 query heads
+// over 8 KV heads), Gemma2-2B (D 256, G 2), Qwen3-MoE-235B-A22B (D 128,
+// 64 query heads over 4 KV heads) and Phi-3-Vision-4.2B (D 96, G 1: 32
+// query heads, 32 KV heads), on bf16 K/V; on int8 pages all but Gemma2's,
+// which serves on the dense layout only.
+#define RT_DECODE_INT8_WIDE_SHAPES(D_, G_, LAUNCH)                            \
+  RT_DECODE_CASE(192, 12, D_, G_, LAUNCH)                                     \
   RT_DECODE_CASE(128, 16, D_, G_, LAUNCH) RT_DECODE_CASE(96, 1, D_, G_, LAUNCH)
+#define RT_DECODE_WIDE_SHAPES(D_, G_, LAUNCH)                                 \
+  RT_DECODE_INT8_WIDE_SHAPES(D_, G_, LAUNCH) RT_DECODE_CASE(256, 2, D_, G_, LAUNCH)
 #define RT_DECODE_CASE(DD, GG, D_, G_, LAUNCH) \
   if (D_ == DD && G_ == GG) return LAUNCH(DD, GG);

@@ -21,11 +21,12 @@
 // from k_new/v_new, as the reference engine attends before it requantises
 // the written page.  Rows at or past kv_len are never read, kv_len == 0
 // gives zeros.  Head shapes: D 64/128 with G 1/2/4/8 and Granite-MoE's
-// D 64, G 3 in f32 and bf16 (fp or int8 pages), and on bf16 fp pages
-// Nemotron-4-340B's D 192, G 12, Gemma2-2B's D 256, G 2,
-// Qwen3-MoE-235B-A22B's D 128, G 16 and Phi-3-Vision-4.2B's D 96, G 1
-// (int8 pages do not take D 96: a 96-byte row is 6 chunks, not a
-// multiple of the 4 lanes that share a row's scores).
+// D 64, G 3 in f32 and bf16 (fp or int8 pages), and with bf16 q
+// Nemotron-4-340B's D 192, G 12, Qwen3-MoE-235B-A22B's D 128, G 16 and
+// Phi-3-Vision-4.2B's D 96, G 1 (fp or int8 pages; an int8 D 96 row is
+// 6 chunks, padded to 8 in shared memory, see decode_attention.cuh) and
+// Gemma2-2B's D 256, G 2 (fp pages only: Gemma2 serves on the dense
+// layout).
 
 #include "decode_attention.cuh"
 
@@ -37,9 +38,12 @@ template <typename T, typename KV>
 int dispatch(int D, int G, DecodeParams& p, int B, cudaStream_t s) {
 #define RT_LAUNCH(DD, GG) (int)launch_decode<T, KV, DD, GG>(p, B, s)
   RT_DECODE_SHAPES(D, G, RT_LAUNCH)
-  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
-                std::is_same<KV, T>::value) {
-    RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (std::is_same<KV, T>::value) {
+      RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)
+    } else {                                  // int8 pages
+      RT_DECODE_INT8_WIDE_SHAPES(D, G, RT_LAUNCH)
+    }
   }
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;

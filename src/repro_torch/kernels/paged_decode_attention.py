@@ -111,14 +111,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
                   f" do not match q {tuple(q.shape)}")
     tiny = (D == 32 and H == Kh and q.dtype == torch.float32
             and kv_code != build.KV_INT8)
-    # int8 pages: the (D, G) pairs of both dtypes only
-    fits = build.decode_shape_ok(D, H // Kh, q.dtype) and (
-        kv_code != build.KV_INT8 or (D, H // Kh) in build.DECODE_SHAPES)
+    fits = build.decode_shape_ok(D, H // Kh, q.dtype,
+                                 int8=kv_code == build.KV_INT8)
     build.require(H % Kh == 0 and (fits or tiny),
                   name, f"needs G in (1, 2, 4, 8), D in (64, 128), or (D, G) "
-                  f"(64, 3) (or G 1, D 32 on f32 pages; or in bf16 fp pages "
-                  f"(D, G) in (192, 12), (256, 2), (128, 16), (96, 1)); "
-                  f"got H={H} Kh={Kh} D={D} {q.dtype}")
+                  f"(64, 3) (or G 1, D 32 on f32 pages; or with bf16 q "
+                  f"(D, G) in (192, 12), (128, 16), (96, 1), and (256, 2) on "
+                  f"fp pages only); got H={H} Kh={Kh} D={D} {q.dtype}"
+                  + (" on int8 pages" if kv_code == build.KV_INT8 else ""))
     build.require(block_tables.shape == (B, nb) and kv_len.shape == (B,),
                   name, "block_tables (B, nb) and kv_len (B,) expected")
     build.require(block_tables.dtype == torch.int32

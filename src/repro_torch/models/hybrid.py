@@ -93,19 +93,31 @@ def _mamba_layers(params: Params, cfg: ModelConfig):
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, V) with plain attention (``full_attention`` up to
-    ``FULL_ATTN_MAX_SEQ``, blockwise above), as the reference scores."""
+    ``FULL_ATTN_MAX_SEQ``, blockwise above), as the reference scores.
+    With ``cfg.remat`` each group (its Mamba2 layers, then the shared
+    block) is recomputed in the backward (``L.remat``); the tail layers
+    are not, as in the reference."""
     x = TF.embed_tokens(params, cfg, tokens)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
     attention = (L.full_attention if T <= TF.FULL_ATTN_MAX_SEQ
                  else L.blockwise_attention)
-    for kind, _, mp in _mamba_layers(params, cfg):
-        if kind == "attn":
-            x, _, _ = _shared_block(
-                params["shared_attn"], cfg, x, positions,
-                lambda q, k, v: attention(q, k, v, causal=True))
-        else:
-            x = x + S.mamba2_forward(mp, cfg, x)
+    g, k, tail = _layout(cfg)
+
+    def group(x, gi):
+        for j in range(k):
+            x = x + S.mamba2_forward(TF.pick(params["mamba_main"], (gi, j)),
+                                     cfg, x)
+        x, _, _ = _shared_block(
+            params["shared_attn"], cfg, x, positions,
+            lambda q, k, v: attention(q, k, v, causal=True))
+        return x
+
+    body = L.remat(cfg, group)
+    for gi in range(g):
+        x = body(x, gi)
+    for t in range(tail):
+        x = x + S.mamba2_forward(TF.pick(params["mamba_tail"], t), cfg, x)
     return TF.lm_logits(params, cfg, x)
 
 

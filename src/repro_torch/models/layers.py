@@ -1,6 +1,7 @@
 """Shared model building blocks (counterpart of ``repro/models/layers.py``):
 norms, rotary and sinusoidal position embeddings, plain attention (full
-and blockwise), projections, MLP.
+and blockwise), projections, MLP, and ``remat`` for the models' layer
+groups.
 
 Plain functions on tensors and dicts of parameters, in the reference's
 layouts: q (B, S, H, D), k/v (B, S, Kh, D), ``wq`` (d, H, hd), ``wo``
@@ -11,12 +12,30 @@ accumulated in f32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
+
+
+def remat(cfg, body: Callable) -> Callable:
+    """``body`` (one layer group of a forward), recomputed in the backward
+    instead of keeping its activations when ``cfg.remat`` is set and
+    autograd records, as the reference wraps its scan body in
+    ``jax.checkpoint``; ``body`` itself otherwise (prefill, decode and any
+    ``no_grad`` forward are unchanged).  The values and gradients are the
+    same either way."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+
+    def checkpointed(*args):
+        return torch.utils.checkpoint.checkpoint(body, *args,
+                                                 use_reentrant=False)
+    return checkpointed
+
 
 # ---------------------------------------------------------------------------
 # Norms

@@ -235,7 +235,9 @@ def forward(params: Params, cfg: ModelConfig,
     ``FULL_ATTN_MAX_SEQ`` positions, ``blockwise_attention`` above (one
     score tile at a time; under autograd every tile is kept for the
     backward).  It is the independent check of the engine's kernel path,
-    and the trainer's path."""
+    and the trainer's path.  With ``cfg.remat`` each group of
+    ``pattern_len`` layers (the reference's scan body, the aux sums
+    included) is recomputed in the backward (``L.remat``)."""
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -243,15 +245,21 @@ def forward(params: Params, cfg: ModelConfig,
                  else L.blockwise_attention)
     pl = pattern_len(cfg)
     mlp = mlp_fn(cfg)
-    aux_sum = dict(ZERO_AUX)
 
-    for i in range(cfg.num_layers):
-        def attend(q, k, v, window=_sub_window(cfg, i % pl)):
-            return attention(q, k, v, causal=True, window=window,
-                             softcap=cfg.attn.attn_softcap)
-        x, _, _, aux = _block(layer(params, i, cfg), cfg, x, positions,
-                              attend, mlp)
-        aux_sum = {n: aux_sum[n] + aux[n] for n in aux_sum}
+    def group(x, aux_sum, gi):
+        for i in range(gi * pl, (gi + 1) * pl):
+            def attend(q, k, v, window=_sub_window(cfg, i % pl)):
+                return attention(q, k, v, causal=True, window=window,
+                                 softcap=cfg.attn.attn_softcap)
+            x, _, _, aux = _block(layer(params, i, cfg), cfg, x, positions,
+                                  attend, mlp)
+            aux_sum = {n: aux_sum[n] + aux[n] for n in aux_sum}
+        return x, aux_sum
+
+    body = L.remat(cfg, group)
+    aux_sum = dict(ZERO_AUX)
+    for gi in range(cfg.num_layers // pl):
+        x, aux_sum = body(x, aux_sum, gi)
     return lm_logits(params, cfg, x), aux_sum
 
 

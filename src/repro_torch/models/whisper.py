@@ -85,18 +85,24 @@ def _self_attention(q, k, v, causal: bool):
 
 def encode(params: Params, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, T_enc, d) stub frame embeddings -> encoder states."""
+    """frames (B, T_enc, d) stub frame embeddings -> encoder states.
+    With ``cfg.remat`` each block is recomputed in the backward."""
     B, T, _ = frames.shape
     x = frames.to(cfg.compute_dtype)
     x = x + L.sinusoidal_embedding(T, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(T, device=x.device).expand(B, T)
-    for i in range(cfg.encoder_layers):
+
+    def block(x, i):
         bp = TF.pick(params["enc_layers"], i)
         q, k, v = L.qkv_project(bp["attn"], cfg, _norm(cfg, x, bp["ln1"]),
                                 positions)
         x = x + L.attn_output(bp["attn"], _self_attention(q, k, v, False))
-        x = x + L.mlp(bp["mlp"], _norm(cfg, x, bp["ln2"]), cfg.mlp_act,
-                      cfg.gated_mlp)
+        return x + L.mlp(bp["mlp"], _norm(cfg, x, bp["ln2"]), cfg.mlp_act,
+                         cfg.gated_mlp)
+
+    body = L.remat(cfg, block)
+    for i in range(cfg.encoder_layers):
+        x = body(x, i)
     return _norm(cfg, x, params["enc_norm"])
 
 
@@ -134,15 +140,21 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
 def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     enc_states: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder pass over tokens (B, S): logits (B, S, V),
-    plain attention."""
+    plain attention.  With ``cfg.remat`` each block is recomputed in the
+    backward."""
     x = _embed(params, cfg, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     k_x, v_x = cross_kv(params, cfg, enc_states)
+
+    def block(x, kx, vx, i):
+        return _dec_block(TF.pick(params["dec_layers"], i), cfg, x,
+                          positions, kx, vx,
+                          lambda q, k, v: _self_attention(q, k, v, True))[0]
+
+    body = L.remat(cfg, block)
     for i in range(cfg.num_layers):
-        x, _, _ = _dec_block(TF.pick(params["dec_layers"], i), cfg, x,
-                             positions, k_x[i], v_x[i],
-                             lambda q, k, v: _self_attention(q, k, v, True))
+        x = body(x, k_x[i], v_x[i], i)
     return TF.lm_logits(params, cfg, x)
 
 

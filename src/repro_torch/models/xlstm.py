@@ -356,13 +356,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits (B, S, V).  ``valid`` (B, S) bool masks left pads: their
     embeddings are zeroed and no block reads or updates anything there
-    (module docstring)."""
+    (module docstring).  With ``cfg.remat`` each mLSTM + sLSTM pair is
+    recomputed in the backward."""
     x = TF.embed_tokens(params, cfg, tokens)
     if valid is not None:
         x = _masked(x, valid)
-    for _, mp, sp in _pairs(params, cfg):
-        x = mlstm_block(mp, cfg, x, valid=valid)
-        x = slstm_block(sp, cfg, x, valid=valid)
+
+    def pair(x, i):
+        x = mlstm_block(TF.pick(params["mlstm"], i), cfg, x, valid=valid)
+        return slstm_block(TF.pick(params["slstm"], i), cfg, x, valid=valid)
+
+    body = L.remat(cfg, pair)
+    for i in range(cfg.num_layers // 2):
+        x = body(x, i)
     return TF.lm_logits(params, cfg, x)
 
 

@@ -14,11 +14,12 @@ the parameters' storage, and AdamW then writes the new values into the
 parameters in place, so the rollout engine's ``params_fn`` (this
 trainer's ``params``) reads them with no copy.
 
-The reference also places the batch on a device mesh when one is
-installed (``shard_update_batch``); the port runs on one device, where
-that placement is the identity, and builds the batch on the model's
-device.  The Trainer protocol (``make_trainer`` etc.) is re-exported
-from :mod:`repro_torch.rl.trainer_api`.
+The batch is built on the model's device and ends, as the reference's
+does, in ``shard_update_batch`` (:mod:`repro_torch.distributed.sharding`):
+the identity outside an ``axis_rules`` context, and inside one a padding
+to the data shards' count with inert rows (one device places nothing).
+The Trainer protocol (``make_trainer`` etc.) is re-exported from
+:mod:`repro_torch.rl.trainer_api`.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.buffer import BufferEntry
 from repro_torch.core.orchestrator import UpdateRequest, UpdateResult
+from repro_torch.distributed.sharding import shard_update_batch
 from repro_torch.models.model import Model
 from repro_torch.rl import advantages as A
 from repro_torch.rl.losses import LossConfig, total_loss
@@ -130,6 +132,9 @@ def entries_to_batch(entries: Sequence[BufferEntry], reward_fn: RewardFn,
         "advantages": adv,
         "old_logprobs": torch.from_numpy(old_lp).to(dev),
     }
+    # identity outside an axis_rules context; inside one, inert pad rows
+    # up to the data shards' count (after the advantages, as the reference)
+    batch = shard_update_batch(batch, pad_token=pad_id)
     info = {
         "reward_mean": float(rewards.mean()),
         "reward_std": float(rewards.std()),

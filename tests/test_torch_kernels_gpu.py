@@ -185,7 +185,8 @@ def test_wide_head_kernels_match_their_plain_versions(dev):
 
 
 def test_wide_heads_stay_bf16_fp_only(dev):
-    """D 192/256 exist in bf16 on fp K/V only: f32 and int8 pages raise."""
+    """D 192/256 exist in bf16 only: f32 raises, and so do int8 pages at
+    Gemma2's D 256, G 2 (Gemma2 serves on the dense layout)."""
     before = ops.launch_counts()
     q = torch.zeros((2, 24, 192), device=dev)
     pages = torch.zeros((3, 16, 2, 192), device=dev)
@@ -193,12 +194,13 @@ def test_wide_heads_stay_bf16_fp_only(dev):
     kv = torch.ones((2,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         ops.paged_decode_attention(q, pages, pages, bt, kv)
-    p8 = pages.to(torch.int8)
+    p8 = torch.zeros((3, 16, 2, 256), dtype=torch.int8, device=dev)
     sc = torch.ones((3,), device=dev)
-    rows = torch.zeros((2, 2, 192), device=dev).bfloat16()
+    rows = torch.zeros((2, 2, 256), device=dev).bfloat16()
     with pytest.raises(ValueError):
-        ops.paged_decode_attention_int8(q.bfloat16(), p8, p8, sc, sc, bt, kv,
-                                        k_new=rows, v_new=rows)
+        ops.paged_decode_attention_int8(
+            torch.zeros((2, 4, 256), device=dev).bfloat16(), p8, p8, sc, sc,
+            bt, kv, k_new=rows, v_new=rows)
     with pytest.raises(ValueError):
         ops.flash_attention(torch.zeros((1, 4, 4, 256), device=dev),
                             torch.zeros((1, 4, 2, 256), device=dev),
@@ -257,7 +259,7 @@ def test_head_dim_96_matches_its_plain_versions(dev):
     97 (the 16-chunk pitch's rows 8-15 of a tile) with segments, the
     dense and paged decode at kv_len 0, 1, a page's last and first row and
     a split's edges, against the plain versions with ``chip_smoke.py``'s
-    bf16 tolerances; int8 pages and f32 raise at D 96."""
+    bf16 tolerances; f32 raises at D 96, on fp and int8 pages."""
     from repro_torch.kernels import ref
     for S, seg in ((33, False), (65, True), (97, False)):
         q, k, v = (_bf16(dev, 2, S, 4, 96, seed=i) for i in range(3))
@@ -288,8 +290,8 @@ def test_head_dim_96_matches_its_plain_versions(dev):
     before = ops.launch_counts()
     p8, sc = kp.to(torch.int8), torch.ones((kp.shape[0],), device=dev)
     with pytest.raises(ValueError):
-        ops.paged_decode_attention_int8(q, p8, p8, sc, sc, bt, lens,
-                                        k_new=q, v_new=q)
+        ops.paged_decode_attention_int8(q.float(), p8, p8, sc, sc, bt, lens,
+                                        k_new=q.float(), v_new=q.float())
     with pytest.raises(ValueError):
         ops.ragged_decode_attention(q.float(), kc.float(), vc.float(), lens)
     assert ops.launch_counts() == before
