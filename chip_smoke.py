@@ -12,6 +12,9 @@
                                             # (dense, MoE, VLM, audio,
                                             # hybrid, ssm) + rl_moe +
                                             # rl_vlm + rl_hybrid
+    python3 chip_smoke.py --phase launch    # kernel checks + the launch
+                                            # path (train, prefill, serve
+                                            # steps at full width)
 
 Phases, each printing one JSON line:
 
@@ -37,7 +40,10 @@ Phases, each printing one JSON line:
    cross-attention over 1500 live rows) and Zamba2-1.2B (D 64, G 1: the
    dense decode with ``kv_start`` over its left-padded slots, flash with
    the left-pad mask as segment ids over its 1024-wide prefill wave),
-   and at their edges (``family_shapes``); the dense decode with
+   and at their edges (``family_shapes``); the launch path's long rows:
+   flash at S = 32,768 (and 32,767), the dense decode over 33,280 rows
+   (B 8, D 128, G 2) and over 524,800 (B 1, D 256, G 2, softcap 50:
+   2,050 splits a head, merged); the dense decode with
    ``kv_start`` at 0, one live row, a split's edge and inside a split,
    ``kv_start = kv_len`` and ``kv_len`` 0, in bf16 and f32; the int8
    pages at (192, 12), (128, 16) and (96, 1) at kv_len 0 and 1, a page's
@@ -155,6 +161,27 @@ Phases, each printing one JSON line:
    ``rl_hybrid``: the same loop on Zamba2-1.2B on the dense layout, 4
    updates, the engine's logprobs held to the f32 forward as the
    trainer's bf16 forward is (``phase_rl``'s ``gap_to_f32``).
+
+8. ``launch``: the launch path (``repro_torch/launch``) at published
+   widths, bf16, random weights from a seed.  ``launch_train``: 3 steps
+   of ``build_train_step`` under each model's train_4k plan (its remat,
+   microbatches and moment dtype) for Qwen3-0.6B, Gemma2-2B,
+   Granite-MoE-3B-A800M, Phi-3-Vision-4.2B (576 zero patch rows),
+   Whisper-small (1500 zero frames), Zamba2-1.2B (S 4096) and
+   xLSTM-125M (S 1024), every one at full depth, the batch cut to 2-4
+   (``LAUNCH_CUTS``): update ms, peak GB, loss and grad norm (finite),
+   the fit report's ``model_flops`` and persistent bytes (peak at least
+   those), their share of 989 TFLOP/s, no kernel launch; where the plan
+   has microbatches, the step at 2 layers in f32 held to the same step at
+   ``microbatches=1`` (an MoE: to its definition) within ``STEP_TOL``.
+   ``launch_prefill``: ``build_prefill_step`` on Qwen3-0.6B at S = 32,768,
+   B 1: exactly 28 flash launches, then a run with flash's plain version
+   at every call and the kernel held to it (``PlainWitness``), tokens
+   equal but at a tie inside both.  ``launch_serve``: 8 steps of
+   ``build_serve_step`` on Qwen3-0.6B at decode_32k (B 8, 33,280 rows)
+   and Gemma2-2B at long_500k (B 1, 524,800 global rows) over random
+   caches: exactly the dense decode's launches, then 8 witnessed steps
+   (every call within ``DECODE_RULE``), step ms and tokens/s.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
 bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
@@ -375,6 +402,8 @@ def visible_pairs(S, window, seg):
     """(query, key) pairs the causal/window/segment masks let through,
     summed over the batch (the work the kernel's inputs need)."""
     import numpy as np
+    if not window and seg is None:
+        return S * (S + 1) // 2
     qpos = np.arange(S)[:, None]
     kpos = np.arange(S)[None, :]
     m = kpos <= qpos
@@ -1184,6 +1213,19 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
          0.0, True),
         ("s1500_d64_g1_kvlen_0_1_and_split_edges", 1500,
          [0, 1] + edges[:3] + [1499, 1500], 12, 12, 64, 0.0, False),
+        # the launch path's serve steps: Qwen3-0.6B at decode_32k (B 8,
+        # cache rows _round_len(32,768 + 8); the first step reads kv_len =
+        # S - 8 rows and the new one) and Gemma2-2B's global layers at
+        # long_500k (524,800 rows, 2,050 splits a slot, each merged),
+        # then their edges: kv_len 0, 1, a split's edge, every row live
+        ("qwen3_decode_32k_b8_s33280_d128_g2", 33_280, [32_761] * 8, 16, 8,
+         128, 0.0, True),
+        ("s33280_d128_g2_kvlen_0_1_split_edge_full", 33_280,
+         [0, 1, SR, SR + 1, 33_279, 33_280], 16, 8, 128, 0.0, False),
+        ("gemma2_long_500k_b1_s524800_d256_g2_softcap50", 524_800,
+         [524_281], 8, 4, 256, 50.0, True),
+        ("s524800_d256_g2_softcap50_full_and_one", 524_800, [524_800, 1],
+         8, 4, 256, 50.0, False),
     ]
     for case, S, lens, H, Kh, D, cap, is_timed in rd_cases:
         args = dense_inputs(torch, dev, bf16, lens, S, H, Kh, D)
@@ -1347,6 +1389,12 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
     # Gemma2, 32 x 1024 for Qwen1.5, 16 x 1024 for Nemotron): one launch
     # at the whole wave, held against the plain version two batch rows at
     # a time (rows are independent; slices bound the check's memory).
+    # The plain version is full_attention's arithmetic at every S
+    # (``flash_attention_rows_ref``): above 2048 rows the wrappers' plain
+    # version attends blockwise and rounds q/sqrt(D) to bf16 as the
+    # reference's long path does, which moves a row over a few keys by
+    # up to 0.0067 from an f64 attention where the kernel (q/sqrt(D) in
+    # f32) moved 0.0045 (S = 2049, row 3; H100 80GB HBM3 at 700 W).
     fa_rtol, fa_p, fa_rows = 2.0 ** -7, 2.0 ** -9, 2
     fa_cases = [
         # (case, B, S, H, Kh, D, seg, window, softcap, timed)
@@ -1396,6 +1444,11 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         ("zamba2_b32_s1024_d64_g1_left_pad", 32, 1024, 32, 32, 64,
          (1024 - np.random.RandomState(30).randint(64, 1025, size=32))
          .tolist(), 0, 0.0, True),
+        # the launch path's prefill step: Qwen3-0.6B at prefill_32k (B 1),
+        # and a ragged last tile at that length
+        ("qwen3_prefill_32k_b1_s32768_d128_g2", 1, 32_768, 16, 8, 128,
+         False, 0, 0.0, True),
+        ("s32767_d128_g2", 1, 32_767, 16, 8, 128, False, 0, 0.0, False),
     ] + [(f"s{S_}_d64_g1_left_pad_0_1_all_but_one", 3, S_, 32, 32, 64,
           [0, 1, S_ - 1], 0, 0.0, False) for S_ in (16, 33, 1024, 2048)]
     for case, B, S, H, Kh, D, seg, win, cap, is_timed in fa_cases:
@@ -1410,11 +1463,12 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         for b0 in range(0, B, fa_rows):
             sl = slice(b0, b0 + fa_rows)
             seg = None if s_ is None else s_[sl]
-            want = ref.flash_attention_ref(q[sl], k[sl], v[sl], window=win,
-                                           softcap=cap, seg_ids=seg)
-            wabs = ref.flash_attention_ref(q[sl], k[sl], v[sl].abs(),
-                                           window=win, softcap=cap,
-                                           seg_ids=seg).float()
+            want = ref.flash_attention_rows_ref(q[sl], k[sl], v[sl],
+                                                window=win, softcap=cap,
+                                                seg_ids=seg)
+            wabs = ref.flash_attention_rows_ref(q[sl], k[sl], v[sl].abs(),
+                                                window=win, softcap=cap,
+                                                seg_ids=seg).float()
             o = out[sl].float()
             err = max(err, maxerr(o, want))
             excess = max(excess, float(((o - want.float()).abs()
@@ -4427,6 +4481,483 @@ def moe_layer_check(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the launch path (repro_torch/launch) at full width
+# ---------------------------------------------------------------------------
+
+# label -> (arch, seq, batch): build_train_step under get_plan(arch,
+# "train_4k") (its remat, microbatches and moment dtype), every model at
+# its published widths and depth, bf16, random weights from a seed, the
+# launcher's batch (make_batch: random tokens and advantages, zero stub
+# rows).  Cuts (LAUNCH_CUTS): the batch, from train_4k's 256 to what one
+# card holds; xLSTM's seq.
+LAUNCH_TRAIN = {
+    "qwen3_0_6b": ("qwen3_0_6b", 4096, 2),
+    "gemma2_2b": ("gemma2_2b", 4096, 4),
+    "granite_moe": ("granite_moe_3b_a800m", 4096, 4),
+    "phi3_vision": ("phi_3_vision_4_2b", 4096, 4),
+    "whisper": ("whisper_small", 4096, 2),
+    "zamba2": ("zamba2_1_2b", 4096, 4),
+    "xlstm": ("xlstm_125m", 1024, 2),
+}
+# factors on the output projections at init, as in FAMILIES: Gemma2's
+# tied, capped head is one-hot at the init scale, so every logprob is 0
+# and the update's gradient ~1e-10 (loss 0.317986 at all 3 steps, grad
+# norm 7.9e-11 at 1x on an H100 80GB HBM3 at 700 W)
+LAUNCH_SCALES = {"gemma2_2b": {"wo": 8.0, "w_out": 8.0}}
+LAUNCH_CUTS = {
+    "batch": "train_4k's 256 rows cut to 2-4: one card, not a 256-chip pod",
+    "xlstm_seq": "xLSTM at S 1024, not 4096: its sLSTM is a per-step loop "
+                 "(3.06 s per 1024 steps on the H100, PERF.md section 5)",
+    "prefill_batch": "prefill_32k's 32 rows cut to 1 (cache 3.82 GB and "
+                     "bf16 logits 9.96 GB a row)",
+    "decode_32k_batch": "decode_32k's 128 rows cut to 8 (30.5 GB of cache)",
+}
+LAUNCH_STEPS = 3
+LAUNCH_SERVE_STEPS = 8
+LAUNCH_HOLD_SEQ = 1024      # the microbatch hold: 2 layers, f32, one batch
+LAUNCH_TIE = 0.05           # logits: a tie inside both runs of the prefill
+LAUNCH_STEP_TOL = dict(rtol=1e-4, atol=1e-6)   # tests/test_torch_rl.py:64
+# label -> (arch, shape, batch): build_serve_step on a dense cache of the
+# shape's rows filled with scaled random values, kv_len = S - 8
+LAUNCH_SERVE = {
+    "qwen3_decode_32k": ("qwen3_0_6b", "decode_32k", 8),
+    "gemma2_long_500k": ("gemma2_2b", "long_500k", 1),
+}
+LAUNCH_CACHE_SCALE = 0.5
+LAUNCH_PREFILL = ("qwen3_0_6b", 32_768, 1)     # arch, S, B (prefill_32k)
+
+
+def flash_excess(got, want, args, kwargs):
+    """The kernels phase's bf16 flash rule, less its 1e-3: <= 0 passes.
+    |out - want| - 2^-7 |want| - 2^-9 attn(|v|) - 1e-3, attn(|v|) the
+    plain version on |v|."""
+    from repro_torch.kernels import ref
+    q, k, v = args[:3]
+    wabs = ref.flash_attention_rows_ref(q, k, v.abs(), **kwargs).float()
+    w = want.float()
+    return float(((got.float() - w).abs() - 2.0 ** -7 * w.abs()
+                  - 2.0 ** -9 * wabs).max()) - 1e-3
+
+
+class PlainWitness:
+    """While installed, ``ops.<name>`` runs the kernel's plain version on
+    the tensors the model gives it and launches the kernel beside it on
+    the same inputs; each call's kernel output is held against the plain
+    version's by ``excess(got, want, args, kwargs)`` (<= 0 passes), and
+    the model goes on with the plain version's output, so a run under it
+    is the plain-attention run of the same step (``PlainInt8Decode``'s
+    pattern)."""
+
+    def __init__(self, name, plain, excess):
+        self.name, self.plain, self.excess_fn = name, plain, excess
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, kernel = ops, getattr(ops, self.name)
+        self.kernel = kernel
+        self.calls, self.max_abs, self.excess = 0, 0.0, -math.inf
+
+        def witnessed(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            want = self.plain(*args, **kwargs)
+            self.calls += 1
+            self.max_abs = max(self.max_abs, float(
+                (got.float() - want.float()).abs().max()))
+            self.excess = max(self.excess,
+                              self.excess_fn(got, want, args, kwargs))
+            return want
+        setattr(ops, self.name, witnessed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.kernel)
+
+    def summary(self, rule):
+        return {"calls": self.calls, "max_abs_err": self.max_abs,
+                "max_excess": self.excess, "tol_rule": rule,
+                "ok": self.calls > 0 and self.excess <= 0}
+
+
+class LastLogits:
+    """While installed, keeps the f32 logits of the last column of every
+    ``lm_logits`` call (the column the prefill step's argmax reads)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TF
+        self.TF, real = TF, TF.lm_logits
+        self.real, self.rows = real, []
+
+        def recorded(params, cfg, x):
+            out = real(params, cfg, x)
+            self.rows.append(out[:, -1].float().clone())
+            return out
+        TF.lm_logits = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.TF.lm_logits = self.real
+
+
+def timed_call(torch, fn, *args):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn(*args)
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def launch_micro_hold(torch, dev, arch, plan):
+    """The train step with the plan's microbatches against the same step at
+    ``microbatches=1``, at 2 layers of the published width in f32 (a
+    hybrid: one group of ``attn_every`` Mamba2 layers, the shared block
+    and a tail layer), on one batch of the plan's microbatch count rows:
+    the loss and every gradient leaf (captured at ``adamw_update``)
+    within ``LAUNCH_STEP_TOL``.  An MoE's router statistics and capacity
+    are per call, so there the step is held to its definition (each
+    slice's value and gradient before the update, summed and divided by
+    their count) and its distance to ``microbatches=1`` is reported."""
+    import dataclasses as dc
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.rl.losses import LossConfig, total_loss
+    from repro_torch.rl.trainer import value_and_grad
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    cfg = get_config(arch)
+    layers = cfg.attn_every + 1 if cfg.family == "hybrid" else 2
+    cfg = cfg.replace(num_layers=layers, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    n = plan.microbatches
+    shape = ShapeConfig("train_4k", LAUNCH_HOLD_SEQ, n, "train")
+    batch = train.make_batch(cfg, n, LAUNCH_HOLD_SEQ, dev,
+                             torch.Generator().manual_seed(2))
+    real = steps.adamw_update
+    got = {}
+    for micro in (n, 1):
+        built = steps.build_train_step(
+            cfg, shape, dc.replace(plan, microbatches=micro),
+            make_local_mesh(), False)
+        params = built.model.init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        opt = init_opt_state(params, AdamWConfig(state_dtype=plan.opt_dtype))
+        if cfg.family == "moe" and micro == n:
+            def loss_fn(p, b, model=built.model):
+                logits, aux = model.forward(p, b)
+                return total_loss(logits, aux, b, LossConfig())
+            gsum, lsum = None, 0.0
+            for i in range(n):
+                (l, _), g = value_and_grad(
+                    loss_fn, params, {k: v[i:i + 1] for k, v in batch.items()})
+                gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
+                lsum = lsum + l
+            got["definition"] = (lsum / n, [x / n for x in gsum])
+            del gsum
+        seen = {}
+
+        def capture(p, grads, state, ocfg, seen=seen):
+            seen["grads"] = [g.detach().clone() for g in grads]
+            return real(p, grads, state, ocfg)
+        steps.adamw_update = capture
+        try:
+            _, _, metrics = built.fn(params, opt, batch)
+        finally:
+            steps.adamw_update = real
+        got[micro] = (metrics["loss"].detach().float().reshape(()),
+                      seen["grads"])
+        del built, params, opt, metrics
+        release(torch)
+
+    def gap(a, b):
+        (la, ga), (lb, gb) = a, b
+        tol = LAUNCH_STEP_TOL
+        ok = bool(torch.isclose(la, lb, **tol))
+        worst = float((la - lb).abs() - tol["rtol"] * lb.abs())
+        for x, y in zip(ga, gb):
+            ok &= bool(torch.isclose(x, y, **tol).all())
+            worst = max(worst, float(((x - y).abs()
+                                      - tol["rtol"] * y.abs()).max()))
+        return ok, worst
+    ok1, over1 = gap(got[n], got[1])
+    row = {"arch": arch, "layers": layers, "dtype": "float32",
+           "seq": LAUNCH_HOLD_SEQ, "batch": n, "microbatches": n,
+           "tol": LAUNCH_STEP_TOL,
+           "loss_micro": float(got[n][0]), "loss_whole": float(got[1][0]),
+           "against_whole_within_tol": ok1,
+           "against_whole_max_excess_over_rtol": over1}
+    if "definition" in got:
+        okd, overd = gap(got[n], got["definition"])
+        row.update(held_to="definition", against_definition_within_tol=okd,
+                   against_definition_max_excess_over_rtol=overd,
+                   why="MoE capacity and router statistics are per call")
+        check(okd, f"launch_train/{arch}: the microbatch step against its "
+              f"definition {row}")
+    else:
+        row["held_to"] = "microbatches=1"
+        check(ok1, f"launch_train/{arch}: microbatches={n} against 1 {row}")
+    del got, batch
+    release(torch)
+    return row
+
+
+def launch_train(torch, dev, launches):
+    """Each ``LAUNCH_TRAIN`` model: 3 steps of ``build_train_step`` under
+    its train_4k plan, each timed with CUDA events, peak memory, loss and
+    grad norm (held finite), the fit report's ``model_flops`` and
+    ``persistent_bytes`` for the same config and shape (held: peak >=
+    persistent bytes), the share model_flops / (update s x 989e12), no
+    kernel launch (the train forward is plain PyTorch); then, where the
+    plan has microbatches, ``launch_micro_hold``."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps, train
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_local_mesh
+    from repro_torch.launch.plans import get_plan
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    rows = []
+    for label, (arch, S, B) in LAUNCH_TRAIN.items():
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        plan = get_plan(arch, "train_4k")
+        shape = ShapeConfig("train_4k", S, B, "train")
+        built = steps.build_train_step(cfg, shape, plan, make_local_mesh(),
+                                       False)
+        sizes = dryrun.step_sizes(cfg, shape, built)
+        params = built.model.init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        for leaf, f in LAUNCH_SCALES.get(label, {}).items():
+            with torch.no_grad():
+                params["layers"]["attn" if leaf == "wo" else "mlp"][
+                    leaf].mul_(f)
+        opt = init_opt_state(params, AdamWConfig(state_dtype=plan.opt_dtype))
+        batch = train.make_batch(cfg, B, S, dev,
+                                 torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms, losses, gnorms = [], [], []
+        for _ in range(LAUNCH_STEPS):
+            (params, opt, metrics), t = timed_call(torch, built.fn, params,
+                                                   opt, batch)
+            ms.append(t)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+        counts = ops.launch_counts()
+        launches[f"launch_train_{label}"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        update_s = statistics.median(ms) / 1e3
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"launch_train/{label}: loss {losses}, grad norm {gnorms}")
+        check(peak >= sizes["persistent_bytes"],
+              f"launch_train/{label}: peak {peak} below the fit report's "
+              f"persistent bytes {sizes['persistent_bytes']}")
+        check(not any(counts.values()), f"launch_train/{label}: {counts}")
+        row = {"label": label, "model": cfg.name, "layers": cfg.num_layers,
+               "seq": S, "batch": B, "init_scales": LAUNCH_SCALES.get(label),
+               "stub_rows": cfg.num_stub_positions if cfg.family in (
+                   "vlm", "audio") else 0,
+               "plan": {"remat": plan.remat,
+                        "microbatches": plan.microbatches,
+                        "opt_dtype": str(plan.opt_dtype)},
+               "update_ms": ms, "update_ms_median": update_s * 1e3,
+               "peak_gb": peak / 1e9, "loss": losses, "grad_norm": gnorms,
+               **sizes, "persistent_gb": sizes["persistent_bytes"] / 1e9,
+               "model_flops_share": sizes["model_flops"]
+               / (update_s * PEAK_FLOPS_BF16),
+               "launches": counts}
+        del params, opt, batch, built, metrics
+        release(torch)
+        if plan.microbatches > 1:
+            row["micro_hold"] = launch_micro_hold(torch, dev, arch, plan)
+        row["wall_s"] = time.monotonic() - t0
+        rows.append(row)
+        emit({"phase": "launch_train", "card": card_name_and_power(), **row})
+    return rows
+
+
+def launch_prefill(torch, dev, launches):
+    """``build_prefill_step`` on Qwen3-0.6B at prefill_32k's S = 32,768,
+    B 1: twice on the kernel path (the second timed; counts zeroed just
+    before it: exactly 28 flash launches, no decode), then under
+    ``PlainWitness`` (flash's plain version at every call, the kernel held
+    to it by the kernels phase's bf16 rule); the token against the
+    plain-prefill run's, equal except at a tie inside both (the last
+    column's logits of the two tokens within ``LAUNCH_TIE`` in each)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.plans import get_plan
+    from repro_torch.launch.steps import build_prefill_step
+
+    arch, S, B = LAUNCH_PREFILL
+    cfg = get_config(arch)
+    plan = get_plan(arch, "prefill_32k")
+    built = build_prefill_step(cfg, ShapeConfig("prefill_32k", S, B,
+                                                "prefill"),
+                               plan, make_local_mesh(), False)
+    rows = built.in_specs[2]["k"].shape[2]
+    params = built.model.init_params(torch.Generator(device=dev)
+                                     .manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev, dtype=torch.int32),
+             "prompt_lens": torch.full((B,), S, dtype=torch.int32,
+                                       device=dev)}
+    ms = []
+    for rep in range(2):
+        cache = built.model.init_cache(B, rows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with LastLogits() as kernel_logits:
+            (tok, cache), t = timed_call(torch, built.fn, params, batch,
+                                         cache)
+        counts = ops.launch_counts()
+        ms.append(t)
+        del cache
+    peak = torch.cuda.max_memory_allocated()
+    launches["launch_prefill"] = counts
+    check_launches("launch_prefill", counts,
+                   {"flash_attention": cfg.num_layers})
+    release(torch)
+    cache = built.model.init_cache(B, rows)
+    with LastLogits() as plain_logits, PlainWitness(
+            "flash_attention", ref.flash_attention_rows_ref,
+            flash_excess) as witness:
+        tok_plain, cache = built.fn(params, batch, cache)
+    torch.cuda.synchronize()
+    per_call = witness.summary("|out - want| <= 1e-3 + 2^-7 |want| + "
+                               "2^-9 attn(|v|)")
+    check(per_call["ok"] and per_call["calls"] == cfg.num_layers,
+          f"launch_prefill: flash against its plain version {per_call}")
+    a, p = kernel_logits.rows[-1], plain_logits.rows[-1]
+    ties = []
+    for b in range(B):
+        ta, tp = int(tok[b]), int(tok_plain[b])
+        if ta != tp:
+            ties.append({"row": b, "kernel": ta, "plain": tp,
+                         "gap_kernel": float(a[b, ta] - a[b, tp]),
+                         "gap_plain": float(p[b, tp] - p[b, ta])})
+    check(all(t["gap_kernel"] <= LAUNCH_TIE and t["gap_plain"] <= LAUNCH_TIE
+              for t in ties),
+          f"launch_prefill: tokens differ beyond a tie {ties}")
+    row = {"phase": "launch_prefill", "model": cfg.name,
+           "layers": cfg.num_layers, "seq": S, "batch": B, "cache_rows": rows,
+           "card": card_name_and_power(),
+           "step_ms": ms, "tokens_per_s": B * S / (ms[-1] / 1e3),
+           "peak_gb": peak / 1e9,
+           "cache_gb": sum(t.numel() * t.element_size()
+                           for t in cache.values()) / 1e9,
+           "logits_gb": B * S * cfg.vocab_size * 2 / 1e9,
+           "token": tok.tolist(), "token_plain": tok_plain.tolist(),
+           "tie_tol": LAUNCH_TIE, "ties": ties,
+           "max_logit_diff_last_column": float((a - p).abs().max()),
+           "flash_witness": per_call, "launches": counts}
+    emit(row)
+    del params, cache, built, batch
+    release(torch)
+    return row
+
+
+def launch_serve(torch, dev, launches):
+    """Each ``LAUNCH_SERVE`` run: ``build_serve_step`` on a dense cache of
+    the shape's rows (``_round_len(S + 8)``) filled with random values
+    scaled by ``LAUNCH_CACHE_SCALE``, kv_len = S - 8, random tokens;
+    ``LAUNCH_SERVE_STEPS`` steps on the kernel path, each timed (counts
+    zeroed just before them: exactly the dense decode's launches, one per
+    attention layer a step, nothing else), then as many under
+    ``PlainWitness`` (the plain dense decode at every call, the kernel held
+    to it by ``DECODE_RULE``); tokens and log-probs held finite."""
+    from repro_torch.configs.base import ShapeConfig, get_config, shape_by_name
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.plans import get_plan
+    from repro_torch.launch.steps import build_serve_step
+
+    out = []
+    for label, (arch, shape_name, B) in LAUNCH_SERVE.items():
+        cfg = get_config(arch)
+        full = shape_by_name(shape_name)
+        S = full.seq_len
+        built = build_serve_step(cfg, ShapeConfig(shape_name, S, B, "decode"),
+                                 get_plan(arch, shape_name),
+                                 make_local_mesh(), False)
+        rows = max(t.shape[2] for t in built.in_specs[2].values())
+        params = built.model.init_params(torch.Generator(device=dev)
+                                         .manual_seed(0))
+        cache = built.model.init_cache(B, rows)
+        g = torch.Generator(device=dev).manual_seed(4)
+        for t in cache.values():
+            t.normal_(generator=g).mul_(LAUNCH_CACHE_SCALE)
+        tok = torch.randint(1, cfg.vocab_size, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        kv = torch.full((B,), S - 8, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms, lps = [], []
+        for _ in range(LAUNCH_SERVE_STEPS):
+            (tok, lp, cache), t = timed_call(torch, built.fn, params, tok,
+                                             cache, kv)
+            ms.append(t)
+            lps.append(lp.float().cpu())
+            kv = kv + 1
+        counts = ops.launch_counts()
+        launches[f"launch_serve_{label}"] = counts
+        check_launches(f"launch_serve_{label}", counts,
+                       {"ragged_decode_attention":
+                        cfg.num_layers * LAUNCH_SERVE_STEPS})
+        peak = torch.cuda.max_memory_allocated()
+        with PlainWitness("ragged_decode_attention",
+                          ref.ragged_decode_attention_ref,
+                          lambda got, want, a, k: decode_excess(got, want)[0]
+                          ) as witness:
+            for _ in range(LAUNCH_SERVE_STEPS):
+                tok, lp, cache = built.fn(params, tok, cache, kv)
+                lps.append(lp.float().cpu())
+                kv = kv + 1
+        torch.cuda.synchronize()
+        per_call = witness.summary(DECODE_RULE)
+        check(per_call["ok"] and per_call["calls"]
+              == cfg.num_layers * LAUNCH_SERVE_STEPS,
+              f"launch_serve/{label}: the dense decode against its plain "
+              f"version {per_call}")
+        lps = torch.stack(lps)
+        check(bool(torch.isfinite(lps).all()) and bool((lps <= 0).all()),
+              f"launch_serve/{label}: log-probs {lps}")
+        med = statistics.median(ms)
+        row = {"phase": "launch_serve", "label": label, "model": cfg.name,
+               "layers": cfg.num_layers, "shape": shape_name, "seq": S,
+               "batch": B, "cache_rows": rows, "kv_len_first": S - 8,
+               "card": card_name_and_power(),
+               "cache_gb": sum(t.numel() * t.element_size()
+                               for t in cache.values()) / 1e9,
+               "step_ms": ms, "step_ms_median": med,
+               "tokens_per_s": B / (med / 1e3), "peak_gb": peak / 1e9,
+               "logprob_mean": float(lps.mean()),
+               "decode_witness": per_call, "launches": counts}
+        emit(row)
+        out.append(row)
+        del params, cache, built, tok, lp
+        release(torch)
+    return out
+
+
+def phase_launch(torch, dev, launches):
+    """The launch path at full width: ``launch_train``, ``launch_prefill``
+    and ``launch_serve``; one summary line with the cuts."""
+    t0 = time.monotonic()
+    train_rows = launch_train(torch, dev, launches)
+    launch_prefill(torch, dev, launches)
+    launch_serve(torch, dev, launches)
+    emit({"phase": "launch", "cuts": LAUNCH_CUTS,
+          "train_runs": len(train_rows), "seconds": time.monotonic() - t0})
+
+
+# ---------------------------------------------------------------------------
 
 # kernel -> (source, TPU kernel it replaces, the serve path it belongs to)
 KERNEL_META = {
@@ -4451,7 +4982,8 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl",
-                                        "group", "families"), default="all")
+                                        "group", "families", "launch"),
+                    default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4501,6 +5033,9 @@ def main() -> int:
         phase_rl_moe(torch, dev, launches)
         phase_rl_vlm(torch, dev, launches)
         phase_rl_hybrid(torch, dev, launches)
+    if args.phase in ("all", "launch"):
+        release(torch)
+        phase_launch(torch, dev, launches)
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -93,6 +93,97 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Analytic total parameter count (for 6ND roofline terms)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        return _param_count(self, active_only=True)
+
+
+def _dense_block_params(cfg: ModelConfig, d_ff: int) -> int:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)  # qkv
+    attn += cfg.num_heads * hd * d                          # out proj
+    if cfg.attn.qkv_bias:
+        attn += hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = d * d_ff * (3 if cfg.gated_mlp else 2)
+    norms = 2 * d
+    return attn + mlp + norms
+
+
+def _ssm_block_params(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner = s.expand * d
+    nheads = s.num_heads or d_inner // s.head_dim
+    in_proj = d * (2 * d_inner + 2 * s.ngroups * s.state_dim + nheads)
+    conv = (d_inner + 2 * s.ngroups * s.state_dim) * s.conv_width
+    out = d_inner * d
+    extras = 2 * nheads + d_inner + d  # A_log, dt_bias, norm, layer norm
+    return in_proj + conv + out + extras
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's analytic count, term for term (its ssm count is
+    rough, and so is this one: the launch path reads the exact count from
+    the parameter tree)."""
+    n = cfg.vocab_size * cfg.d_model  # embedding
+    if not cfg.tie_embeddings:
+        n += cfg.vocab_size * cfg.d_model
+    n += cfg.d_model  # final norm
+    if cfg.family in ("dense", "vlm"):
+        n += cfg.num_layers * _dense_block_params(cfg, cfg.d_ff)
+    elif cfg.family == "moe":
+        m = cfg.moe
+        per = _dense_block_params(cfg, 0)  # attn + norms only
+        router = cfg.d_model * m.num_experts
+        e = m.experts_per_token if active_only else m.num_experts
+        expert = e * cfg.d_model * m.d_ff_expert * 3
+        shared = cfg.d_model * m.d_ff_shared * 3 if m.d_ff_shared else 0
+        n += cfg.num_layers * (per + router + expert + shared)
+    elif cfg.family == "hybrid":
+        n += cfg.num_layers * _ssm_block_params(cfg)
+        n_attn = max(1, cfg.num_layers // max(cfg.attn_every, 1))
+        n += n_attn and _dense_block_params(cfg, cfg.d_ff)  # shared block
+    elif cfg.family == "ssm":
+        # xlstm: alternating sLSTM / mLSTM; rough analytic count
+        d = cfg.d_model
+        n += cfg.num_layers * (8 * d * d)
+    elif cfg.family == "audio":
+        n += cfg.num_layers * (_dense_block_params(cfg, cfg.d_ff)
+                               + cfg.d_model * cfg.resolved_head_dim
+                               * (cfg.num_heads + 2 * cfg.num_kv_heads)
+                               + cfg.num_heads * cfg.resolved_head_dim
+                               * cfg.d_model
+                               + cfg.d_model)  # + cross-attn
+        n += cfg.encoder_layers * _dense_block_params(cfg, cfg.d_ff)
+    return int(n)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
 
 ARCH_IDS = ("qwen3_moe_235b_a22b", "qwen3_0_6b", "nemotron_4_340b",
             "qwen1_5_110b", "zamba2_1_2b", "xlstm_125m", "gemma2_2b",
@@ -112,7 +203,7 @@ ARCH_ALIASES = {
 
 
 def _module(arch: str):
-    mod_name = ARCH_ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    mod_name = arch_key(arch)
     if mod_name not in ARCH_IDS:
         raise KeyError(f"arch {arch!r} not ported; ported: {list(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
@@ -120,6 +211,15 @@ def _module(arch: str):
 
 def get_config(arch: str) -> ModelConfig:
     return _module(arch).CONFIG
+
+
+def arch_key(arch: str) -> str:
+    """Module name of a public ``--arch`` id (the plans' key)."""
+    return ARCH_ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def get_smoke_config(arch: str) -> ModelConfig:

@@ -113,8 +113,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KV_INT8 = 2             # code of int8 KV storage (q and out stay f32/bf16)
 
 
-def all_on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors if t is not None)
+def takes_plain(*tensors) -> bool:
+    """A wrapper takes its plain version when every tensor is on the CPU,
+    or every tensor is on the meta device (no data: the launch path's fit
+    report runs a step there for shapes and operation counts)."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    return kinds in ({"cpu"}, {"meta"})
 
 
 def require(cond: bool, name: str, what: str) -> None:

@@ -49,7 +49,7 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
     ``seg_ids`` (B, S) int32: packed prefill; a query attends only keys of
     its own segment id (pad columns carry -1 and match each other, so
     their rows are garbage the caller discards)."""
-    if build.all_on_cpu(q, k, v, seg_ids):
+    if build.takes_plain(q, k, v, seg_ids):
         return flash_attention_ref(q, k, v, causal=True, window=window,
                                    softcap=softcap, seg_ids=seg_ids)
     dev = build.require_cuda(NAME, q, k, v, seg_ids)

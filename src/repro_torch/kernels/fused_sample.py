@@ -66,7 +66,7 @@ def fused_sample(x, w, top_k: int = 1, softcap: float = 0.0):
     Returns (vals (B, top_k) f32, idx (B, top_k) int32, lse (B, 1) f32):
     the top-k softcapped logits, their vocab indices (lowest first on
     ties) and the logsumexp over the whole vocab."""
-    if build.all_on_cpu(x, w):
+    if build.takes_plain(x, w):
         return fused_sample_ref(x, w, top_k=top_k, softcap=softcap)
     dev = build.require_cuda(NAME, x, w)
     code = build.dtype_code(NAME, x, w)

@@ -2,7 +2,8 @@
 
 Dispatch follows the tensors' device: CPU tensors take the plain PyTorch
 version, CUDA tensors launch the hand-written kernel or raise; there is no
-fallback from CUDA to the plain version.  Each kernel module counts its
+fallback from CUDA to the plain version.  Meta tensors (shapes only, for
+the launch path's fit report) take the plain version too.  Each kernel module counts its
 launches by kernel name (the paged module counts fp and int8 pages
 apart); ``launch_counts``/``reset_launch_counts`` read and clear them.
 """

@@ -84,7 +84,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
                          "pages only")
     name = NAME_INT8 if quant else NAME
     args = (q, k_pages, v_pages, block_tables, kv_len)
-    if build.all_on_cpu(*args, k_scales, v_scales, k_new, v_new):
+    if build.takes_plain(*args, k_scales, v_scales, k_new, v_new):
         if quant:
             return paged_decode_attention_int8_ref(
                 q, k_pages, v_pages, k_scales, v_scales, block_tables,

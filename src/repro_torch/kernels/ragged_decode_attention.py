@@ -56,7 +56,7 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     the plain version only: the kernel takes none, so a window on CUDA
     raises instead of being ignored."""
     args = (q, k_cache, v_cache, kv_len, kv_start)
-    if build.all_on_cpu(*args):
+    if build.takes_plain(*args):
         return ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
                                            softcap=softcap, window=window,
                                            kv_start=kv_start)

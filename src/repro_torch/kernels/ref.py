@@ -175,6 +175,42 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
                   seg_q=seg_ids, seg_k=seg_ids)
 
 
+def flash_attention_rows_ref(q, k, v, window: int = 0, softcap: float = 0.0,
+                             seg_ids=None, rows: int = 512) -> torch.Tensor:
+    """Causal GQA attention in ``full_attention``'s arithmetic at any
+    length: f32 scores of the unscaled q divided by sqrt(D), one f32
+    softmax a row, f32 products with v, evaluated ``rows`` queries at a
+    time against the keys they can see (so no score tensor exceeds
+    (B, H, rows, S)).  What ``chip_smoke.py`` holds the flash kernel to:
+    above ``FULL_ATTN_MAX_SEQ``, ``flash_attention_ref`` attends
+    blockwise and rounds q/sqrt(D) to q's dtype, as the reference's long
+    path does, where the kernel keeps that product in f32."""
+    B, S, H, D = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    out = torch.empty_like(q)
+    for q0 in range(0, S, rows):
+        q1 = min(S, q0 + rows)
+        k0 = max(0, q0 - window + 1) if window else 0
+        qf = q[:, q0:q1].float().reshape(B, q1 - q0, Kh, G, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                         k[:, k0:q1].float()) / math.sqrt(D)
+        s = L._softcap(s, softcap)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, q1, device=q.device)[None, :]
+        mask = qpos >= kpos
+        if window:
+            mask = mask & (qpos - kpos < window)
+        mask = mask.expand(B, q1 - q0, q1 - k0)
+        if seg_ids is not None:
+            mask = mask & (seg_ids[:, q0:q1, None] == seg_ids[:, None, k0:q1])
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v[:, k0:q1].float())
+        out[:, q0:q1] = o.reshape(B, q1 - q0, H, D).to(q.dtype)
+    return out
+
+
 def fused_sample_ref(x, w, top_k: int = 1, softcap: float = 0.0):
     """Materialise the (B, V) logits in f32, then top-k + logsumexp.
 

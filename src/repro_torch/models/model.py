@@ -37,7 +37,7 @@ caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -175,3 +175,58 @@ def supports_paging(model: Model) -> bool:
     if model.padding_side != "right":
         return False
     return set(model.init_cache(1, 1)) == {"k", "v"}
+
+
+# ---------------------------------------------------------------------------
+# input_specs / cache_specs: shape stand-ins for the launch path's fit
+# report (tensors on the meta device, which hold no storage)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def input_specs(cfg: ModelConfig, seq_len: int, batch: int, kind: str
+                ) -> Dict[str, torch.Tensor]:
+    """The batch dict as meta tensors, the reference's keys, shapes and
+    dtypes (its ``ShapeDtypeStruct`` stand-ins).
+
+    train  : RL update-step inputs (tokens, loss_mask, advantages, old_logprobs)
+    prefill: prompt batch
+    decode : one-token step inputs (token, kv_len); the cache comes from
+             :func:`cache_specs`.
+    """
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=META)
+    i32, f32 = torch.int32, torch.float32
+    if kind == "train":
+        specs = {
+            "tokens": sds((batch, seq_len), i32),
+            "loss_mask": sds((batch, seq_len), f32),
+            "advantages": sds((batch, seq_len), f32),
+            "old_logprobs": sds((batch, seq_len), f32),
+        }
+    elif kind == "prefill":
+        specs = {
+            "tokens": sds((batch, seq_len), i32),
+            "prompt_lens": sds((batch,), i32),
+        }
+    elif kind == "decode":
+        specs = {
+            "token": sds((batch,), i32),
+            "kv_len": sds((batch,), i32),
+        }
+    else:
+        raise ValueError(kind)
+    if cfg.family == "vlm" and kind != "decode":
+        specs["patch_embeds"] = sds(
+            (batch, cfg.num_stub_positions, cfg.d_model), torch.bfloat16)
+    if cfg.family == "audio" and kind != "decode":
+        specs["frames"] = sds(
+            (batch, cfg.num_stub_positions, cfg.d_model), torch.bfloat16)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The cache dict as meta tensors: ``init_cache`` on the meta device
+    (no allocation)."""
+    return build_model(cfg, device=META).init_cache(batch, max_len)

@@ -467,9 +467,11 @@ def _meta(*shape, dtype=torch.float32):
 
 def test_paged_decode_window_on_device_raises():
     """The decode kernel has no window: on a non-CPU tensor the wrapper
-    raises instead of ignoring it (the CPU plain version applies it)."""
+    raises instead of ignoring it (the CPU plain version applies it).
+    The inputs mix meta and CPU tensors, which reach the CUDA path's
+    checks (all-meta inputs take the plain version, for shapes)."""
     args = (_meta(2, 4, 64), _meta(5, 16, 2, 64), _meta(5, 16, 2, 64),
-            _meta(2, 3, dtype=torch.int32), _meta(2, dtype=torch.int32))
+            _meta(2, 3, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
     before = ops.launch_counts()
     with pytest.raises(NotImplementedError, match="window"):
         ops.paged_decode_attention(*args, window=8)
@@ -479,8 +481,9 @@ def test_paged_decode_window_on_device_raises():
 
 
 def test_ragged_window_and_int8_scales_on_device_raise():
+    # meta and CPU inputs mixed: the CUDA path's checks, as above
     q, kc = _meta(2, 4, 64), _meta(2, 40, 2, 64)
-    kv = _meta(2, dtype=torch.int32)
+    kv = torch.ones(2, dtype=torch.int32)
     pages = _meta(5, 16, 2, 64, dtype=torch.int8)
     bt = _meta(2, 3, dtype=torch.int32)
     sc = _meta(5)
@@ -500,14 +503,42 @@ def test_ragged_window_and_int8_scales_on_device_raise():
 
 
 def test_wrappers_refuse_non_cuda_devices():
+    # mixed CPU and meta inputs are neither CPU tensors nor meta tensors
     with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention(_meta(1, 8, 4, 64), _meta(1, 8, 2, 64),
+        ops.flash_attention(_meta(1, 8, 4, 64), torch.zeros(1, 8, 2, 64),
                             _meta(1, 8, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        ops.fused_sample(_meta(2, 16), _meta(16, 40))
-    # mixed CPU and non-CPU inputs are not "CPU tensors" either
-    with pytest.raises(ValueError, match="CUDA"):
         ops.fused_sample(torch.zeros(2, 16), _meta(16, 40))
+    # all-meta inputs (the launch path's fit report) take the plain
+    # version: shapes only, no launch
+    ops.reset_launch_counts()
+    out = ops.flash_attention(_meta(1, 8, 4, 64), _meta(1, 8, 2, 64),
+                              _meta(1, 8, 2, 64))
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 8, 4, 64)
+    vals, idx, lse = ops.fused_sample(_meta(2, 16), _meta(16, 40))
+    assert vals.device.type == "meta" and tuple(idx.shape) == (2, 1)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("S,window,softcap,packed", [
+    (100, 0, 0.0, False), (300, 40, 30.0, False), (257, 0, 0.0, True),
+    (2100, 0, 0.0, False)])
+def test_flash_rows_plain_is_full_attention_by_query_blocks(S, window,
+                                                            softcap, packed):
+    """``flash_attention_rows_ref`` (what chip_smoke holds the kernel to)
+    is ``full_attention``'s arithmetic at every length, 128 queries at a
+    time: equal to it within f32 sum order (1e-6)."""
+    from repro_torch.models import layers as L
+    rng = np.random.RandomState(S)
+    q, k, v = (_t(rng.randn(2, S, h, 64).astype(np.float32))
+               for h in (8, 4, 4))
+    seg = _t(_packed_seg(rng, 2, S, 8)) if packed else None
+    got = ref.flash_attention_rows_ref(q, k, v, window=window,
+                                       softcap=softcap, seg_ids=seg,
+                                       rows=128)
+    want = L.full_attention(q, k, v, window=window, softcap=softcap,
+                            seg_q=seg, seg_k=seg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
 
 
 def test_plain_path_counts_no_launch():

@@ -324,3 +324,36 @@ def test_dense_decode_kernel_with_kv_start_matches_its_plain_version(dev):
         assert not got[4:].any()
     with pytest.raises(ValueError):
         ops.ragged_decode_attention(q, kc, vc, lens, kv_start=starts.long())
+
+
+def test_launch_path_long_shapes_match_their_plain_versions(dev):
+    """The shapes the launch path gives the kernels for the first time:
+    flash at Qwen3-0.6B's prefill_32k row (B 1, S 32,768, H 16, Kh 8,
+    D 128), the dense decode over 33,280 rows (B 8, H 16, Kh 8, D 128;
+    decode_32k) and over 524,800 rows at Gemma2-2B's global layers (B 1,
+    H 8, Kh 4, D 256, softcap 50; long_500k: 2,050 splits a slot, each
+    merged).  ``chip_smoke.py``'s bf16 tolerances, as above (flash against
+    ``flash_attention_rows_ref``, full_attention's arithmetic at every
+    length); slots with kv_len 0 give zeros."""
+    from repro_torch.kernels import ref
+    q, k, v = (_bf16(dev, 1, 32_768, h, 128, seed=i)
+               for i, h in enumerate((16, 8, 8)))
+    out = ops.flash_attention(q, k, v).float()
+    want = ref.flash_attention_rows_ref(q, k, v).float()
+    wabs = ref.flash_attention_rows_ref(q, k, v.abs()).float()
+    assert float(((out - want).abs() - 2.0 ** -7 * want.abs()
+                  - 2.0 ** -9 * wabs).max()) <= 1e-3
+    del q, k, v, out, want, wabs
+    for B, S, H, Kh, D, cap, lens in (
+            (8, 33_280, 16, 8, 128, 0.0,
+             [33_272, 0, 1, 256, 257, 33_280, 20_000, 33_279]),
+            (1, 524_800, 8, 4, 256, 50.0, [524_792]),
+            (2, 524_800, 8, 4, 256, 50.0, [0, 524_800])):
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = _bf16(dev, B, H, D, seed=S)
+        kc, vc = (_bf16(dev, B, S, Kh, D, seed=S + i) for i in (1, 2))
+        got = ops.ragged_decode_attention(q, kc, vc, kv, softcap=cap)
+        want = ref.ragged_decode_attention_ref(q, kc, vc, kv, softcap=cap)
+        assert _decode_excess(got, want) <= 0
+        assert not got[kv == 0].any()
+        del q, kc, vc, got, want
