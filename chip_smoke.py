@@ -48,7 +48,13 @@ Phases, each printing one JSON line:
    ``kv_start = kv_len`` and ``kv_len`` 0, in bf16 and f32; the int8
    pages at (192, 12), (128, 16) and (96, 1) at kv_len 0 and 1, a page's
    last and first row as the slot's new row, both sides of a split and a
-   zero page (scale at its 1e-8 floor).
+   zero page (scale at its 1e-8 floor); bf16 flash at S 1, 63, 64, 65,
+   127, 128, 129, 255, 256 and 257 at every bf16 D (64, 96, 128, 192,
+   256) through every mix of segments, window and softcap, G 1, 4, 12,
+   16 (the edges of its 128-row query and 64-key tiles), and a
+   q base off the 16-byte grid its TMA copies need (the wrapper must
+   raise, the C entry refuse, nothing launch).  The bf16 flash
+   instantiations must hold ``HGMMA`` instructions and spill nothing.
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -417,9 +423,13 @@ def visible_pairs(S, window, seg):
     return total
 
 
+# query lengths around the bf16 flash kernel's 128-row query tiles and
+# 64-key tiles
+FLASH_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257)
+
 # kernel -> (library, regex of its bf16 instantiation's function names)
 BF16_FUNCTIONS = {
-    "flash_attention": ("flash_attention", r"flash_tc_kernel"),
+    "flash_attention": ("flash_attention", r"flash_wgmma_kernel"),
     "fused_sample": ("fused_sample", r"sample_tc_kernel"),
     "paged_decode_attention": ("paged_decode_attention",
                                r"decode_split_kernelI13__nv_bfloat16S"),
@@ -429,6 +439,10 @@ BF16_FUNCTIONS = {
                                 r"decode_split_kernelI13__nv_bfloat16"),
 }
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
+WGMMA_OPS = re.compile(r"\bHGMMA\.")
+# bf16 flash instantiations (D 64, 96, 128, 192, 256): each must issue
+# wgmma (HGMMA) and no mma.sync (HMMA)
+FLASH_BF16_DS = (64, 96, 128, 192, 256)
 # decode kernel -> (library, regex of every instantiation: f32 and bf16,
 # D 64/128, G 1/2/4/8 and (64, 3), the bf16 wide shapes (on int8 pages
 # all but (256, 2)), f32 D 32 G 1 on fp pages, and the merge pass)
@@ -494,19 +508,26 @@ def sass_and_registers(build):
     instructions in the SASS (``cuobjdump -sass`` on the built library)
     and registers / spill bytes (nvcc's ``-Xptxas -v`` log)."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass, out = {}, {}
+    sass, wgmma, out = {}, {}, {}
     for lib in sorted({lib for lib, _ in BF16_FUNCTIONS.values()}):
         txt = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
                              capture_output=True, text=True,
                              timeout=120).stdout
-        sass[lib] = {blk.split(None, 1)[0]: len(TENSOR_CORE_OPS.findall(blk))
-                     for blk in txt.split("Function : ")[1:] if blk.strip()}
+        blocks = {blk.split(None, 1)[0]: blk
+                  for blk in txt.split("Function : ")[1:] if blk.strip()}
+        sass[lib] = {fn: len(TENSOR_CORE_OPS.findall(blk))
+                     for fn, blk in blocks.items()}
+        wgmma[lib] = {fn: len(WGMMA_OPS.findall(blk))
+                      for fn, blk in blocks.items()}
     for name, (lib, pat) in BF16_FUNCTIONS.items():
         regs = ptxas_functions(build.ptxas_report(lib), pat)
         fns = {fn: n for fn, n in sass[lib].items() if re.search(pat, fn)}
+        hg = [wgmma[lib][fn] for fn in fns]
         out[name] = {"functions": len(fns),
                      "tensor_core_ops": sum(fns.values()),
                      "min_per_function": min(fns.values()) if fns else 0,
+                     "hgmma": sum(hg),
+                     "hgmma_min_per_function": min(hg) if hg else 0,
                      "max_registers": max((v["registers"] or 0
                                            for v in regs.values()), default=None),
                      "spill_bytes": sum(v["spill_bytes"] or 0
@@ -531,6 +552,12 @@ def phase_kernels(torch, dev, report):
         check(got["functions"] > 0 and got["min_per_function"] > 0,
               f"{name}: bf16 SASS has no tensor-core instruction {got}")
         check(got["spill_bytes"] == 0, f"{name}: bf16 register spills {got}")
+    got = sass["flash_attention"]
+    check(got["functions"] == len(FLASH_BF16_DS)
+          and got["hgmma_min_per_function"] > 0
+          and got["hgmma"] == got["tensor_core_ops"],
+          f"flash_attention: every bf16 instantiation must issue wgmma "
+          f"(HGMMA) and no mma.sync (HMMA) {got}")
     for name in sass:
         report.setdefault(name, {})["sass_bf16"] = sass[name]
     regs = decode_registers(build)
@@ -905,8 +932,8 @@ def phase_kernels(torch, dev, report):
         ("s300_window64_softcap_f32", f32, 2, 300, 4, 2, 64, False, 64, 30.0),
         ("s300_seg_window_bf16", bf16, 1, 300, 8, 2, 128, True, 100, 0.0),
         ("s37_d128_bf16", bf16, 3, 37, 16, 8, 128, False, 0, 30.0),
-        # edges of the tensor-core kernel: S around its 64-row tiles, D 64
-        # and 128, G = H / Kh in {1, 2, 4}, window, softcap, segments
+        # edges of the earlier mma.sync kernel, kept: S around 64-row tiles,
+        # D 64 and 128, G = H / Kh in {1, 2, 4}, window, softcap, segments
         ("s63_d64_g1_bf16", bf16, 2, 63, 4, 4, 64, False, 0, 0.0),
         ("s64_d128_g2_softcap_bf16", bf16, 2, 64, 8, 4, 128, False, 0, 30.0),
         ("s65_d64_g4_window40_bf16", bf16, 2, 65, 8, 2, 64, False, 40, 0.0),
@@ -922,6 +949,21 @@ def phase_kernels(torch, dev, report):
         # the RL session's tiny LM (f32, D = 32), ragged S
         ("tiny_s97_d32_f32", f32, 8, 97, 4, 4, 32, False, 0, 0.0),
     ]
+    # edges of the wgmma kernel's 128-row query tiles and 64-key K/V
+    # tiles at every bf16 head dim, each D through every
+    # mix of segments, window and softcap, G = H / Kh in {1, 4, 12, 16}
+    fa_mixes = [(False, 0, 0.0), (True, 0, 0.0), (False, 40, 0.0),
+                (False, 0, 30.0), (True, 40, 30.0), (True, 0, 30.0),
+                (False, 100, 30.0), (True, 100, 0.0)]
+    for di, D in enumerate(FLASH_BF16_DS):
+        for si, S in enumerate(FLASH_EDGE_S):
+            seg, win, cap = fa_mixes[(si + di) % len(fa_mixes)]
+            G = (1, 4, 12, 16)[(si + 2 * di) % 4]
+            fa_cases.append((
+                f"edge_s{S}_d{D}_g{G}" + ("_seg" if seg else "")
+                + (f"_window{win}" if win else "")
+                + (f"_softcap{cap:g}" if cap else "") + "_bf16",
+                bf16, 2, S, 2 * G, 2, D, seg, win, cap))
     serve_fa = None
     for name, dt, B, S, H, Kh, D, seg, win, cap in fa_cases:
         q, k, v, s = flash_inputs(torch, dev, dt, B, S, H, Kh, D, seg)
@@ -946,6 +988,29 @@ def phase_kernels(torch, dev, report):
         if name == "serve_b8_s1024_bf16":
             serve_fa = ((q, k, v), row)
         del q, k, v, s, out, want
+    # a q base 2 bytes off the 16-byte grid TMA needs: the wrapper raises
+    # and the C entry refuses it (cudaErrorInvalidValue), nothing launches
+    from repro_torch.kernels import flash_attention as fa_mod
+    q, k, v, _ = flash_inputs(torch, dev, bf16, 1, 64, 4, 2, 128)
+    qm = torch.empty(q.numel() + 8, dtype=bf16, device=dev)[1:1 + q.numel()]
+    qm = qm.view(q.shape).copy_(q)
+    before = ops.launch_counts()["flash_attention"]
+    try:
+        ops.flash_attention(qm, k, v)
+        raised = False
+    except ValueError:
+        raised = True
+    out = torch.empty_like(q)
+    rc = fa_mod._bind()(qm.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                        out.data_ptr(), 1, 64, 4, 2, 128, 0, 0.0, 1,
+                        build.stream_ptr(dev))
+    torch.cuda.synchronize()
+    refused = (raised and rc != 0
+               and ops.launch_counts()["flash_attention"] == before)
+    record("flash_attention", "misaligned_q_base_raises",
+           0.0 if refused else math.inf, 0.0,
+           {"wrapper_raised": raised, "c_entry_rc": rc})
+    del q, k, v, qm, out
     (q, k, v), row = serve_fa
     B, S, H, D = q.shape
     Kh = k.shape[2]
@@ -1502,7 +1567,7 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * B * S,
                   4 * D * H * visible_pairs(S, 0, s_.cpu().numpy()),
                   dict(B=B, S=S, H=H, Kh=Kh, D=D, left_pads=seg),
-                  regs("flash_attention", rf"flash_tc_kernelILi{D}E"),
+                  regs("flash_attention", rf"flash_wgmma_kernelILi{D}E"),
                   note="SDPA, causal and left-pad mask as one boolean mask",
                   plain_reps=(2, 1))
             del qt, kt, vt, mask
@@ -1525,7 +1590,7 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   (2 * q.numel() + k.numel() + v.numel()) * 2,
                   4 * D * H * B * visible_pairs(S, win, None),
                   dict(B=B, S=S, H=H, Kh=Kh, D=D, window=win, softcap=cap),
-                  regs("flash_attention", rf"flash_tc_kernelILi{D}E"),
+                  regs("flash_attention", rf"flash_wgmma_kernelILi{D}E"),
                   note=note, plain_reps=(2, 1))
         del q, k, v, s_
         torch.cuda.empty_cache()
@@ -1645,9 +1710,13 @@ def variant_sources():
         return ("paged_decode_attention",
                 {"paged_decode_attention.cu": pd,
                  "decode_attention.cuh": sub(body, *pairs)})
-    cfg = "kFlashWarps = 4, kFlashMT = 1, kFlashStages = 2"
-    qk = "          mma_bf16(sc[mt][2 * p{}], qa[mt], kf[{}], kf[{}]);\n"
-    pv = "          mma_bf16(o[mt][2 * p{}], pa[mt], vf[{}], vf[{}]);\n"
+    cfg = "kFlashConsumers = 2, kFlashStages = 2"
+    tile = "TK = 64;"
+    qk = ("        qk_issue<D>(sc, qd, kd + ((slot(it) * T::kKVBytes) >> 4));"
+          "\n")
+    pv = ("        pv_issue<D>(o, pa, vd + ((slot(it - 1) * T::kKVBytes) >> 4));"
+          "\n")
+    ex = "sc[i] = fast_exp2(fmaf(sc[i], mul, -ms));"
     split = "kDecodeSplitRows = 256"
     ring = "kDecodeStages = 4"
     scores = ("      score_tile<KV, D, G, kQReg, QR>(st, it * TR, nk, qr, qs, sc,"
@@ -1660,23 +1729,28 @@ def variant_sources():
     return {
         "flash_attention/shipped": ("flash_attention", {
             "flash_attention.cu": fa}),
-        "flash_attention/2_mtiles_a_warp": ("flash_attention", {
-            "flash_attention.cu": sub(
-                fa, (cfg, cfg.replace("kFlashMT = 1", "kFlashMT = 2")))}),
         "flash_attention/3_stage_ring": ("flash_attention", {
             "flash_attention.cu": sub(
                 fa, (cfg, cfg.replace("kFlashStages = 2",
                                       "kFlashStages = 3")))}),
+        # 64 query rows a CTA (256 threads, no register split)
+        "flash_attention/1_consumer_warpgroup": ("flash_attention", {
+            "flash_attention.cu": sub(
+                fa, (cfg, cfg.replace("kFlashConsumers = 2",
+                                      "kFlashConsumers = 1")))}),
+        "flash_attention/128_key_tile": ("flash_attention", {
+            "flash_attention.cu": sub(
+                fa, (tile, "TK = D > 128 ? 64 : 128;"))}),
+        # the scores zeroed where Q K^T was issued: the masks, softmax
+        # and P V still run
         "flash_attention/ablate_qk_product": ("flash_attention", {
-            "flash_attention.cu": sub(fa, (qk.format("", 0, 1), ""),
-                                      (qk.format(" + 1", 2, 3), ""))}),
+            "flash_attention.cu": sub(
+                fa, (qk, "        for (float& x : sc) x = 0.f;\n"))}),
         "flash_attention/ablate_pv_product": ("flash_attention", {
-            "flash_attention.cu": sub(fa, (pv.format("", 0, 1), ""),
-                                      (pv.format(" + 1", 2, 3), ""))}),
+            "flash_attention.cu": sub(fa, (pv, ""))}),
         "flash_attention/ablate_exp": ("flash_attention", {
             "flash_attention.cu": sub(
-                fa, ("fast_exp2(fmaf(sc[mt][j][e], mul, -ms))",
-                     "fmaf(sc[mt][j][e], mul, -ms)"))}),
+                fa, (ex, "sc[i] = fmaf(sc[i], mul, -ms);"))}),
         "fused_sample/shipped": ("fused_sample", {"fused_sample.cu": fs}),
         "fused_sample/6_stage_ring": ("fused_sample", {
             "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 6"))}),
@@ -1772,7 +1846,7 @@ def phase_variants(torch, dev):
 
             def err():
                 return float((fa_out.float() - fa_want.float()).abs().max())
-            calls[name] = (call, err, r"flash_tc_kernelILi128E")
+            calls[name] = (call, err, r"flash_wgmma_kernelILi128E")
         elif lib == "fused_sample":
             fn = so.fused_sample
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2

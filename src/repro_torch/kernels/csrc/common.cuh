@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels: element conversion to and
-// from f32, warp reductions, and the dtype codes the Python
+// from f32, shared-memory addresses, warp reductions, and the dtype codes the Python
 // wrappers pass (0 = float32, 1 = bfloat16, 2 = int8 KV storage).
 #pragma once
 
@@ -20,6 +20,10 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -1,8 +1,9 @@
-// Tensor-core and async-copy building blocks shared by the bf16 kernels
-// (flash_attention.cu, fused_sample.cu; the decode body,
-// decode_attention.cuh, uses the copies): `cp.async` 16-byte copies into
-// shared memory, `ldmatrix` fragment loads, `mma.sync.m16n8k16` with bf16
-// operands and f32 accumulators, and the XOR swizzle of shared tiles.
+// Tensor-core and async-copy building blocks of the fused head
+// (fused_sample.cu; the decode body, decode_attention.cuh, uses the
+// copies): `cp.async` 16-byte copies into shared memory, `ldmatrix`
+// fragment loads, `mma.sync.m16n8k16` with bf16 operands and f32
+// accumulators, and the XOR swizzle of shared tiles.  The bf16 flash
+// kernel is built on Hopper's TMA and `wgmma` instead (hopper.cuh).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), for lane = 4 g + t:
 //   A (16 x 16, row-major) a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
@@ -18,10 +19,6 @@
 #include "common.cuh"
 
 namespace rt {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Byte offset of 16-byte chunk `c` of row `r` in a shared tile whose rows
 // are `row_chunks` (>= 8) chunks long.  The chunk index is XORed with
@@ -74,21 +71,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU instruction (flushes denormal results to zero; 2^-inf
-// is +0), for softmax weights already scaled to the log2 domain.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two f32 rounded to bf16 (round to nearest even) in one register, `lo` in
-// the low half: the element with the lower column index of a fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 }  // namespace rt

@@ -3,16 +3,22 @@
 Replaces the Pallas TPU kernel ``flash_attention`` (``_kernel``) in
 ``repro/kernels/flash_attention.py``.  Bound on the H100: operations, the
 causal flops over the bf16 tensor-core peak (989 TFLOP/s).  The bf16
-kernel puts both products on the tensor cores (``mma.sync.m16n8k16``,
-bf16 operands, f32 accumulators, P rounded to bf16 for P V), streams
-64-row K/V tiles through a two-stage ``cp.async`` ring, applies masks
-and softcap on the score fragments in registers and keeps the online
-softmax in f32; it visits only the tiles inside the causal range and
-the window, heaviest query tiles first, and masks a ragged S where the
-TPU kernel asserted S % 128 == 0.  Head dims 64 and 128, and in bf16 96
-(Phi-3-Vision-4.2B, shared rows padded to 16 chunks), 192 (Nemotron-4-340B)
-and 256 (Gemma2-2B), whose key tiles halve to 32.  f32 keeps an f32 FMA
-kernel (TF32 would not hold its tolerance).  See the source.
+kernel is one Hopper design at head dims 64, 96 (Phi-3-Vision-4.2B), 128,
+192 (Nemotron-4-340B) and 256 (Gemma2-2B): one producer thread issues TMA
+copies (4-D tensor maps over (D, heads, S, B), which zero-fill rows past
+S) of the Q tile and of each K and V tile into a two-stage ring on
+``mbarrier``s; two consumer warpgroups of 64 query rows each compute
+S = Q K^T and O += P V with ``wgmma`` (Q, K and V from shared memory, P
+from registers rounded to bf16), in 64-key tiles (at D 64, 96 and 128
+its outputs are the earlier ``mma.sync`` kernel's bit for bit), with the
+masks, softcap and an f32 online softmax on the accumulators.
+Tiles are 64-column boxes under the 128-byte swizzle (32-column boxes
+under the 64-byte swizzle at D 96).  It visits only the tiles inside the
+causal range and the window, heaviest query tiles first, and masks a
+ragged S where the TPU kernel asserted S % 128 == 0.  TMA needs 16-byte
+aligned bases: a CUDA tensor off that grid raises.  f32 keeps an f32 FMA
+kernel at D 32, 64 and 128 (TF32 would not hold its tolerance).  See the
+source.
 
 CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
 tensors launch the kernel or raise.
@@ -68,6 +74,10 @@ def flash_attention(q, k, v, seg_ids=None, window: int = 0,
     build.require(window >= 0, NAME, f"window must be >= 0, got {window}")
     build.require(all(t.is_contiguous() for t in (q, k, v)), NAME,
                   "q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel's TMA copies need 16-byte aligned bases
+        build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), NAME,
+                      "q, k, v must start on 16-byte aligned addresses")
     if seg_ids is not None:
         build.require(seg_ids.shape == (B, S) and seg_ids.dtype == torch.int32
                       and seg_ids.is_contiguous(), NAME,

@@ -1,6 +1,8 @@
 """The port's CUDA wrappers refuse what their kernels do not take: the
 paged, dense (ragged) and int8-page decode kernels (an int8 call without
-the slots' new rows included), and flash prefill.
+the slots' new rows included), and flash prefill (a base off the 16-byte
+grid its TMA copies need); the bf16 flash kernel around its tile edges
+and the wide heads against the plain versions.
 
 Marked ``gpu``; skips where no CUDA device is present (the kernels have no
 CPU mode).  Imports neither JAX nor the reference package, so it runs on
@@ -182,6 +184,54 @@ def test_wide_head_kernels_match_their_plain_versions(dev):
     rv, _, rl = ref.fused_sample_ref(x, w, top_k=4)
     assert float((vals - rv).abs().max()) <= 1e-3
     assert float((lse - rl).abs().max()) <= 1e-3
+
+
+FLASH_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257)
+
+
+@pytest.mark.parametrize("D", (64, 96, 128, 192, 256))
+def test_flash_s_edges_match_the_plain_version(dev, D):
+    """bf16 flash around its 128-row query tiles and 64-key K/V tiles: S
+    from 1 to 257, segments (with a -1 pad
+    tail), a window and softcap in turn and together, G 1, 4, 12 and 16,
+    against ``ref.flash_attention_ref`` with the tolerance of
+    ``test_wide_head_kernels_match_their_plain_versions``."""
+    from repro_torch.kernels import ref
+    mixes = ((False, 0, 0.0), (True, 0, 0.0), (False, 40, 0.0),
+             (False, 0, 30.0), (True, 40, 30.0), (True, 0, 30.0),
+             (False, 100, 30.0), (True, 100, 0.0))
+    for i, S in enumerate(FLASH_EDGE_S):
+        seg, win, cap = mixes[i % len(mixes)]
+        G = (1, 4, 12, 16)[i % 4]
+        q, k, v = (_bf16(dev, 2, S, h, D, seed=S + j)
+                   for j, h in enumerate((2 * G, 2, 2)))
+        s_ = None
+        if seg:
+            s_ = torch.zeros((2, S), dtype=torch.int32, device=dev)
+            s_[:, S // 3:] = 1
+            s_[:, S - S // 8:] = -1
+        out = ops.flash_attention(q, k, v, seg_ids=s_, window=win,
+                                  softcap=cap).float()
+        want = ref.flash_attention_ref(q, k, v, window=win, softcap=cap,
+                                       seg_ids=s_).float()
+        wabs = ref.flash_attention_ref(q, k, v.abs(), window=win,
+                                       softcap=cap, seg_ids=s_).float()
+        assert float(((out - want).abs() - 2.0 ** -7 * want.abs()
+                      - 2.0 ** -9 * wabs).max()) <= 1e-3, (S, seg, win, cap)
+
+
+def test_flash_refuses_a_misaligned_base(dev):
+    """The bf16 kernel's TMA copies need 16-byte aligned bases: a q two
+    bytes off raises, and nothing launches."""
+    q = _bf16(dev, 1, 64, 4, 128, seed=0)
+    k, v = _bf16(dev, 1, 64, 2, 128, seed=1), _bf16(dev, 1, 64, 2, 128,
+                                                    seed=2)
+    qm = torch.empty(q.numel() + 8, dtype=q.dtype, device=dev)[
+        1:1 + q.numel()].view(q.shape).copy_(q)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(qm, k, v)
+    assert ops.launch_counts() == before
 
 
 def test_wide_heads_stay_bf16_fp_only(dev):
