@@ -255,16 +255,24 @@ def cuda_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, n: int = 20):
+def device_ms(torch, fn, n: int = 20, cold: bool = False):
     """Device time of the kernels one call of ``fn`` launches, summed
     (torch.profiler's CUDA kernel durations over ``n`` calls, divided by
     n), and per kernel its launches and device ms per call: the kernel
     without the host time of its wrapper, which ``cuda_ms`` times back to
-    back."""
+    back.  ``cold``: each call after an L2 flush (``flush_l2``), whose
+    launches are left out: at most the flushes' own count of each of
+    their kernels (a profile may drop events), so that a call launching
+    such a kernel itself fails the run rather than hide in the flush;
+    then each kernel's time is the median of its single launches (times
+    its launches a call), which a profile that drops some device events,
+    or one slow call, does not move."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    skip = flush_l2(torch) if cold else {}
+    n = max(n, 30) if cold else n
     # a profile now and then comes back without its device events (one
     # of 32 in one run, a kernel that the next profile saw); up to three
     # profiles, and no device time in all three fails the run
@@ -272,23 +280,99 @@ def device_ms(torch, fn, n: int = 20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
+                if cold:
+                    flush_l2(torch)
                 fn()
             torch.cuda.synchronize()
         rows = [r for r in prof.key_averages()
                 if r.device_type == torch.autograd.DeviceType.CUDA]
-        ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+        for r in rows:
+            if r.key in skip:
+                check(r.count <= n * skip[r.key],
+                      f"{r.key[:60]}: {r.count} launches in {n} calls, of "
+                      f"which the L2 flushes made {n * skip[r.key]}")
+        rows = [r for r in rows if r.key not in skip]
+        per = {r.key: {"launches": r.count / n,
+                       "ms": r.self_device_time_total / 1e3 / n}
+               for r in rows}
+        if cold:
+            single = {}
+            for e in prof.events():
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.key in per):
+                    single.setdefault(e.key, []).append(
+                        e.self_device_time_total / 1e3)
+            for k, v in per.items():
+                if single.get(k):
+                    v["ms"] = statistics.median(single[k]) \
+                        * round(v["launches"])
+        ms = sum(v["ms"] for v in per.values())
         if ms > 0:
             break
     check(ms > 0, f"profiler saw no device time for {fn}")
-    return ms, {r.key[:60]: {"launches": r.count / n,
-                             "ms": r.self_device_time_total / 1e3 / n}
-                for r in rows}
+    return ms, {k[:60]: v for k, v in per.items()}
 
 
-def timings(torch, fn, plain, library, ms_reps=(7, 10), plain_reps=(5, 3)):
+_FLUSH = []
+
+
+def flush_l2(torch):
+    """Write 160 MB (over three times the H100's 50 MB L2), so that the
+    next call finds its inputs in device memory, as an engine's layer does
+    (each of its layers reads its own pool).  Returns {kernel name:
+    launches a flush}, which cold timings leave out.  (Summing the buffer
+    instead leaves clean lines, but evicted a pool that fits L2 less
+    surely, and its kernel's time was not reliably left out.)"""
+    if not _FLUSH:
+        buf = torch.empty(40 * 2**20, device="cuda")
+        from torch.profiler import ProfilerActivity, profile
+        buf.fill_(1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            buf.fill_(1.0)
+            torch.cuda.synchronize()
+        names = {r.key: r.count for r in prof.key_averages()
+                 if r.device_type == torch.autograd.DeviceType.CUDA}
+        _FLUSH.append((buf, names))
+    buf, names = _FLUSH[0]
+    buf.fill_(1.0)
+    return names
+
+
+def cuda_ms_cold(torch, fn, reps: int = 15) -> float:
+    """Median over ``reps`` calls of one call's time between CUDA events,
+    each call after an L2 flush (outside the events)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush_l2(torch)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def timings(torch, fn, plain, library, ms_reps=(7, 10), plain_reps=(5, 3),
+            cold=False):
     """ms (wrapper, CUDA events), kernel_ms (device time of the call's
     launches), plain_ms and library_ms (None where no PyTorch call
-    computes the same function), measured in this run."""
+    computes the same function), measured in this run.  ``cold``: ms,
+    kernel_ms and library_ms each call after an L2 flush (``flush_l2``;
+    the decode rows: an engine's layer reads its pool from device
+    memory), plain_ms back to back."""
+    if cold:
+        ms = cuda_ms_cold(torch, fn)
+        kernel_ms, per_call = device_ms(torch, fn, cold=True)
+        return dict(ms=ms, kernel_ms=kernel_ms, kernels_per_call=per_call,
+                    plain_ms=cuda_ms(torch, plain, *plain_reps),
+                    library_ms=(cuda_ms_cold(torch, library, reps=5)
+                                if library is not None else None),
+                    l2="cold")
     ms = cuda_ms(torch, fn, *ms_reps)          # before the profiler runs
     kernel_ms, per_call = device_ms(torch, fn)
     return dict(ms=ms, kernel_ms=kernel_ms,
@@ -321,6 +405,47 @@ def paged_inputs(torch, dev, dtype, kv_lens, H, Kh, D, P=16, seed=0):
     vp = torch.randn((N, P, Kh, D), generator=g, device=dev).to(dtype)
     return (q, kp, vp, torch.from_numpy(bt).to(dev),
             torch.tensor(list(kv_lens), dtype=torch.int32, device=dev))
+
+
+def paged_nb(kv_lens, P=16):
+    """The block table's width ``paged_inputs`` gives these lengths."""
+    need = [max(1, -(-int(n) // P)) for n in kv_lens]
+    return 1 << (max(need) - 1).bit_length()
+
+
+def placed_new_row(plan_of, lens, Kh, group, edge):
+    """kv_len of the slots (``lens`` with slot 0's length moved) whose bf16
+    paged plan puts slot 0's new row (row len - 1) on the first row of a
+    CTA's share (its last page opens the share and holds only that row),
+    or (``last``) a slot's last page, with its new row, on a share's last
+    unit; None when no length up to 2048 rows does."""
+    for n0 in range(17, 2049, 16):
+        cand = [n0] + list(lens[1:])
+        shares, pieces = plan_of(cand)
+        nb = paged_nb(cand)
+        pages = [-(-min(int(n), 16 * nb) // 16) for n in cand]
+        for pc in pieces:
+            if pc.whole:
+                continue
+            item0 = (Kh // group) * sum(pages[:pc.b]) \
+                + pc.kh // group * pages[pc.b]
+            if edge == "first" and pc.b == 0 and pc.lo == pages[0] - 1 \
+                    and shares[pc.cta][0] == item0 + pc.lo:
+                return cand
+            if edge == "last" and pc.hi == pages[pc.b] \
+                    and shares[pc.cta][1] == item0 + pc.hi:
+                return cand
+    return None
+
+
+def one_kernel(name, report):
+    """The paged path's serve call launches exactly one kernel, the bf16
+    Hopper kernel, and no merge pass."""
+    per_call = report[name]["kernels_per_call"]
+    check(len(per_call) == 1
+          and all("paged_decode_hopper_kernel" in k for k in per_call)
+          and all(abs(v["launches"] - 1.0) < 1e-9 for v in per_call.values()),
+          f"{name}: a call must launch the one bf16 kernel, got {per_call}")
 
 
 def dense_inputs(torch, dev, dtype, kv_lens, S, H, Kh, D, seed=0):
@@ -432,26 +557,35 @@ BF16_FUNCTIONS = {
     "flash_attention": ("flash_attention", r"flash_wgmma_kernel"),
     "fused_sample": ("fused_sample", r"sample_tc_kernel"),
     "paged_decode_attention": ("paged_decode_attention",
-                               r"decode_split_kernelI13__nv_bfloat16S"),
+                               r"paged_decode_hopper_kernelI13__nv_bfloat16"),
     "paged_decode_attention_int8": ("paged_decode_attention",
-                                    r"decode_split_kernelI13__nv_bfloat16a"),
+                                    r"paged_decode_hopper_kernelIa"),
     "ragged_decode_attention": ("ragged_decode_attention",
                                 r"decode_split_kernelI13__nv_bfloat16"),
 }
+# bf16 paged decode instantiations (paged_decode_hopper.cuh): fp pages at
+# D 64/128 x G 1/2/4/8, (64, 3), (192, 12), (256, 2), (128, 16), (96, 1);
+# int8 pages at the same but (256, 2).  Each must issue tensor-core
+# instructions (mma.sync: HMMA) and spill nothing.
+PAGED_BF16_INSTANTIATIONS = {"paged_decode_attention": 13,
+                             "paged_decode_attention_int8": 12}
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
 WGMMA_OPS = re.compile(r"\bHGMMA\.")
 # bf16 flash instantiations (D 64, 96, 128, 192, 256): each must issue
 # wgmma (HGMMA) and no mma.sync (HMMA)
 FLASH_BF16_DS = (64, 96, 128, 192, 256)
-# decode kernel -> (library, regex of every instantiation: f32 and bf16,
-# D 64/128, G 1/2/4/8 and (64, 3), the bf16 wide shapes (on int8 pages
-# all but (256, 2)), f32 D 32 G 1 on fp pages, and the merge pass)
+# decode kernel -> (library, regex of every instantiation: the split-KV
+# body's (f32 q at D 64/128 x G 1/2/4/8 and (64, 3), f32 D 32 G 1 on fp
+# pages; the dense kernel's also bf16 with the wide shapes) and its merge
+# pass; for the paged kernel also the bf16 Hopper kernels)
 DECODE_FUNCTIONS = {
     "paged_decode_attention": ("paged_decode_attention",
-                               r"decode_split_kernelI(ff|13__nv_bfloat16S)"
+                               r"decode_split_kernelIff"
+                               r"|paged_decode_hopper_kernelI13__nv_bfloat16"
                                r"|decode_merge_kernel"),
     "paged_decode_attention_int8": ("paged_decode_attention",
-                                    r"decode_split_kernelI(f|13__nv_bfloat16)a"
+                                    r"decode_split_kernelIfa"
+                                    r"|paged_decode_hopper_kernelIa"
                                     r"|decode_merge_kernel"),
     "ragged_decode_attention": ("ragged_decode_attention",
                                 r"decode_(split|merge)_kernel"),
@@ -474,27 +608,30 @@ def ptxas_functions(log: str, pattern: str):
     return out
 
 
-# split-pass instantiations per decode kernel: 2 dtypes x (D 64/128 x G
-# 1/2/4/8, and (64, 3)), bf16 (D, G) = (192, 12), (256, 2), (128, 16)
-# and (96, 1) on fp K/V, bf16 (192, 12), (128, 16) and (96, 1) on int8
-# pages, and for fp pages also f32 at D 32, G 1 (the RL session's LM)
-DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 23,
-                               "paged_decode_attention_int8": 21,
+# split-pass instantiations per decode kernel: the paged kernel's f32 q
+# (D 64/128 x G 1/2/4/8, and (64, 3); on fp pages also D 32, G 1, the RL
+# session's LM); the dense kernel's f32 and bf16 (those and the wide
+# heads (192, 12), (256, 2), (128, 16), (96, 1))
+DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 10,
+                               "paged_decode_attention_int8": 9,
                                "ragged_decode_attention": 22}
 
 
 def decode_registers(build):
     """Registers and spills of every decode instantiation; checked: the
-    split-pass instantiations of ``DECODE_SPLIT_INSTANTIATIONS``, none
-    spills."""
+    split-pass instantiations of ``DECODE_SPLIT_INSTANTIATIONS`` and the
+    bf16 paged ones of ``PAGED_BF16_INSTANTIATIONS``, none spills."""
     out = {}
     for name, (lib, pat) in DECODE_FUNCTIONS.items():
         fns = ptxas_functions(build.ptxas_report(lib), pat)
         n_split = sum("decode_split_kernel" in fn for fn in fns)
+        n_hopper = sum("paged_decode_hopper_kernel" in fn for fn in fns)
         spill = sum(v["spill_bytes"] or 0 for v in fns.values())
         check(n_split == DECODE_SPLIT_INSTANTIATIONS[name]
+              and n_hopper == PAGED_BF16_INSTANTIATIONS.get(name, 0)
               and all(v["spill_bytes"] is not None for v in fns.values()),
-              f"{name}: {n_split} split instantiations in the ptxas log")
+              f"{name}: {n_split} split and {n_hopper} bf16 paged "
+              f"instantiations in the ptxas log")
         check(spill == 0, f"{name}: register spills {fns}")
         out[name] = {"functions": len(fns),
                      "max_registers": max((v["registers"] or 0
@@ -552,6 +689,12 @@ def phase_kernels(torch, dev, report):
         check(got["functions"] > 0 and got["min_per_function"] > 0,
               f"{name}: bf16 SASS has no tensor-core instruction {got}")
         check(got["spill_bytes"] == 0, f"{name}: bf16 register spills {got}")
+    for name, n in PAGED_BF16_INSTANTIATIONS.items():
+        got = sass[name]
+        check(got["functions"] == n and got["min_per_function"] > 0
+              and got["spill_bytes"] == 0,
+              f"{name}: each of the {n} bf16 instantiations must issue "
+              f"tensor-core instructions and spill nothing {got}")
     got = sass["flash_attention"]
     check(got["functions"] == len(FLASH_BF16_DS)
           and got["hgmma_min_per_function"] > 0
@@ -607,6 +750,7 @@ def phase_kernels(torch, dev, report):
     # tolerance: f32 1e-4 (only the order of f32 sums differs); bf16 the
     # decode rule (DECODE_RULE, above ``decode_excess``).
     import numpy as np
+    from collections import Counter
     from repro_torch.kernels import paged_decode_attention as pdm
     serve_lens = np.asarray(serve_decode_lens())
     # edges of the split-KV decode (shared by the three decode kernels):
@@ -642,6 +786,37 @@ def phase_kernels(torch, dev, report):
         ("d64_g3_edges_bf16", bf16, g3, 24, 8, 64, 0.0),
         ("d64_g3_softcap_splits_f32", f32, g8, 6, 2, 64, 30.0),
     ]
+    # the bf16 kernel's plan (paged_decode_hopper.cuh) with this card's
+    # grid, through its plain twin: a CTA's share ending inside a slot's
+    # page run, one slot over three or more CTAs, many one-page slots in
+    # one share, every slot at kv_len 0; each placement is checked on the
+    # plan before its case runs.  Every bf16 case runs twice: the second
+    # call must equal the first bit for bit (the item counters reset)
+    pH, pKh, pD = 16, 8, 128
+    ctas = pdm.hopper_ctas(pD, pH // pKh)
+    grp = pdm.hopper_group(pD, pH // pKh, pKh)
+
+    def plan_of(lens, Kh=pKh, group=grp):
+        return ref.paged_decode_work_plan(lens, 16, paged_nb(lens), Kh, ctas,
+                                          group)
+    one_page = [1 + i % 16 for i in range(600)]
+    _, pcs = plan_of(serve_lens.tolist())
+    check(any(not pc.whole and pc.lo > 0 for pc in pcs),
+          "paged plan: no share boundary inside a serve slot's pages")
+    _, pcs = plan_of([2048])
+    check(max(Counter(pc.kh for pc in pcs).values()) >= 3,
+          "paged plan: the 2048-row slot spans fewer than 3 CTAs")
+    _, pcs = plan_of(one_page)
+    check(max(Counter(pc.cta for pc in pcs if pc.whole).values()) >= 2 * grp,
+          "paged plan: no share holds two one-page slots")
+    pd_cases += [
+        ("plan_share_boundary_inside_pages_bf16", bf16, serve_lens.tolist(),
+         pH, pKh, pD, 0.0),
+        ("plan_one_slot_over_ctas_b1_2048_bf16", bf16, [2048], pH, pKh, pD,
+         0.0),
+        ("plan_600_one_page_slots_bf16", bf16, one_page, pH, pKh, pD, 0.0),
+        ("plan_all_kv_len_0_bf16", bf16, [0] * 8, pH, pKh, pD, 0.0),
+    ]
     serve_pd = None
     for name, dt, lens, H, Kh, D, cap in pd_cases:
         args = paged_inputs(torch, dev, dt, lens, H, Kh, D)
@@ -650,6 +825,11 @@ def phase_kernels(torch, dev, report):
         torch.cuda.synchronize()
         row = decode_record("paged_decode_attention", name, out, want,
                             dt == f32)
+        if dt == bf16:
+            again = ops.paged_decode_attention(*args, softcap=cap)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(out, again)),
+                  f"paged/{name}: a second call differs from the first")
         if 0 in lens:
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"paged/{name}: kv_len 0 not zero")
@@ -679,9 +859,11 @@ def phase_kernels(torch, dev, report):
         max_abs_err=row["max_abs_err"], tol=row["tol"], rtol=row["rtol"],
         tol_rule=row.get("tol_rule"),
         **timings(torch, lambda: ops.paged_decode_attention(*args),
-                  lambda: ref.paged_decode_attention_ref(*args), library),
+                  lambda: ref.paged_decode_attention_ref(*args), library,
+                  cold=True),
         **bound(nbytes, flops),
         shape=dict(B=B, H=H, Kh=Kh, D=D, P=16, live_rows=live))
+    one_kernel("paged_decode_attention", report)
 
     # -- ragged_decode_attention (dense cache) -------------------------------
     # tolerance: as for the paged kernel, whose body it shares: f32 1e-4,
@@ -828,6 +1010,18 @@ def phase_kernels(torch, dev, report):
         ("d64_g3_edges_f32", f32, g3, 24, 8, 64, 0.0, None),
         ("d64_g3_edges_bf16", bf16, g3, 24, 8, 64, 0.0, None),
     ]
+    # the new row (row kv_len - 1) on the first row of a CTA's share (the
+    # slot's last page opens the share and holds only the new row) and on
+    # its last (the slot's pages end where the share does), placed by the
+    # plan at the serve shape
+    for edge in ("first", "last"):
+        lens = placed_new_row(plan_of, serve_lens.tolist(), pKh, grp, edge)
+        check(lens is not None,
+              f"paged plan: no serve lens put the new row on a share's "
+              f"{edge} row")
+        if lens is not None:
+            i8_cases.append((f"plan_new_row_on_share_{edge}_row_bf16", bf16,
+                             lens, pH, pKh, pD, 0.0, None))
     serve_i8 = None
     for name, dt, lens, H, Kh, D, cap, special in i8_cases:
         q, kp, vp, bt, kvl = paged_inputs(torch, dev, dt, lens, H, Kh, D)
@@ -864,6 +1058,11 @@ def phase_kernels(torch, dev, report):
         torch.cuda.synchronize()
         row = record("paged_decode_attention_int8", name, maxerr(out, want),
                      1e-4 if dt == f32 else 2e-2)
+        if dt == bf16:
+            again = ops.paged_decode_attention_int8(*args, softcap=cap, **new)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(out, again)),
+                  f"int8/{name}: a second call differs from the first")
         if special == "zero":
             check(abs(float(args[3][bt[0, 1]]) * 127 - 1e-8) < 1e-12,
                   "int8 zero page: scale not at its 1e-8 floor")
@@ -900,10 +1099,11 @@ def phase_kernels(torch, dev, report):
         **timings(torch,
                   lambda: ops.paged_decode_attention_int8(*args, **new),
                   lambda: ref.paged_decode_attention_int8_ref(*args, **new),
-                  library),
+                  library, cold=True),
         **bound(nbytes, 4 * live * H * D),
         shape=dict(B=B, H=H, Kh=Kh, D=D, P=P, live_rows=live,
                    live_pages=live_pages, q="bfloat16"))
+    one_kernel("paged_decode_attention_int8", report)
     del args, new, q, k8, v8, mask
 
     # -- flash_attention ------------------------------------------------------
@@ -1168,9 +1368,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                                    for v in fns.values())}
 
     def timed(kernel, case, row, fn, plain, library, nbytes, flops, shape,
-              registers, note=None, plain_reps=(3, 2)):
+              registers, note=None, plain_reps=(3, 2), cold=False):
         t = timings(torch, fn, plain, library, ms_reps=(5, 5),
-                    plain_reps=plain_reps)
+                    plain_reps=plain_reps, cold=cold)
         t.pop("kernels_per_call")
         check(registers["functions"] > 0 and registers["spill_bytes"] == 0,
               f"{kernel}/{case}: instantiation missing or spilling "
@@ -1238,8 +1438,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   4 * live * H * D,
                   dict(B=len(lens), H=H, Kh=Kh, D=D, P=16, live_rows=live),
                   regs("paged_decode_attention",
-                       rf"decode_split_kernelI13__nv_bfloat16S\w*Li{D}ELi{G}E"),
-                  note="gather + SDPA, key mask")
+                       rf"paged_decode_hopper_kernelI13__nv_bfloat16Li{D}ELi"
+                       rf"{G}E"),
+                  note="gather + SDPA, key mask", cold=True)
         del args, out, want
 
     # -- decode: the dense cache (Gemma2's rings and global caches) ---------
@@ -1386,6 +1587,8 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
              [1, 16, 17] + edges, 24, 8, 64, False, None),
             ("nemotron_serve_b16_d192_g12",
              family_serve_lens(16, 64, 1024, 64, 21), 96, 8, 192, True, None),
+            ("qwen1_5_serve_b32_d128_g8",
+             family_serve_lens(32, 64, 1024, 64, 22), 64, 8, 128, True, None),
             ("qwen3_moe_serve_b32_d128_g16",
              family_serve_lens(32, 64, 1024, 64, 25), 64, 4, 128, True, None),
             ("phi3_vision_serve_b32_d96_g1",
@@ -1445,8 +1648,8 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   dict(B=B, H=H, Kh=Kh, D=D, P=P, live_rows=live,
                        live_pages=live_pages),
                   regs("paged_decode_attention",
-                       rf"decode_split_kernelI13__nv_bfloat16aLi{D}ELi{G}E"),
-                  note="gather + dequantise + SDPA, key mask")
+                       rf"paged_decode_hopper_kernelIaLi{D}ELi{G}E"),
+                  note="gather + dequantise + SDPA, key mask", cold=True)
         del args, new, out, want
 
     # -- flash prefill ----------------------------------------------------------
@@ -1697,7 +1900,7 @@ def variant_sources():
     fa = (csrc / "flash_attention.cu").read_text()
     fs = (csrc / "fused_sample.cu").read_text()
     pd = (csrc / "paged_decode_attention.cu").read_text()
-    body = (csrc / "decode_attention.cuh").read_text()
+    hop = (csrc / "paged_decode_hopper.cuh").read_text()
 
     def sub(src, *pairs):
         for a, b in pairs:
@@ -1706,10 +1909,10 @@ def variant_sources():
             src = src.replace(a, b)
         return src
 
-    def decode(*pairs):
+    def decode(*pairs, cu_pairs=()):
         return ("paged_decode_attention",
-                {"paged_decode_attention.cu": pd,
-                 "decode_attention.cuh": sub(body, *pairs)})
+                {"paged_decode_attention.cu": sub(pd, *cu_pairs),
+                 "paged_decode_hopper.cuh": sub(hop, *pairs)})
     cfg = "kFlashConsumers = 2, kFlashStages = 2"
     tile = "TK = 64;"
     qk = ("        qk_issue<D>(sc, qd, kd + ((slot(it) * T::kKVBytes) >> 4));"
@@ -1717,12 +1920,42 @@ def variant_sources():
     pv = ("        pv_issue<D>(o, pa, vd + ((slot(it - 1) * T::kKVBytes) >> 4));"
           "\n")
     ex = "sc[i] = fast_exp2(fmaf(sc[i], mul, -ms));"
-    split = "kDecodeSplitRows = 256"
-    ring = "kDecodeStages = 4"
-    scores = ("      score_tile<KV, D, G, kQReg, QR>(st, it * TR, nk, qr, qs, sc,"
-              " ksr,\n                                      p.softcap, lane,"
-              " warp);\n")
-    pvs = "      pv_tile<KV, D, G>(st, (it - ntiles) * TR, nk, sc, acc, tid);\n"
+    stages = "kPdMaxStages = 4;"
+    scores = ("        mma_bf16(sa, a, r[0], r[2]);\n"
+              "        mma_bf16(sb, a, r[1], r[3]);\n")
+    pvs = ("        mma_bf16(o[2 * cg], ah, r[0], r[1]);\n"
+           "        mma_bf16(o[2 * cg], al, r[0], r[1]);\n"
+           "        mma_bf16(o[2 * cg + 1], ah, r[2], r[3]);\n"
+           "        mma_bf16(o[2 * cg + 1], al, r[2], r[3]);\n")
+    # bf16 q back to the split-KV body of decode_attention.cuh (the
+    # kernel before this design), every bf16 shape instantiated there again
+    old_body = ((
+        "template <typename T, typename KV>\n"
+        "int dispatch(int D, int G, DecodeParams& p, int B, cudaStream_t s) {\n"
+        "#define RT_LAUNCH(DD, GG) (int)launch_decode<T, KV, DD, GG>(p, B, s)\n"
+        "  RT_DECODE_SHAPES(D, G, RT_LAUNCH)\n",
+        "template <typename T, typename KV>\n"
+        "int dispatch(int D, int G, DecodeParams& p, int B, cudaStream_t s) {\n"
+        "#define RT_LAUNCH(DD, GG) (int)launch_decode<T, KV, DD, GG>(p, B, s)\n"
+        "  RT_DECODE_SHAPES(D, G, RT_LAUNCH)\n"
+        "  if constexpr (std::is_same<T, __nv_bfloat16>::value) {\n"
+        "    if constexpr (std::is_same<KV, T>::value) {\n"
+        "      RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)\n"
+        "    } else {\n"
+        "      RT_DECODE_INT8_WIDE_SHAPES(D, G, RT_LAUNCH)\n"
+        "    }\n"
+        "  }\n"), (
+        "  if (dtype == kBF16) {\n    if (P != kPdPage",
+        "  if (false) {\n    if (P != kPdPage"), (
+        "  if (dtype != kF32) return (int)cudaErrorInvalidValue;\n"
+        "  const int kv_size = kv_dtype == kF32 ? 4 : 1;",
+        "  const int kv_size = kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2 : 1;"), (
+        "  if (kv_dtype == kI8) return dispatch<float, int8_t>(D, G, p, B, s);\n",
+        "  if (dtype == kBF16 && kv_dtype == kBF16)\n"
+        "    return dispatch<__nv_bfloat16, __nv_bfloat16>(D, G, p, B, s);\n"
+        "  if (dtype == kBF16 && kv_dtype == kI8)\n"
+        "    return dispatch<__nv_bfloat16, int8_t>(D, G, p, B, s);\n"
+        "  if (kv_dtype == kI8) return dispatch<float, int8_t>(D, G, p, B, s);\n"))
     staged = ("  for (int mt = mt_max; mt >= 1; --mt)\n"
               "    if (SampleSmem(16 * mt, round_up(Dm, SKT), K, false).total"
               " <= kSmemMax)\n      return {16 * mt, false};\n")
@@ -1761,15 +1994,48 @@ def variant_sources():
         "fused_sample/x_streamed": ("fused_sample", {
             "fused_sample.cu": sub(fs, (staged, ""))}),
         "paged_decode/shipped": decode(),
-        "paged_decode/split_128_rows": decode(
-            (split, split.replace("256", "128"))),
-        "paged_decode/split_512_rows": decode(
-            (split, split.replace("256", "512"))),
-        "paged_decode/2_stage_ring": decode((ring, ring.replace("4", "2"))),
-        "paged_decode/3_stage_ring": decode((ring, ring.replace("4", "3"))),
+        "paged_decode/split_body": decode(cu_pairs=old_body),
+        # pages in each warp's ring at 4 warps (4 shipped; 6 where the
+        # ring fits) and at 8 (2 shipped)
+        "paged_decode/2_stage_ring": decode((stages, "kPdMaxStages = 2;")),
+        "paged_decode/3_stage_ring": decode((stages, "kPdMaxStages = 3;")),
+        "paged_decode/6_stage_ring": decode((stages, "kPdMaxStages = 6;")),
+        "paged_decode/8_warps_4_stage_ring": decode(
+            ("kPdNarrowStages = 2;", "kPdNarrowStages = 4;")),
+        # 4 warps a CTA and half the rings' bytes: 2 CTAs an SM (8 warps
+        # at ~200 registers a thread fit one)
+        "paged_decode/2_ctas_an_sm": decode(
+            ("kPdRing = 212992;", "kPdRing = 106496;"),
+            ("constexpr int kPdWarps = 8;", "constexpr int kPdWarps = 4;")),
+        # 4 warps (KV heads a unit) at every shape
+        "paged_decode/4_warps": decode(
+            ("constexpr int kPdWarps = 8;", "constexpr int kPdWarps = 4;")),
+        # the S = Q K^T products removed (bf16 pages; scores stay 0), and the
+        # P V products removed (bf16 pages)
         "paged_decode/ablate_scores": decode((scores, "")),
         "paged_decode/ablate_pv": decode((pvs, "")),
     }
+
+
+def paged_variant_shapes():
+    """(label, kv_len, H, Kh, D) of the paged decode's variant timings:
+    Qwen3-0.6B's serve shape and every paged family's heads at its serve
+    lengths (as ``kernels_family_shapes``), and Gemma2-2B's (256, 2)."""
+    return [
+        ("serve_qwen3_0_6b_d128_g2", serve_decode_lens(), 16, 8, 128),
+        ("qwen1_5_d128_g8", family_serve_lens(32, 64, 1024, 64, 22), 64, 8,
+         128),
+        ("nemotron_d192_g12", family_serve_lens(16, 64, 1024, 64, 21), 96, 8,
+         192),
+        ("granite_moe_d64_g3", family_serve_lens(32, 64, 1024, 64, 24), 24,
+         8, 64),
+        ("qwen3_moe_d128_g16", family_serve_lens(32, 64, 1024, 64, 25), 64,
+         4, 128),
+        ("phi3_vision_d96_g1", family_serve_lens(
+            32, 64 + PHI3_PATCHES, 1024 + PHI3_PATCHES, 64, 26), 32, 32, 96),
+        ("gemma2_d256_g2", family_serve_lens(16, 64, 1024, 64, 23), 8, 4,
+         256),
+    ]
 
 
 def serve_decode_lens():
@@ -1812,20 +2078,23 @@ def phase_variants(torch, dev):
     x = torch.randn((Bs, Dm), generator=g, device=dev).bfloat16()
     w = embed.T
     fs_want = ref.fused_sample_ref(x, w)
-    # decode serve shape, fp and int8 pages (with the slots' new rows)
-    dq, dkp, dvp, dbt, dkv = paged_inputs(torch, dev, torch.bfloat16,
-                                          serve_decode_lens(), 16, 8, 128)
-    _, k8, v8, ks8, vs8, _, _ = int8_inputs(ref, (dq, dkp, dvp, dbt, dkv))
-    kn, vn = (torch.randn((32, 8, 128), generator=g, device=dev).bfloat16()
-              for _ in range(2))
-    dec_want = {
-        "fp": ref.paged_decode_attention_ref(dq, dkp, dvp, dbt, dkv),
-        "int8": ref.paged_decode_attention_int8_ref(
-            dq, k8, v8, ks8, vs8, dbt, dkv, k_new=kn, v_new=vn)}
-    dec_in = {"fp": (dkp, dvp, None, None, None, None, 1),
-              "int8": (k8, v8, ks8, vs8, kn, vn, 2)}
-    dec_out = torch.empty_like(dq)
-    nb = dbt.shape[1]
+    # the paged decode at the serve shape and every paged family's heads,
+    # fp and int8 pages (with the slots' new rows)
+    dec = {}
+    for label, lens, H_, Kh_, D_ in paged_variant_shapes():
+        dq, dkp, dvp, dbt, dkv = paged_inputs(torch, dev, torch.bfloat16,
+                                              lens, H_, Kh_, D_)
+        _, k8, v8, ks8, vs8, _, _ = int8_inputs(ref, (dq, dkp, dvp, dbt, dkv))
+        kn, vn = (torch.randn((len(lens), Kh_, D_), generator=g,
+                              device=dev).bfloat16() for _ in range(2))
+        dec[f"{label}/fp"] = (dq, dkp, dvp, None, None, None, None, dbt, dkv,
+                              1, ref.paged_decode_attention_ref(
+                                  dq, dkp, dvp, dbt, dkv))
+        if D_ != 256:                       # int8 pages: every shape but
+            dec[f"{label}/int8"] = (                     # Gemma2's
+                dq, k8, v8, ks8, vs8, kn, vn, dbt, dkv, 2,
+                ref.paged_decode_attention_int8_ref(
+                    dq, k8, v8, ks8, vs8, dbt, dkv, k_new=kn, v_new=vn))
     rows = {}
     for name, (lib, d, proc) in procs.items():
         log = proc.communicate()[0]
@@ -1874,38 +2143,52 @@ def phase_variants(torch, dev):
             calls[name] = (call, err, r"sample_tc_kernelILi2ELb1E")
         else:
             fn = so.paged_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p])
             so.paged_decode_splits.argtypes = [ctypes.c_int] * 2
-            ml, acc = build.split_scratch(so.paged_decode_splits(nb, 16), 32,
-                                          16, 128, dev)
-            for kind, (kp_, vp_, ks_, vs_, kn_, vn_, code) in dec_in.items():
-                def call(kp_=kp_, vp_=vp_, ks_=ks_, vs_=vs_, kn_=kn_,
-                         vn_=vn_, code=code):
-                    return fn(dq.data_ptr(), kp_.data_ptr(), vp_.data_ptr(),
-                              *[build.data_ptr(t) for t in (ks_, vs_, kn_,
-                                                            vn_)],
-                              dbt.data_ptr(), dkv.data_ptr(),
-                              dec_out.data_ptr(), build.data_ptr(ml),
-                              build.data_ptr(acc), 32, 16, 8, 128, 16, nb,
-                              0.0, 1, code, stream)
+            so.paged_decode_workspace_floats.argtypes = [ctypes.c_int] * 4
+            so.paged_decode_workspace_floats.restype = ctypes.c_longlong
+            for key, (dq, kp_, vp_, ks_, vs_, kn_, vn_, dbt, dkv, code,
+                      want) in dec.items():
+                B_, H_, D_ = dq.shape
+                Kh_, nb = kp_.shape[2], dbt.shape[1]
+                G_ = H_ // Kh_
+                ml, acc = build.split_scratch(so.paged_decode_splits(nb, 16),
+                                              B_, H_, D_, dev)
+                ws = torch.empty(max(so.paged_decode_workspace_floats(
+                    D_, G_, Kh_, code), 1), device=dev)
+                cnt = torch.zeros(B_ * Kh_, dtype=torch.int32, device=dev)
+                out = torch.empty_like(dq)
 
-                def err(kind=kind):
-                    return float((dec_out.float()
-                                  - dec_want[kind].float()).abs().max())
-                calls[f"{name}/{kind}"] = (
-                    call, err, r"decode_split_kernelI13__nv_bfloat16"
-                    + ("S" if kind == "fp" else "a") + r"\w*Li128ELi2E")
+                def call(a=(dq, kp_, vp_, ks_, vs_, kn_, vn_, dbt, dkv, out,
+                            ml, acc, ws, cnt), sh=(B_, H_, Kh_, D_, 16, nb),
+                         code=code):
+                    return fn(*[build.data_ptr(t) for t in a], *sh, 0.0, 1,
+                              code, stream)
+
+                def err(out=out, want=want):
+                    return float((out.float() - want.float()).abs().max())
+                pat = (r"(paged_decode_hopper_kernelI"
+                       + ("13__nv_bfloat16" if code == 1 else "a")
+                       + rf"|decode_split_kernelI13__nv_bfloat16\w*)Li{D_}"
+                       + rf"ELi{G_}E")
+                calls[f"{name}/{key}"] = (call, err, pat)
         for row_name, (call, err, pat) in calls.items():
             rc = call()
             torch.cuda.synchronize()
             check(rc == 0, f"variant {row_name}: launch failed with {rc}")
             regs = ptxas_functions(log, pat)
+            # the decode rows cold (each call after an L2 flush), as an
+            # engine's layer reads its pool; the others back to back
+            cold = lib == "paged_decode_attention"
             rows[row_name] = {
                 "rc": rc, "max_abs_err": err(),
-                "ms": cuda_ms(torch, call) if rc == 0 else None,
-                "kernel_ms": device_ms(torch, call)[0] if rc == 0 else None,
+                "ms": (cuda_ms_cold(torch, call) if cold
+                       else cuda_ms(torch, call)) if rc == 0 else None,
+                "kernel_ms": (device_ms(torch, call, cold=cold)[0]
+                              if rc == 0 else None),
+                "l2": "cold" if cold else "hot",
                 "registers": max((v["registers"] or 0
                                   for v in regs.values()), default=None),
                 "spill_bytes": sum(v["spill_bytes"] or 0
@@ -1913,9 +2196,11 @@ def phase_variants(torch, dev):
     emit({"phase": "variants",
           "shapes": {"flash_attention": dict(B=B, S=S, H=H, Kh=Kh, D=D),
                      "fused_sample": dict(B=Bs, Dm=Dm, V=V, w="embed.T"),
-                     "paged_decode": dict(B=32, H=16, Kh=8, D=128, P=16,
-                                          nb=nb, live_rows=int(dkv.sum()),
-                                          q="bfloat16")},
+                     "paged_decode": {
+                         k: dict(B=v[0].shape[0], H=v[0].shape[1],
+                                 Kh=v[1].shape[2], D=v[0].shape[2], P=16,
+                                 live_rows=int(v[8].sum()), q="bfloat16")
+                         for k, v in dec.items()}},
           "variants": rows})
 
 

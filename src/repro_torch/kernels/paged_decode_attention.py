@@ -5,14 +5,20 @@ Replaces the Pallas TPU kernel ``paged_decode_attention`` in
 (``_paged_kernel``) and int8 pages with one f32 scale per physical page
 (``_paged_kernel_int8``, the reference's ``ops.paged_decode_attention_int8``).
 Bound on the H100: bytes, the live K/V rows (and, for int8, their pages'
-scales) over 3.35 TB/s.  The kernel reads each live row once: a CTA per
-(KV head, slot, split of the slot's rows) serves the KV head's G query
-heads, resolves its split's pages from the block table once, streams the
-rows through a ``cp.async`` ring in shared memory, dequantises int8 rows
-in registers, and keeps the softmax in f32; a slot with more than one
-live split is merged by a second pass from f32 partials.  See
-``csrc/decode_attention.cuh``.  The number of splits comes from the
-block table's width, so the wrapper never reads ``kv_len`` to the host.
+scales) over 3.35 TB/s.
+
+bf16 q (every serve path) runs ``csrc/paged_decode_hopper.cuh``, one
+launch a call: a persistent grid of SMs x (CTAs an SM holds) splits the
+(slot, KV head group, page) units evenly, planned on the device from
+``kv_len`` (the host never reads it), a warp a KV head streams its page
+rows through a ``cp.async`` ring, both products run on tensor cores (int8
+rows dequantised on the way into a fragment), and an item split across
+CTAs is merged inside the kernel through a workspace.  This module keeps
+that workspace per device and stream (f32 partials and the items'
+counters, zeroed once, grown when a call needs more, never allocated per
+call).  f32 q runs the split-KV body of ``csrc/decode_attention.cuh`` (a
+grid per split of the block table's rows and a merge pass from f32
+partials).
 
 CPU tensors take the plain versions (``ref.paged_decode_attention_ref``,
 ``ref.paged_decode_attention_int8_ref``); CUDA tensors launch the kernel
@@ -31,7 +37,11 @@ from repro_torch.kernels.ref import (paged_decode_attention_int8_ref,
 NAME = "paged_decode_attention"
 NAME_INT8 = "paged_decode_attention_int8"
 launches = {NAME: 0, NAME_INT8: 0}   # kernel launches since the last reset
+PAGE_ROWS = 16      # bf16 q: the Hopper kernel's page size (the engine's)
 _lib = None
+_grids = {}         # (device, D, G, kv code) -> CTAs of the bf16 grid
+_ws_floats = {}     # (device, D, G, Kh, kv code) -> f32 of its workspace
+_workspaces = {}    # (device, stream) -> (f32 partials, int32 counters)
 
 
 def _bind():
@@ -39,9 +49,15 @@ def _bind():
     if _lib is None:
         lib = build.load(NAME)
         lib.paged_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.paged_decode_attention.restype = ctypes.c_int
+        lib.paged_decode_ctas.argtypes = [ctypes.c_int] * 3
+        lib.paged_decode_ctas.restype = ctypes.c_int
+        lib.paged_decode_group.argtypes = [ctypes.c_int] * 3
+        lib.paged_decode_group.restype = ctypes.c_int
+        lib.paged_decode_workspace_floats.argtypes = [ctypes.c_int] * 4
+        lib.paged_decode_workspace_floats.restype = ctypes.c_longlong
         lib.paged_decode_splits.argtypes = [ctypes.c_int] * 2
         lib.paged_decode_splits.restype = ctypes.c_int
         lib.paged_decode_split_rows.argtypes = []
@@ -51,9 +67,58 @@ def _bind():
 
 
 def split_rows() -> int:
-    """Rows of a slot one CTA of the decode kernels takes (builds the
-    library; the card's edge cases are placed around it)."""
+    """Rows of a slot one CTA of the f32 split-KV decode kernels takes
+    (builds the library; the card's edge cases are placed around it)."""
     return _bind().paged_decode_split_rows()
+
+
+def hopper_ctas(D: int, G: int, int8: bool = False) -> int:
+    """CTAs of the bf16 kernel's grid at (D, G) over fp (or int8) pages on
+    the current device: SMs x (CTAs an SM holds).  The card's plan edges
+    are placed with it (``ref.paged_decode_work_plan``)."""
+    dev = torch.cuda.current_device()
+    kv = build.KV_INT8 if int8 else build.DTYPE_CODES[torch.bfloat16]
+    key = (dev, D, G, kv)
+    if key not in _grids:
+        n = _bind().paged_decode_ctas(D, G, kv)
+        build.require(n > 0, NAME, f"no bf16 kernel at D={D} G={G}"
+                      + (" on int8 pages" if int8 else ""))
+        _grids[key] = n
+    return _grids[key]
+
+
+def hopper_group(D: int, G: int, Kh: int) -> int:
+    """KV heads one unit of the bf16 kernel takes (one warp each)."""
+    return _bind().paged_decode_group(D, G, Kh)
+
+
+def workspace_floats(D: int, G: int, Kh: int, int8: bool = False) -> int:
+    """f32 of the bf16 kernel's workspace at (D, G, Kh) on the current
+    device (the C side owns its layout)."""
+    kv = build.KV_INT8 if int8 else build.DTYPE_CODES[torch.bfloat16]
+    key = (torch.cuda.current_device(), D, G, Kh, kv)
+    if key not in _ws_floats:
+        n = _bind().paged_decode_workspace_floats(D, G, Kh, kv)
+        build.require(n > 0, NAME, f"no bf16 kernel at D={D} G={G}"
+                      + (" on int8 pages" if int8 else ""))
+        _ws_floats[key] = n
+    return _ws_floats[key]
+
+
+def workspace(dev: torch.device, floats: int, items: int):
+    """The bf16 kernel's workspace on ``dev``'s current stream: f32
+    partials of at least ``floats`` and int32 counters of at least
+    ``items``, zero between launches (each launch leaves them zero).
+    Kept across calls, grown (a new zeroed buffer) when a call needs
+    more."""
+    key = (dev.index, build.stream_ptr(dev))
+    ws, counters = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < items:
+        counters = torch.zeros(items, dtype=torch.int32, device=dev)
+    _workspaces[key] = (ws, counters)
+    return ws, counters
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
@@ -134,12 +199,23 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
                   f"k/v_new must be ({B}, {Kh}, {D}) of q's dtype")
     build.require(all(t.is_contiguous() for t in args + scales + rows), name,
                   "all inputs must be contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    build.require(not bf16 or P == PAGE_ROWS, name,
+                  f"bf16 q needs pages of {PAGE_ROWS} rows, got {P}")
+    build.require(not bf16 or (k_pages.data_ptr() % 16 == 0
+                               and v_pages.data_ptr() % 16 == 0), name,
+                  "page pools must start on a 16-byte boundary (bulk copies)")
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _bind()
-    part_ml, part_acc = build.split_scratch(
-        lib.paged_decode_splits(nb, P), B, H, D, dev)
+    part_ml = part_acc = ws = counters = None
+    if bf16:
+        ws, counters = workspace(
+            dev, workspace_floats(D, H // Kh, Kh, int8=quant), B * Kh)
+    else:
+        part_ml, part_acc = build.split_scratch(
+            lib.paged_decode_splits(nb, P), B, H, D, dev)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None,
@@ -148,6 +224,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len,
         v_new.data_ptr() if quant else None,
         block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         build.data_ptr(part_ml), build.data_ptr(part_acc),
+        build.data_ptr(ws), build.data_ptr(counters),
         B, H, Kh, D, P, nb, float(softcap), code, kv_code,
         build.stream_ptr(dev))
     build.check(rc, name)

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -163,6 +164,103 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables,
     parts = decode_split_partials_ref(q, views[0], views[1], kv_len,
                                       split_rows, softcap=softcap)
     return merge_split_partials_ref(*parts).to(q.dtype), parts
+
+
+class DecodePiece(NamedTuple):
+    """The pages [lo, hi) of item (slot b, KV head kh) that CTA ``cta`` of
+    the bf16 paged decode kernel takes; ``slot`` is its workspace slot
+    (2 cta for the CTA's first piece, 2 cta + 1 for its last), unused
+    where the piece is the ``whole`` item."""
+    cta: int
+    b: int
+    kh: int
+    lo: int
+    hi: int
+    slot: int
+    whole: bool
+
+
+def paged_decode_work_plan(kv_len, P: int, nb: int, Kh: int, ctas: int,
+                           group: int = 1
+                           ) -> Tuple[List[Tuple[int, int]],
+                                      List[DecodePiece]]:
+    """The plain twin of the bf16 paged decode kernel's plan
+    (``csrc/paged_decode_hopper.cuh``).  A unit is one page of a group of
+    ``group`` KV heads of one slot (the kernel's ``pd_group``): pages(b) =
+    ceil(min(kv_len[b], nb P) / P), ordered by slot, then KV head group,
+    then page.  Of the U units, CTA c of C = min(ctas, U) takes [c U // C,
+    (c + 1) U // C).  Returns the shares ((u0, u1) per CTA) and the pieces,
+    item by item (an item is a (slot, KV head group); one piece a KV head
+    of the group), each item's pieces in CTA order."""
+    lens = [max(0, min(int(n), nb * P)) for n in kv_len]
+    pages = [-(-n // P) for n in lens]
+    groups = Kh // group
+    U = groups * sum(pages)
+    ce = min(ctas, U)
+    shares = [(c * U // ce, (c + 1) * U // ce) for c in range(ce)]
+    pieces, item0 = [], 0
+    for b, npg in enumerate(pages):
+        for kg in range(groups if npg else 0):
+            cf = ((item0 + 1) * ce - 1) // U
+            cl = ((item0 + npg) * ce - 1) // U
+            for c in range(cf, cl + 1):
+                u0, u1 = shares[c]
+                for kh in range(kg * group, (kg + 1) * group):
+                    pieces.append(DecodePiece(
+                        c, b, kh, max(u0, item0) - item0,
+                        min(u1, item0 + npg) - item0,
+                        2 * c + (0 if u0 >= item0 else 1), cf == cl))
+            item0 += npg
+    return shares, pieces
+
+
+def paged_decode_plan_ref(q, k_pages, v_pages, block_tables, kv_len,
+                          ctas: int, group: int = 1, softcap: float = 0.0,
+                          k_scales=None, v_scales=None, k_new=None,
+                          v_new=None):
+    """The paged decode as the bf16 kernel's plan cuts it, in f32: each
+    piece's partials (max, sum, unnormalised accumulator) over its pages'
+    rows (int8 pages dequantised; the item's last page brings the new row
+    ``k_new``/``v_new`` in place of row len - 1), then each item's pieces
+    merged in CTA order (``merge_split_partials_ref``).  Returns (out in
+    q's dtype, the pieces, their (m, l, acc) as (G,), (G,), (G, D))."""
+    B, H, D = q.shape
+    N, P, Kh, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    G = H // Kh
+    if k_scales is not None:
+        k_pages = dequantize_pages_ref(k_pages, k_scales)
+        v_pages = dequantize_pages_ref(v_pages, v_scales)
+    kf, vf = k_pages.float(), v_pages.float()
+    lens = [max(0, min(int(n), nb * P)) for n in kv_len.tolist()]
+    _, pieces = paged_decode_work_plan(lens, P, nb, Kh, ctas, group)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    parts, by_item = [], {}
+    for pc in pieces:
+        n, npg = lens[pc.b], -(-lens[pc.b] // P)
+        new = k_new is not None and pc.hi == npg
+        rows = range(pc.lo * P, min(pc.hi * P, n - (1 if new else 0)))
+        pg = block_tables[pc.b].long()
+        idx = torch.tensor(list(rows), dtype=torch.long)
+        k = kf[pg[idx // P], idx % P, pc.kh]
+        v = vf[pg[idx // P], idx % P, pc.kh]
+        if new:
+            k = torch.cat([k, k_new[pc.b, pc.kh][None].float()])
+            v = torch.cat([v, v_new[pc.b, pc.kh][None].float()])
+        qh = q[pc.b, pc.kh * G:(pc.kh + 1) * G].float()
+        s = qh @ k.T / math.sqrt(D)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        m = s.amax(-1)
+        p = torch.exp(s - m[:, None])
+        parts.append((m, p.sum(-1), p @ v))
+        by_item.setdefault((pc.b, pc.kh), []).append(parts[-1])
+    for (b, kh), ps in by_item.items():
+        m, l, acc = zip(*ps)
+        out[b, kh * G:(kh + 1) * G] = merge_split_partials_ref(
+            torch.stack(m, -1)[None], torch.stack(l, -1)[None],
+            torch.stack(acc, 1)[None])[0]
+    return out.to(q.dtype), pieces, parts
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,

@@ -407,3 +407,72 @@ def test_launch_path_long_shapes_match_their_plain_versions(dev):
         assert _decode_excess(got, want) <= 0
         assert not got[kv == 0].any()
         del q, kc, vc, got, want
+
+
+def _paged_case(dev, lens, H, Kh, D, nb, seed=0):
+    """bf16 q and fp pages (a pool of its own for every call), block
+    tables of distinct pages, and the int8 pages of the same rows with the
+    slots' new rows."""
+    from repro_torch.kernels import ref
+    B = len(lens)
+    q = _bf16(dev, B, H, D, seed=seed)
+    kp, vp = (_bf16(dev, B * nb + 1, 16, Kh, D, seed=seed + i)
+              for i in (1, 2))
+    bt = (torch.randperm(B * nb, device=dev) + 1).to(torch.int32).view(B, nb)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    (k8, ks), (v8, vs) = ref.quantize_pages_ref(kp), ref.quantize_pages_ref(vp)
+    new = dict(k_new=_bf16(dev, B, Kh, D, seed=seed + 3),
+               v_new=_bf16(dev, B, Kh, D, seed=seed + 4))
+    return (q, kp, vp, bt, kv), (q, k8, v8, ks, vs, bt, kv), new
+
+
+def test_paged_decode_repeats_bit_for_bit(dev):
+    """The bf16 paged kernel merges a slot split across CTAs in the kernel,
+    through counters it sets back to 0: calls repeated on the same inputs
+    give the same bits, fp and int8 pages."""
+    fp, i8, new = _paged_case(dev, [2048, 700, 1, 0, 333], 16, 8, 128, 128)
+    first = ops.paged_decode_attention(*fp)
+    first8 = ops.paged_decode_attention_int8(*i8, **new)
+    for _ in range(3):
+        assert torch.equal(ops.paged_decode_attention(*fp), first)
+        assert torch.equal(ops.paged_decode_attention_int8(*i8, **new),
+                           first8)
+
+
+def test_paged_decode_calls_of_other_shapes_share_the_workspace(dev):
+    """Calls of other B, nb, heads and page dtypes in turn on one stream
+    (one workspace, grown when a call needs more), each against the plain
+    versions: fp pages at the decode rule, int8 pages within 2e-2."""
+    from repro_torch.kernels import ref
+    for i, (lens, H, Kh, D, nb) in enumerate((
+            ([1500, 20, 900], 16, 8, 128, 128),
+            ([17] * 40, 16, 8, 128, 2),
+            ([600, 1], 64, 4, 128, 64),
+            ([1000, 300, 5, 640], 96, 8, 192, 64),
+            ([3000], 16, 8, 128, 256))):
+        fp, i8, new = _paged_case(dev, lens, H, Kh, D, nb, seed=10 * i)
+        got = ops.paged_decode_attention(*fp)
+        assert _decode_excess(got, ref.paged_decode_attention_ref(*fp)) <= 0
+        got8 = ops.paged_decode_attention_int8(*i8, **new)
+        want8 = ref.paged_decode_attention_int8_ref(*i8, **new)
+        assert float((got8.float() - want8.float()).abs().max()) <= 2e-2
+
+
+def test_paged_decode_after_a_pool_is_reallocated(dev):
+    """The wrapper keeps only a workspace per stream, nothing of a pool:
+    a pool freed and made again (at another address, or the same one with
+    other contents) is read as it is now."""
+    from repro_torch.kernels import ref
+    fp, _, _ = _paged_case(dev, [900, 40], 16, 8, 128, 64, seed=1)
+    ops.paged_decode_attention(*fp)
+    q, kp, vp, bt, kv = fp
+    del fp, kp, vp
+    torch.cuda.synchronize()
+    kp2, vp2 = (_bf16(dev, 2 * 64 + 1, 16, 8, 128, seed=s) for s in (7, 8))
+    got = ops.paged_decode_attention(q, kp2, vp2, bt, kv)
+    assert _decode_excess(
+        got, ref.paged_decode_attention_ref(q, kp2, vp2, bt, kv)) <= 0
+    kp2.copy_(_bf16(dev, 2 * 64 + 1, 16, 8, 128, seed=9))
+    got = ops.paged_decode_attention(q, kp2, vp2, bt, kv)
+    assert _decode_excess(
+        got, ref.paged_decode_attention_ref(q, kp2, vp2, bt, kv)) <= 0
