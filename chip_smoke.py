@@ -53,8 +53,11 @@ Phases, each printing one JSON line:
    256) through every mix of segments, window and softcap, G 1, 4, 12,
    16 (the edges of its 128-row query and 64-key tiles), and a
    q base off the 16-byte grid its TMA copies need (the wrapper must
-   raise, the C entry refuse, nothing launch).  The bf16 flash
-   instantiations must hold ``HGMMA`` instructions and spill nothing.
+   raise, the C entry refuse, nothing launch).  The bf16 flash and fused
+   head instantiations must hold ``HGMMA`` instructions (and no ``HMMA``)
+   and spill nothing; a bf16 fused head call is one launch (no merge
+   pass), W read once (one pass) at every head, B 1 to 64, and each case
+   repeats bit for bit.
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -175,7 +178,8 @@ Phases, each printing one JSON line:
    Granite-MoE-3B-A800M, Phi-3-Vision-4.2B (576 zero patch rows),
    Whisper-small (1500 zero frames), Zamba2-1.2B (S 4096) and
    xLSTM-125M (S 1024), every one at full depth, the batch cut to 2-4
-   (``LAUNCH_CUTS``): update ms, peak GB, loss and grad norm (finite),
+   (``LAUNCH_CUTS``): update ms (the median of the steps after the
+   first), peak GB, loss and grad norm (finite),
    the fit report's ``model_flops`` and persistent bytes (peak at least
    those), their share of 989 TFLOP/s, no kernel launch; where the plan
    has microbatches, the step at 2 layers in f32 held to the same step at
@@ -203,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -260,7 +265,10 @@ def device_ms(torch, fn, n: int = 20, cold: bool = False):
     (torch.profiler's CUDA kernel durations over ``n`` calls, divided by
     n), and per kernel its launches and device ms per call: the kernel
     without the host time of its wrapper, which ``cuda_ms`` times back to
-    back.  ``cold``: each call after an L2 flush (``flush_l2``), whose
+    back.  A profile that kept only some launches of a kernel is taken
+    again (up to three times), then read as the median of its single
+    launches times its launches a call.  ``cold``: each call after an L2
+    flush (``flush_l2``), whose
     launches are left out: at most the flushes' own count of each of
     their kernels (a profile may drop events), so that a call launching
     such a kernel itself fails the run rather than hide in the flush;
@@ -274,8 +282,10 @@ def device_ms(torch, fn, n: int = 20, cold: bool = False):
     skip = flush_l2(torch) if cold else {}
     n = max(n, 30) if cold else n
     # a profile now and then comes back without its device events (one
-    # of 32 in one run, a kernel that the next profile saw); up to three
-    # profiles, and no device time in all three fails the run
+    # of 32 in one run, a kernel that the next profile saw), or with some
+    # of them; up to three profiles, the last one with device time kept,
+    # and no device time in all three fails the run
+    kept = (0.0, {})
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -295,7 +305,13 @@ def device_ms(torch, fn, n: int = 20, cold: bool = False):
         per = {r.key: {"launches": r.count / n,
                        "ms": r.self_device_time_total / 1e3 / n}
                for r in rows}
-        if cold:
+        # a profile that kept only some of a kernel's launches (seen as a
+        # fraction of a launch a call: half of them in one run) is taken
+        # again; the last one left so is read per launch
+        whole = all(v["launches"] >= 1
+                    and abs(v["launches"] - round(v["launches"])) < 1e-9
+                    for v in per.values())
+        if cold or not whole:
             single = {}
             for e in prof.events():
                 if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -305,12 +321,37 @@ def device_ms(torch, fn, n: int = 20, cold: bool = False):
             for k, v in per.items():
                 if single.get(k):
                     v["ms"] = statistics.median(single[k]) \
-                        * round(v["launches"])
+                        * max(1, round(v["launches"]))
         ms = sum(v["ms"] for v in per.values())
         if ms > 0:
-            break
+            kept = (ms, per)
+            if cold or whole:
+                break
+    ms, per = kept
     check(ms > 0, f"profiler saw no device time for {fn}")
     return ms, {k[:60]: v for k, v in per.items()}
+
+
+# a hot call through its C entry spends at most this share of its
+# back-to-back CUDA-event time off the device (0.945-0.99 read on an H100
+# at the fused heads and flash's serve shape)
+HELD_SHARE = 0.85
+
+
+def held_device_ms(torch, fn, floor, what, tries=3):
+    """``device_ms`` of a hot call, taken again while it reads below
+    ``floor``: the call's bound, and for a call through its C entry also
+    ``HELD_SHARE`` of its own CUDA-event time.  A profile late in a long
+    process now and then reads a kernel at about half its time with whole
+    launch counts, which a median of three rounds does not absorb when two
+    read low; every one of ``tries`` profiles reading low fails the run."""
+    for _ in range(tries):
+        ms = device_ms(torch, fn)[0]
+        if ms >= floor:
+            break
+    check(ms >= floor, f"{what}: device time {ms:.4f} ms below "
+          f"{floor:.4f} in {tries} profiles")
+    return ms
 
 
 _FLUSH = []
@@ -328,11 +369,17 @@ def flush_l2(torch):
         from torch.profiler import ProfilerActivity, profile
         buf.fill_(1.0)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            buf.fill_(1.0)
-            torch.cuda.synchronize()
-        names = {r.key: r.count for r in prof.key_averages()
-                 if r.device_type == torch.autograd.DeviceType.CUDA}
+        # a profile may come back without its device events: then the
+        # flush's kernel would count as the timed call's
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                buf.fill_(1.0)
+                torch.cuda.synchronize()
+            names = {r.key: r.count for r in prof.key_averages()
+                     if r.device_type == torch.autograd.DeviceType.CUDA}
+            if names:
+                break
+        check(bool(names), "flush_l2: no profile saw the flush's kernel")
         _FLUSH.append((buf, names))
     buf, names = _FLUSH[0]
     buf.fill_(1.0)
@@ -441,11 +488,41 @@ def placed_new_row(plan_of, lens, Kh, group, edge):
 def one_kernel(name, report):
     """The paged path's serve call launches exactly one kernel, the bf16
     Hopper kernel, and no merge pass."""
-    per_call = report[name]["kernels_per_call"]
-    check(len(per_call) == 1
-          and all("paged_decode_hopper_kernel" in k for k in per_call)
+    one_launch(report[name]["kernels_per_call"], "paged_decode_hopper_kernel",
+               name)
+
+
+def one_launch(per_call, kernel, name):
+    """A call's profile (``device_ms``'s kernels per call) holds one
+    launch of ``kernel`` and nothing else: no merge pass."""
+    check(len(per_call) == 1 and all(kernel in k for k in per_call)
           and all(abs(v["launches"] - 1.0) < 1e-9 for v in per_call.values()),
           f"{name}: a call must launch the one bf16 kernel, got {per_call}")
+
+
+def fused_case(torch, ops, ref, record, maxerr, name, x, w, k, cap):
+    """One fused head case against the plain version (values, lse and
+    the logit each index claims within 1e-3; ``idx_equal``), called twice
+    (``repeat_equal``: bit for bit; checked), with the bf16 kernel's plan
+    at these shapes."""
+    from repro_torch.kernels import fused_sample as fsm
+    vals, idx, lse = ops.fused_sample(x, w, top_k=k, softcap=cap)
+    again = ops.fused_sample(x, w, top_k=k, softcap=cap)
+    rv, ri, rl = ref.fused_sample_ref(x, w, top_k=k, softcap=cap)
+    logits = x.float() @ w.float()
+    if cap > 0:
+        logits = torch.tanh(logits / cap) * cap
+    claimed = torch.gather(logits, 1, idx.long())
+    torch.cuda.synchronize()
+    err = max(maxerr(vals, rv), maxerr(lse, rl), maxerr(claimed, vals))
+    same = all(torch.equal(a, b) for a, b in zip((vals, idx, lse), again))
+    check(same, f"fused_sample/{name}: a repeated call differs")
+    plan = (fsm.plan(x.shape[0], x.shape[1], w.shape[1], k,
+                     fsm.sm_count(x.device)).__dict__
+            if x.dtype == torch.bfloat16 else None)
+    return record("fused_sample", name, err, 1e-3,
+                  {"idx_equal": bool((idx == ri).all()),
+                   "repeat_equal": same, "plan": plan}), (vals, idx)
 
 
 def dense_inputs(torch, dev, dtype, kv_lens, S, H, Kh, D, seed=0):
@@ -555,7 +632,7 @@ FLASH_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257)
 # kernel -> (library, regex of its bf16 instantiation's function names)
 BF16_FUNCTIONS = {
     "flash_attention": ("flash_attention", r"flash_wgmma_kernel"),
-    "fused_sample": ("fused_sample", r"sample_tc_kernel"),
+    "fused_sample": ("fused_sample", r"sample_wgmma_kernel"),
     "paged_decode_attention": ("paged_decode_attention",
                                r"paged_decode_hopper_kernelI13__nv_bfloat16"),
     "paged_decode_attention_int8": ("paged_decode_attention",
@@ -574,6 +651,9 @@ WGMMA_OPS = re.compile(r"\bHGMMA\.")
 # bf16 flash instantiations (D 64, 96, 128, 192, 256): each must issue
 # wgmma (HGMMA) and no mma.sync (HMMA)
 FLASH_BF16_DS = (64, 96, 128, 192, 256)
+# bf16 fused head instantiations (N 8, 16, ..., 64 x tied or untied): each
+# must issue wgmma (HGMMA) and no mma.sync (HMMA)
+FUSED_BF16_FUNCTIONS = 16
 # decode kernel -> (library, regex of every instantiation: the split-KV
 # body's (f32 q at D 64/128 x G 1/2/4/8 and (64, 3), f32 D 32 G 1 on fp
 # pages; the dense kernel's also bf16 with the wide shapes) and its merge
@@ -695,12 +775,13 @@ def phase_kernels(torch, dev, report):
               and got["spill_bytes"] == 0,
               f"{name}: each of the {n} bf16 instantiations must issue "
               f"tensor-core instructions and spill nothing {got}")
-    got = sass["flash_attention"]
-    check(got["functions"] == len(FLASH_BF16_DS)
-          and got["hgmma_min_per_function"] > 0
-          and got["hgmma"] == got["tensor_core_ops"],
-          f"flash_attention: every bf16 instantiation must issue wgmma "
-          f"(HGMMA) and no mma.sync (HMMA) {got}")
+    for name, n in (("flash_attention", len(FLASH_BF16_DS)),
+                    ("fused_sample", FUSED_BF16_FUNCTIONS)):
+        got = sass[name]
+        check(got["functions"] == n and got["hgmma_min_per_function"] > 0
+              and got["hgmma"] == got["tensor_core_ops"],
+              f"{name}: each of the {n} bf16 instantiations must issue "
+              f"wgmma (HGMMA) and no mma.sync (HMMA) {got}")
     for name in sass:
         report.setdefault(name, {})["sass_bf16"] = sass[name]
     regs = decode_registers(build)
@@ -1234,18 +1315,10 @@ def phase_kernels(torch, dev, report):
     # multiply the same values in f32 -- bf16 x bf16 products are exact in
     # f32 on the tensor cores too -- only the sum order differs); indices:
     # each returned index must carry the plain logit it claims (within tol),
-    # and exact ties must resolve to the lowest index.
-    def fs_check(name, x, w, k, cap):
-        vals, idx, lse = ops.fused_sample(x, w, top_k=k, softcap=cap)
-        rv, ri, rl = ref.fused_sample_ref(x, w, top_k=k, softcap=cap)
-        logits = x.float() @ w.float()
-        if cap > 0:
-            logits = torch.tanh(logits / cap) * cap
-        claimed = torch.gather(logits, 1, idx.long())
-        torch.cuda.synchronize()
-        err = max(maxerr(vals, rv), maxerr(lse, rl), maxerr(claimed, vals))
-        return record("fused_sample", name, err, 1e-3,
-                      {"idx_equal": bool((idx == ri).all())}), (vals, idx)
+    # and exact ties must resolve to the lowest index.  Each case is called
+    # twice: the second call must repeat the first bit for bit (the
+    # kernel's merge order is fixed).
+    fs_check = functools.partial(fused_case, torch, ops, ref, record, maxerr)
 
     V, Dm = 151936, 1024
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1267,7 +1340,18 @@ def phase_kernels(torch, dev, report):
             / math.sqrt(Dm)).to(bf16)[:, :32003]
     fs_check("untied_bf16_b32_v32003_k16_softcap30", x, wu16, 16, 30.0)
     fs_check("untied_bf16_b17_v32003_k1", x33[:17], wu16, 1, 0.0)
-    del x33, wu16
+    # 64 rows: N 64, with k 16 and with k 1
+    x64 = torch.randn((64, Dm), generator=g, device=dev).to(bf16)
+    fs_check("b64_tied_bf16_k16", x64, embed.T, 16, 0.0)
+    fs_check("b64_tied_bf16_k1_softcap30", x64, embed.T, 1, 30.0)
+    # 70 rows: two passes over W (64 + 6 rows), each a launch
+    x70 = torch.randn((70, Dm), generator=g, device=dev).to(bf16)
+    before = ops.launch_counts()["fused_sample"]
+    row, _ = fs_check("b70_tied_bf16_k4_two_passes", x70, embed.T, 4, 0.0)
+    check(row["plan"]["passes"] == 2
+          and ops.launch_counts()["fused_sample"] == before + 4,
+          f"fused_sample/b70: 2 passes a call, 2 calls: {row['plan']}")
+    del x33, wu16, x64, x70
     xs = torch.randn((5, 64), generator=g, device=dev)
     wu = torch.randn((64, 1000), generator=g, device=dev) / 8.0
     fs_check("untied_f32_softcap30_k8", xs, wu, 8, 30.0)
@@ -1303,7 +1387,10 @@ def phase_kernels(torch, dev, report):
         **timings(torch, lambda: ops.fused_sample(x, w),
                   lambda: ref.fused_sample_ref(x, w), library),
         **bound(nbytes, flops),
-        shape=dict(B=B, Dm=Dm, V=V, w="embed.T (strided)"))
+        shape=dict(B=B, Dm=Dm, V=V, w="embed.T (strided)",
+                   plan=serve_row["plan"]))
+    one_launch(report["fused_sample"]["kernels_per_call"],
+               "sample_wgmma_kernel", "fused_sample")
     del embed, x, w
     torch.cuda.empty_cache()
     kernels_family_shapes(torch, dev, report, record, decode_record, maxerr)
@@ -1352,7 +1439,6 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
     to ``report[kernel]["family_shapes"]``."""
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels import fused_sample as fsm
     from repro_torch.kernels import paged_decode_attention as pdm
     bf16 = torch.bfloat16
     SR = pdm.split_rows()
@@ -1798,20 +1884,18 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         del q, k, v, s_
         torch.cuda.empty_cache()
 
-    # -- the fused head: untied heads too wide to stage x whole ---------------
+    # -- the fused head at the families' heads ---------------------------------
     def fs_case(case, x, w, k, cap):
-        vals, idx, lse = ops.fused_sample(x, w, top_k=k, softcap=cap)
-        rv, ri, rl = ref.fused_sample_ref(x, w, top_k=k, softcap=cap)
-        logits = x.float() @ w.float()
-        if cap > 0:
-            logits = torch.tanh(logits / cap) * cap
-        claimed = torch.gather(logits, 1, idx.long())
-        torch.cuda.synchronize()
-        err = max(maxerr(vals, rv), maxerr(lse, rl), maxerr(claimed, vals))
-        rows_, streams = fsm.bf16_plan(x.shape[0], x.shape[1], k)
-        return record("fused_sample", case, err, 1e-3,
-                      {"idx_equal": bool((idx == ri).all()),
-                       "rows_per_cta": rows_, "x_streams": streams})
+        row = fused_case(torch, ops, ref, record, maxerr, case, x, w, k,
+                         cap)[0]
+        check(row["plan"]["passes"] == 1,
+              f"fused_sample/{case}: W read more than once {row['plan']}")
+        return row
+
+    def fs_regs(row, tied):
+        """Registers of the instantiation the plan runs."""
+        return regs("fused_sample", rf"sample_wgmma_kernelILi"
+                    rf"{row['plan']['n']}ELb{int(tied)}E")
 
     g = torch.Generator(device=dev).manual_seed(31)
     for Dm, V, B, model in ((8192, 152064, 32, "qwen1_5"),
@@ -1821,7 +1905,6 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         x = torch.randn((B, Dm), generator=g, device=dev).to(bf16)
         case = f"{model}_b{B}_dm{Dm}_v{V}_untied_k1"
         row = fs_case(case, x, w, 1, 0.0)
-        check(row["x_streams"], f"fused_sample/{case}: x was staged whole")
         if Dm == 8192:
             x33 = torch.randn((33, Dm), generator=g, device=dev).to(bf16)
             fs_case("dm8192_b17_k8_softcap30", x33[:17], w, 8, 30.0)
@@ -1841,10 +1924,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
               lambda x=x, w=w: ref.fused_sample_ref(x, w), library,
               V * Dm * 2 + B * Dm * 2 + B * 3 * 4, 2 * B * Dm * V,
               dict(B=B, Dm=Dm, V=V, w="lm_head (untied, v contiguous)",
-                   rows_per_cta=row["rows_per_cta"], x_streams=True),
-              regs("fused_sample",
-                   rf"sample_tc_kernelILi{-(-B // 16)}ELb0ELb1E"),
-              note="matmul + topk + logsumexp", plain_reps=(2, 1))
+                   plan=row["plan"]),
+              fs_regs(row, False), note="matmul + topk + logsumexp",
+              plain_reps=(2, 1))
         del w, x, library
         torch.cuda.empty_cache()
 
@@ -1866,6 +1948,12 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         if tied or model == "phi3_vision":
             fs_case(f"{model}_b1_v{V}_{kind}_k1", x[:1], w, 1, 0.0)
             fs_case(f"{model}_b33_v{V}_{kind}_k8", x, w, 8, 0.0)
+        if model == "qwen3_moe":            # N 64: one pass
+            x64 = torch.randn((64, Dm), generator=g, device=dev).to(bf16)
+            fs_case(f"{model}_b64_v{V}_{kind}_k1", x64, w, 1, 0.0)
+            fs_case(f"{model}_b64_v{V}_{kind}_k16_softcap30", x64, w, 16,
+                    30.0)
+            del x64
         xs = x[:32]
 
         def library(x=xs, w=w):
@@ -1877,12 +1965,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
               V * Dm * 2 + 32 * Dm * 2 + 32 * 3 * 4, 2 * 32 * Dm * V,
               dict(B=32, Dm=Dm, V=V, w=("embed.T (tied)" if tied else
                                         "lm_head (untied, v contiguous)"),
-                   rows_per_cta=row["rows_per_cta"],
-                   x_streams=row["x_streams"]),
-              regs("fused_sample",
-                   rf"sample_tc_kernelILi2ELb{int(tied)}ELb"
-                   rf"{int(row['x_streams'])}E"),
-              note="matmul + topk + logsumexp", plain_reps=(2, 1))
+                   plan=row["plan"]),
+              fs_regs(row, tied), note="matmul + topk + logsumexp",
+              plain_reps=(2, 1))
         del w, x, xs, library
         torch.cuda.empty_cache()
 
@@ -1956,9 +2041,6 @@ def variant_sources():
         "  if (dtype == kBF16 && kv_dtype == kI8)\n"
         "    return dispatch<__nv_bfloat16, int8_t>(D, G, p, B, s);\n"
         "  if (kv_dtype == kI8) return dispatch<float, int8_t>(D, G, p, B, s);\n"))
-    staged = ("  for (int mt = mt_max; mt >= 1; --mt)\n"
-              "    if (SampleSmem(16 * mt, round_up(Dm, SKT), K, false).total"
-              " <= kSmemMax)\n      return {16 * mt, false};\n")
     return {
         "flash_attention/shipped": ("flash_attention", {
             "flash_attention.cu": fa}),
@@ -1984,15 +2066,18 @@ def variant_sources():
         "flash_attention/ablate_exp": ("flash_attention", {
             "flash_attention.cu": sub(
                 fa, (ex, "sc[i] = fmaf(sc[i], mul, -ms);"))}),
+        # the fused head (its plan's choices are arguments of the shipped
+        # build, `fused_head_variants`): the shipped source, the same
+        # source built again (the spread of identical builds), and the
+        # design it replaced (mma.sync on a cp.async ring, x staged or
+        # streamed beside W, a second launch to merge), kept in
+        # tools/variants/
         "fused_sample/shipped": ("fused_sample", {"fused_sample.cu": fs}),
-        "fused_sample/6_stage_ring": ("fused_sample", {
-            "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 6"))}),
-        "fused_sample/8_stage_ring": ("fused_sample", {
-            "fused_sample.cu": sub(fs, ("kStages = 4", "kStages = 8"))}),
-        # x through the ring beside each W tile at every width, as the
-        # widths that cannot stage it whole do
-        "fused_sample/x_streamed": ("fused_sample", {
-            "fused_sample.cu": sub(fs, (staged, ""))}),
+        "fused_sample/shipped_again": ("fused_sample", {
+            "fused_sample.cu": fs + "\n// the shipped source, built again\n"}),
+        "fused_sample/mma_sync_design": ("fused_sample", {
+            "fused_sample.cu": (ROOT / "tools" / "variants"
+                                / "fused_sample_mma_sync.cu").read_text()}),
         "paged_decode/shipped": decode(),
         "paged_decode/split_body": decode(cu_pairs=old_body),
         # pages in each warp's ring at 4 warps (4 shipped; 6 where the
@@ -2050,8 +2135,12 @@ def phase_variants(torch, dev):
     """Build every variant in parallel, then time each through its C
     entry point (no wrapper; ``ms`` with CUDA events back to back,
     ``kernel_ms`` the device time of its launches) on the serve shapes'
-    inputs, with its max error against the plain version."""
+    inputs, with its max error against the plain version; at the paged
+    decode's shapes on fp pages also the bound and the library call
+    (gather + SDPA), cold; the fused head: ``fused_head_variants``."""
     import ctypes
+
+    import torch.nn.functional as F
     from repro_torch.kernels import build, ref
     vdir = build.BUILD_DIR / "variants"
     procs = {}
@@ -2072,12 +2161,6 @@ def phase_variants(torch, dev):
     v = torch.randn((B, S, Kh, D), generator=g, device=dev).bfloat16()
     fa_want = ref.flash_attention_ref(q, k, v)
     fa_out = torch.empty_like(q)
-    V, Dm, Bs = 151936, 1024, 32
-    embed = (torch.randn((V, Dm), generator=g, device=dev)
-             / math.sqrt(Dm)).bfloat16()
-    x = torch.randn((Bs, Dm), generator=g, device=dev).bfloat16()
-    w = embed.T
-    fs_want = ref.fused_sample_ref(x, w)
     # the paged decode at the serve shape and every paged family's heads,
     # fp and int8 pages (with the slots' new rows)
     dec = {}
@@ -2095,13 +2178,16 @@ def phase_variants(torch, dev):
                 dq, k8, v8, ks8, vs8, kn, vn, dbt, dkv, 2,
                 ref.paged_decode_attention_int8_ref(
                     dq, k8, v8, ks8, vs8, dbt, dkv, k_new=kn, v_new=vn))
-    rows = {}
+    rows, fused = {}, {}
     for name, (lib, d, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             check(False, f"variant {name}: nvcc failed\n{log[-2000:]}")
             continue
         so = ctypes.CDLL(str(d / "lib.so"))
+        if lib == "fused_sample":
+            fused[name.split("/")[1]] = (so, log)
+            continue
         calls = {}
         if lib == "flash_attention":
             fn = so.flash_attention
@@ -2116,31 +2202,6 @@ def phase_variants(torch, dev):
             def err():
                 return float((fa_out.float() - fa_want.float()).abs().max())
             calls[name] = (call, err, r"flash_wgmma_kernelILi128E")
-        elif lib == "fused_sample":
-            fn = so.fused_sample
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
-                           + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            so.fused_sample_partials.argtypes = [ctypes.c_int] * 2
-            npart = so.fused_sample_partials(V, 1)
-            outs = [torch.empty((Bs, 1), device=dev),
-                    torch.empty((Bs, 1), dtype=torch.int32, device=dev),
-                    torch.empty((Bs, 1), device=dev),
-                    torch.empty((Bs, npart), device=dev),
-                    torch.empty((Bs, npart), device=dev),
-                    torch.empty((Bs, npart, 1), device=dev),
-                    torch.empty((Bs, npart, 1), dtype=torch.int32,
-                                device=dev)]
-
-            def call():
-                return fn(x.data_ptr(), w.data_ptr(), w.stride(0),
-                          w.stride(1), *[t.data_ptr() for t in outs], Bs, Dm,
-                          V, 1, 0.0, 1, stream)
-
-            def err():
-                return max(float((outs[0] - fs_want[0]).abs().max()),
-                           float((outs[2] - fs_want[2]).abs().max()))
-            calls[name] = (call, err, r"sample_tc_kernelILi2ELb1E")
         else:
             fn = so.paged_decode_attention
             fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
@@ -2181,27 +2242,184 @@ def phase_variants(torch, dev):
             regs = ptxas_functions(log, pat)
             # the decode rows cold (each call after an L2 flush), as an
             # engine's layer reads its pool; the others back to back
+            # (the hot ones' device time held to HELD_SHARE of their ms)
             cold = lib == "paged_decode_attention"
+            ms = ((cuda_ms_cold(torch, call) if cold
+                   else cuda_ms(torch, call)) if rc == 0 else None)
             rows[row_name] = {
-                "rc": rc, "max_abs_err": err(),
-                "ms": (cuda_ms_cold(torch, call) if cold
-                       else cuda_ms(torch, call)) if rc == 0 else None,
-                "kernel_ms": (device_ms(torch, call, cold=cold)[0]
-                              if rc == 0 else None),
+                "rc": rc, "max_abs_err": err(), "ms": ms,
+                "kernel_ms": (None if rc != 0
+                              else device_ms(torch, call, cold=True)[0]
+                              if cold else held_device_ms(
+                                  torch, call, HELD_SHARE * ms,
+                                  f"variant {row_name}")),
                 "l2": "cold" if cold else "hot",
                 "registers": max((v["registers"] or 0
                                   for v in regs.values()), default=None),
                 "spill_bytes": sum(v["spill_bytes"] or 0
                                    for v in regs.values())}
+    paged_shapes = {k: dict(B=v[0].shape[0], H=v[0].shape[1],
+                            Kh=v[1].shape[2], D=v[0].shape[2], P=16,
+                            live_rows=int(v[8].sum()), q="bfloat16")
+                    for k, v in dec.items()}
+    # fp pages: the bound (each live K/V row, q and out once) and the
+    # library call (gather + SDPA with a key mask), cold, at each shape
+    for key, (dq, kp_, vp_, _, _, _, _, dbt, dkv, code, _) in dec.items():
+        if code != 1:
+            continue
+        B_, H_, D_ = dq.shape
+        Kh_ = kp_.shape[2]
+        G_, live = H_ // Kh_, int(dkv.sum())
+        mask = (torch.arange(dbt.shape[1] * 16, device=dev)[None, :]
+                < dkv[:, None])[:, None, None, :]
+
+        def library(q=dq, kp=kp_, vp=vp_, bt=dbt, mask=mask, G=G_):
+            k_ = ref.gather_pages(kp, bt).transpose(1, 2) \
+                .repeat_interleave(G, 1)
+            v_ = ref.gather_pages(vp, bt).transpose(1, 2) \
+                .repeat_interleave(G, 1)
+            return F.scaled_dot_product_attention(q[:, :, None], k_, v_,
+                                                  attn_mask=mask)
+        paged_shapes[key].update(
+            library_ms=cuda_ms_cold(torch, library, reps=5),
+            **bound(4 * dq.numel() + 4 * live * Kh_ * D_
+                    + 4 * (dbt.numel() + dkv.numel()), 4 * live * H_ * D_))
+    del q, k, v, fa_want, fa_out, dec
+    torch.cuda.empty_cache()
+    fused_rows = fused_head_variants(torch, dev, fused)
     emit({"phase": "variants",
           "shapes": {"flash_attention": dict(B=B, S=S, H=H, Kh=Kh, D=D),
-                     "fused_sample": dict(B=Bs, Dm=Dm, V=V, w="embed.T"),
-                     "paged_decode": {
-                         k: dict(B=v[0].shape[0], H=v[0].shape[1],
-                                 Kh=v[1].shape[2], D=v[0].shape[2], P=16,
-                                 live_rows=int(v[8].sum()), q="bfloat16")
-                         for k, v in dec.items()}},
-          "variants": rows})
+                     "fused_sample": {r["head"]: r["shape"]
+                                      for r in fused_rows},
+                     "paged_decode": paged_shapes},
+          "variants": rows, "fused_head": fused_rows})
+
+
+# (label, B, Dm, V, tied) of the fused head's timings: Qwen3-0.6B's serve
+# head and the five wide heads of the families (Nemotron at its 16 slots)
+FUSED_HEADS = [("qwen3_0_6b_serve", 32, 1024, 151936, True),
+               ("qwen3_moe", 32, 4096, 151936, False),
+               ("phi3_vision", 32, 3072, 32064, False),
+               ("granite_moe", 32, 1536, 49155, True),
+               ("qwen1_5", 32, 8192, 152064, False),
+               ("nemotron", 16, 18432, 256000, False)]
+
+
+def fused_head_variants(torch, dev, builds, rounds=3):
+    """The fused head at ``FUSED_HEADS`` (k 1), through the C entries of
+    ``builds`` (name -> (library, ptxas log): ``shipped``,
+    ``shipped_again``, ``mma_sync_design``) and the library call (matmul +
+    topk + logsumexp), interleaved: ``rounds`` rounds, each timing every
+    variant once (``kernel_ms`` the device time of a call's launches,
+    ``ms`` CUDA events back to back, each device time held to the bound
+    and, but the library call's, to ``HELD_SHARE`` of its ``ms`` by
+    ``held_device_ms``); the medians and the spread.  The shipped build
+    also runs its plan's alternatives: 4 and 6 stages.  Every variant's
+    result is held to the plain version (values and lse within 1e-3,
+    indices equal)."""
+    import ctypes
+    from repro_torch.kernels import fused_sample as fsm
+    from repro_torch.kernels import ref
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for label, B, Dm, V, tied in FUSED_HEADS:
+        w = (torch.randn((V, Dm) if tied else (Dm, V), generator=g,
+                         device=dev) / math.sqrt(Dm)).bfloat16()
+        w = w.T if tied else w
+        x = torch.randn((B, Dm), generator=g, device=dev).bfloat16()
+        want = ref.fused_sample_ref(x, w)
+        p = fsm.plan(B, Dm, V, 1, fsm.sm_count(dev))
+        ws, counter = fsm.workspace(dev, stream, p.ws_floats)
+        calls = {}
+        for name, (so, _) in builds.items():
+            fn = so.fused_sample
+            res = [torch.empty((B, 1), device=dev),
+                   torch.empty((B, 1), dtype=torch.int32, device=dev),
+                   torch.empty((B, 1), device=dev)]
+            if name == "mma_sync_design":       # its C entry: 4 scratch tensors
+                fn.argtypes = ([ctypes.c_void_p] * 2
+                               + [ctypes.c_longlong] * 2
+                               + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                               + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
+                so.fused_sample_partials.argtypes = [ctypes.c_int] * 2
+                npart = so.fused_sample_partials(V, 1)
+                scratch = [torch.empty((B, npart), device=dev),
+                           torch.empty((B, npart), device=dev),
+                           torch.empty((B, npart, 1), device=dev),
+                           torch.empty((B, npart, 1), dtype=torch.int32,
+                                       device=dev)]
+
+                def call(fn=fn, res=res, scratch=scratch):
+                    return fn(x.data_ptr(), w.data_ptr(), w.stride(0),
+                              w.stride(1),
+                              *[t.data_ptr() for t in res + scratch], B, Dm,
+                              V, 1, 0.0, 1, stream)
+                calls[name] = (call, res, None)
+                continue
+            fn.argtypes = fsm._bind().fused_sample.argtypes
+            plans = {name: p}
+            if name == "shipped":
+                for st in (4, 6):
+                    if st != p.stages and fsm.head_smem_bytes(
+                            p.n, 1, st) <= fsm.SMEM_MAX:
+                        plans[f"shipped_{st}_stages"] = dataclasses.replace(
+                            p, stages=st)
+            for pname, pp in plans.items():
+                pp = dataclasses.replace(pp, smem=fsm.head_smem_bytes(
+                    pp.n, 1, pp.stages))
+                r = [torch.empty_like(t) for t in res]
+
+                def call(fn=fn, r=r, pp=pp):
+                    return fn(x.data_ptr(), w.data_ptr(), w.stride(0),
+                              w.stride(1), *[t.data_ptr() for t in r],
+                              ws.data_ptr(), ws.numel(), counter.data_ptr(),
+                              B, Dm, V, 1, 0.0, 1, pp.n, pp.stages,
+                              pp.grid, pp.smem, stream)
+                calls[pname] = (call, r, pp)
+
+        def library():
+            logits = torch.matmul(x, w).float()
+            return torch.topk(logits, 1), torch.logsumexp(logits, -1)
+        times = {k: {"kernel_ms": [], "ms": []} for k in calls}
+        times["library"] = {"kernel_ms": [], "ms": []}
+        errs = {}
+        for name, (call, res, _) in calls.items():
+            rc = call()
+            torch.cuda.synchronize()
+            check(rc == 0, f"fused variant {name}/{label}: launch failed {rc}")
+            errs[name] = max(float((res[0] - want[0]).abs().max()),
+                             float((res[2] - want[2]).abs().max()))
+            check(errs[name] <= 1e-3 and bool((res[1] == want[1]).all()),
+                  f"fused variant {name}/{label}: err {errs[name]}")
+        limit = bound(V * Dm * 2 + B * Dm * 2 + B * 3 * 4, 2 * B * Dm * V)
+        for _ in range(rounds):
+            for name, (call, _, _) in calls.items():
+                ms = cuda_ms(torch, call)
+                times[name]["ms"].append(ms)
+                times[name]["kernel_ms"].append(held_device_ms(
+                    torch, call, max(limit["bound_ms"], HELD_SHARE * ms),
+                    f"fused variant {name}/{label}"))
+            times["library"]["ms"].append(cuda_ms(torch, library, 5, 3))
+            times["library"]["kernel_ms"].append(held_device_ms(
+                torch, library, limit["bound_ms"], f"fused library/{label}"))
+        row = {"head": label, "card": card_name_and_power(),
+               "shape": dict(B=B, Dm=Dm, V=V, tied=tied, top_k=1),
+               "plan": p.__dict__, "rounds": rounds, **limit,
+               "variants": {k: {"kernel_ms": statistics.median(v["kernel_ms"]),
+                                "ms": statistics.median(v["ms"]),
+                                "kernel_ms_all": v["kernel_ms"],
+                                "max_abs_err": errs.get(k),
+                                "plan": (calls[k][2].__dict__
+                                         if k in calls and calls[k][2]
+                                         else None)}
+                            for k, v in times.items()}}
+        emit({"phase": "fused_head_variants", **row})
+        out.append(row)
+        del w, x, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4871,7 +5089,7 @@ LAUNCH_CUTS = {
                      "bf16 logits 9.96 GB a row)",
     "decode_32k_batch": "decode_32k's 128 rows cut to 8 (30.5 GB of cache)",
 }
-LAUNCH_STEPS = 3
+LAUNCH_STEPS = 3            # update ms: the median of those after the first
 LAUNCH_SERVE_STEPS = 8
 LAUNCH_HOLD_SEQ = 1024      # the microbatch hold: 2 layers, f32, one batch
 LAUNCH_TIE = 0.05           # logits: a tie inside both runs of the prefill
@@ -5063,8 +5281,9 @@ def launch_micro_hold(torch, dev, arch, plan):
 
 def launch_train(torch, dev, launches):
     """Each ``LAUNCH_TRAIN`` model: 3 steps of ``build_train_step`` under
-    its train_4k plan, each timed with CUDA events, peak memory, loss and
-    grad norm (held finite), the fit report's ``model_flops`` and
+    its train_4k plan, each timed with CUDA events (update ms: the median
+    of the steps after the first), peak memory, loss and grad norm (held
+    finite), the fit report's ``model_flops`` and
     ``persistent_bytes`` for the same config and shape (held: peak >=
     persistent bytes), the share model_flops / (update s x 989e12), no
     kernel launch (the train forward is plain PyTorch); then, where the
@@ -5107,7 +5326,7 @@ def launch_train(torch, dev, launches):
         counts = ops.launch_counts()
         launches[f"launch_train_{label}"] = counts
         peak = torch.cuda.max_memory_allocated()
-        update_s = statistics.median(ms) / 1e3
+        update_s = statistics.median(ms[1:]) / 1e3
         check(all(math.isfinite(x) for x in losses + gnorms),
               f"launch_train/{label}: loss {losses}, grad norm {gnorms}")
         check(peak >= sizes["persistent_bytes"],

@@ -584,28 +584,6 @@ int launch_f32(const void* q, const void* k, const void* v, const void* seg,
   return (int)cudaGetLastError();
 }
 
-// The driver's tensor-map encoder, found through the runtime (the library
-// links no driver library).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over a contiguous (B, S, heads, D) bf16 tensor, innermost
 // first, cut in boxes of (BOXC columns, 1 head, `rows` rows, 1 row of the
 // batch).  TMA needs the base and the strides 16-byte aligned (the wrapper

@@ -11,43 +11,52 @@
 // strides: a tied head passes embed.T (a view of the (V, Dm) embedding,
 // d contiguous), an untied one its (Dm, V) lm_head (v contiguous).
 //
-// bf16 (the serve dtype): `sample_tc_kernel`, one persistent CTA per SM
-// (as many as there are 128-wide vocab chunks, at most), each walking the
-// chunks c = blockIdx.x + j * gridDim.x:
-//   * x (the batch rows, padded to 16) is staged in swizzled shared memory
-//     once per CTA, not once per chunk;
-//   * W streams through a ring of 4 tiles of 128 vocab x 64 d (16 KB),
-//     3 in flight while one is multiplied (deeper rings time the same,
-//     `chip_smoke.py --phase variants`), `cp.async` 16 bytes a thread,
-//     so each W byte is read from device memory once per step (rows past
-//     V and columns past Dm are zero-filled by the copy);
-//   * the products are `mma.sync.m16n8k16` (csrc/mma.cuh): x as A, the W
-//     tile as B through `ldmatrix` (tied: rows are K-contiguous) or
-//     `ldmatrix.trans` (untied); each of the 8 warps owns 16 columns of a
-//     chunk, f32 accumulators;
-//   * after a chunk's last tile the warp folds its logits into a running
-//     logsumexp per (thread, row) and a running top-k per (warp, row) in
-//     shared memory, entered only by values that beat the list's last
-//     (a warp vote skips the common case), so the CTA, like the Pallas
-//     kernel's scratch across its sequential grid, carries its state
-//     across its chunks; at the end the CTA merges its warps and writes
-//     one partial per row;
-//   * the merge pass reads one partial per CTA (132 on an H100), not one
-//     per chunk.  Ties stay (value desc, index asc) at every merge.
-// Rows beyond what shared memory holds next to x, the ring and the top-k
-// lists (64 at Dm = 1024 with k <= 4, 48 up to k = 16) go to further row
-// blocks (gridDim.y), which read W again.
-// A head too wide to stage x whole even for 16 rows (Dm above ~5k:
-// Qwen1.5-110B's 8192, Nemotron-4-340B's 18432) streams x instead: each
-// ring stage carries the x slice (rows x the tile's 64 d) beside its W
-// tile, so x is read again for every vocab chunk, from L2 (x is 16 KB a
-// row at Dm = 8192), while the accumulators of the chunk stay in registers
-// across its d tiles as before.  W is still read once.
+// bf16 (the serve dtype): `sample_wgmma_kernel<N, TIED>`, one launch a call
+// (csrc/hopper.cuh holds its building blocks):
+//   * W is wgmma's A operand, 64 vocabulary rows a warpgroup, and x its B
+//     operand, N = the batch rows padded to 8 (8..64): the accumulator is
+//     64 x N f32 (N / 2 registers a thread), so the batch never competes
+//     with W for shared memory and W is read once for every B up to 64
+//     (more rows take further passes, each a launch, planned and counted by
+//     the wrapper);
+//   * a persistent grid, one CTA an SM (`grid` of the plan, at most the
+//     number of tiles), walks vocabulary tiles of 128 rows, tile c = CTA +
+//     j * grid, so that the CTAs end within one tile of each other; each
+//     tile is Dm / 64 stages of a ring in shared memory;
+//   * loads by TMA (2-D tensor maps over W in either layout and over x,
+//     encoded per call): one thread of the producer warp keeps `stages`
+//     stages in flight, each a 128-row x 64-d W tile (the tied [v][d] tile
+//     one K-major box; the untied [d][v] tile two MN-major boxes of 64
+//     vocabulary columns, read through A's transpose flag) with a full and
+//     an empty `mbarrier`; x's 64-column slice rides in each stage beside
+//     the W tile (read again from L2 once per 128 rows of W, not from
+//     device memory: staging x whole beside a shorter ring, tried at the
+//     narrow heads, was no faster);
+//   * two consumer warpgroups, each `wgmma` m64nNk16 over its 64 rows of the
+//     stage (4 k-steps), release the stage when its products are done;
+//     after a tile's last stage each stores its 64 x N logits to shared
+//     memory and every thread takes one batch column and a stride of its
+//     rows: softcap, a running (max, sum) and a running top-k, entered only
+//     by values that beat its last entry, kept in shared memory as (value
+//     desc, index asc); rows past V take no part.  The producer goes on
+//     loading the next tile's stages meanwhile;
+//   * the merge is in the kernel: each CTA merges its threads' partials,
+//     one warp a column, into one partial per (column, CTA) in the
+//     workspace; the last CTA to take a ticket on the counter copies the
+//     CTAs' partials into its idle ring (16-byte loads from all its
+//     threads: merging straight from L2, one dependent load after
+//     another, took 20-27 us) and merges them into the outputs, then
+//     sets the counter back to 0.
+//     The workspace and counter are kept by the wrapper per device and
+//     stream (zeroed once): a call allocates nothing but its outputs.
+// The plan (N, stages, grid, shared-memory bytes, workspace) comes from the wrapper (`fused_sample.plan`); the C entry
+// recomputes the layout and refuses a plan it cannot run.
 //
 // f32 (test shapes only): `chunk_kernel`, one CTA per (vocab chunk of 128,
-// group of 32 rows), f32 FMAs from shared memory, one partial per chunk.
+// group of 32 rows), f32 FMAs from shared memory, one partial per chunk in
+// the workspace, then `merge_kernel`.
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 #include <limits.h>
 
@@ -231,25 +240,136 @@ merge_kernel(const float* __restrict__ pmax, const float* __restrict__ psum,
   }
 }
 
-// -- bf16: tensor cores, persistent CTAs, cp.async ring ----------------------
 
-constexpr int SVC = 128, SKT = 64, kStages = 4, kSWarps = 8;
-constexpr int kSThreads = kSWarps * 32;
-constexpr uint32_t kWTile = SVC * SKT * 2;        // 16 KB
-constexpr size_t kSmemMax = 232448;               // per block, H100
+// -- bf16: TMA ring, wgmma, persistent CTAs, the merge in the kernel ----------
 
-struct SampleSmem {                    // byte offsets of the dynamic buffer
-  size_t w, lv, li, wm, ws, total;
-  // x staged whole (bm x dmp), or streamed: one bm x SKT slice a stage
-  __host__ __device__ SampleSmem(int bm, int dmp, int k, bool stream) {
-    w = stream ? (size_t)kStages * bm * SKT * 2 : (size_t)bm * dmp * 2;
-    lv = w + kStages * (size_t)kWTile;
-    li = lv + sizeof(float) * kSWarps * bm * k;
-    wm = li + sizeof(int) * kSWarps * bm * k;
-    ws = wm + sizeof(float) * kSWarps * bm;
-    total = ws + sizeof(float) * kSWarps * bm;
+constexpr int kVT = 128;             // vocabulary rows a tile (64 a consumer)
+constexpr int kDT = 64;              // d a stage (one 128-byte swizzled row)
+constexpr int kMaxN = 64;            // x rows a pass
+constexpr int kMaxStages = 8;
+constexpr int kWTile = kVT * kDT * 2;           // 16 KB
+constexpr int kEpiStride = 68;       // floats a column of the logit tile
+constexpr int kHeadThreads = 256 + 32;          // 2 consumer warpgroups + 1
+constexpr size_t kSmemMax = 232448;             // per block, H100
+
+// Byte offsets of the dynamic shared memory, after aligning its base to
+// 1024 (the 128-byte swizzle's repeat): the ring at 0 (a stage: a 16 KB W
+// tile, then x's slice of N rows x 128 bytes), the two logit tiles (N
+// columns of 64 rows a warpgroup), the threads' top-k lists (value, then
+// index), their (max, sum), the barriers (full and empty a stage) and the
+// ticket's flag.  The wrapper's `fused_sample.head_smem_bytes` computes
+// the same total.
+struct HeadSmem {
+  size_t stage, epi, lv, li, pm, ps, bars, flag, total;
+  __host__ __device__ HeadSmem(int n, int k, int stages) {
+    const int parts = 2 * (128 / n);       // partials a column in a CTA
+    stage = kWTile + (size_t)n * 128;
+    epi = stages * stage;
+    lv = epi + 2 * sizeof(float) * n * kEpiStride;
+    li = lv + sizeof(float) * n * parts * k;
+    pm = li + sizeof(int) * n * parts * k;
+    ps = pm + sizeof(float) * n * parts;
+    bars = ps + sizeof(float) * n * parts;
+    flag = bars + 8 * 2 * stages;
+    total = 1024 + flag + 16;
   }
 };
+
+// f32 of one column's record in the workspace: a partial (max, sum, K
+// values, K indices) from each of the G CTAs, padded to 16 bytes.
+__host__ __device__ __forceinline__ int head_record_floats(int G, int K) {
+  return (G * (2 + 2 * K) + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// (M, S) <- the logsumexp's (max, sum of exp(z - max)) of both.
+__device__ __forceinline__ void lse_add(float& M, float& S, float m,
+                                        float s) {
+  if (m == -CUDART_INF_F) return;
+  if (m > M) {
+    S = S * expf(M - m) + s;
+    M = m;
+  } else {
+    S += s * expf(m - M);
+  }
+}
+
+// One warp merges `n` partials of a column (in shared memory), each (max
+// m, sum s of exp(z - m)) and a sorted list of K: partial q's at pm[q],
+// ps[q], pv[q * K ..].  Returns the logsumexp's (max, sum) on every lane
+// and writes the top K to ov / oi from lane 0.  Ties: value desc, index
+// asc (every index appears in one partial only).
+__device__ void merge_partials(const float* pm, const float* ps,
+                               const float* pv, const int* pi, int n, int K,
+                               float& out_m, float& out_s, float* ov,
+                               int* oi) {
+  const int lane = threadIdx.x & 31;
+  float M = -CUDART_INF_F, S = 0.f;
+  if (K == 1) {                               // greedy: no lists
+    float bv = -CUDART_INF_F;
+    int bi = INT_MAX;
+    for (int q = lane; q < n; q += 32) {
+      lse_add(M, S, pm[q], ps[q]);
+      if (better(pv[q], pi[q], bv, bi)) { bv = pv[q]; bi = pi[q]; }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int i = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (better(v, i, bv, bi)) { bv = v; bi = i; }
+    }
+    const float gm = warp_max(M);
+    out_s = warp_sum(M == -CUDART_INF_F ? 0.f : S * expf(M - gm));
+    out_m = gm;
+    if (lane == 0) {
+      ov[0] = bv;
+      oi[0] = bi;
+    }
+    return;
+  }
+  float lv[KMAX];
+  int li[KMAX];
+#pragma unroll
+  for (int t = 0; t < KMAX; ++t) { lv[t] = -CUDART_INF_F; li[t] = INT_MAX; }
+  for (int q = lane; q < n; q += 32) {
+    lse_add(M, S, pm[q], ps[q]);
+    for (int t = 0; t < K; ++t) {             // the partial's list is sorted
+      const float v = pv[q * K + t];
+      const int i = pi[q * K + t];
+      if (!better(v, i, lv[K - 1], li[K - 1])) break;
+      int p = K - 1;
+      while (p > 0 && better(v, i, lv[p - 1], li[p - 1])) {
+        lv[p] = lv[p - 1];
+        li[p] = li[p - 1];
+        --p;
+      }
+      lv[p] = v;
+      li[p] = i;
+    }
+  }
+  const float gm = warp_max(M);
+  out_s = warp_sum(M == -CUDART_INF_F ? 0.f : S * expf(M - gm));
+  out_m = gm;
+  int ptr = 0;
+  for (int t = 0; t < K; ++t) {               // K rounds of the best head
+    float bv = ptr < K ? lv[ptr] : -CUDART_INF_F;
+    int bi = ptr < K ? li[ptr] : INT_MAX;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int i = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (better(v, i, bv, bi)) { bv = v; bi = i; }
+    }
+    if (ptr < K && li[ptr] == bi && bi != INT_MAX) ++ptr;
+    if (lane == 0) {
+      ov[t] = bv;
+      oi[t] = bi;
+    }
+  }
+}
 
 // Sorted insertion of (v, i), known to beat the last of the K entries.
 __device__ __forceinline__ void list_insert(float* lv, int* li, int K,
@@ -264,392 +384,319 @@ __device__ __forceinline__ void list_insert(float* lv, int* li, int K,
   li[p] = i;
 }
 
-template <int MT, bool TIED, bool STREAM>
-__global__ void __launch_bounds__(kSThreads, 1)
-sample_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w, long long sd,
-                 long long sv, float* __restrict__ pmax,
-                 float* __restrict__ psum, float* __restrict__ ptv,
-                 int* __restrict__ pti, int B, int Dm, int Dmp, int V, int K,
-                 float softcap) {
-  constexpr int BM = MT * 16;
-  constexpr uint32_t kXTile = BM * SKT * 2;       // streamed x: one slice
-  extern __shared__ __align__(128) unsigned char smem[];
-  const SampleSmem lay(BM, Dmp, K, STREAM);
-  const uint32_t sX = smem_u32(smem);
-  const uint32_t sW = sX + (uint32_t)lay.w;
-  float* lv_all = reinterpret_cast<float*>(smem + lay.lv);   // [warp][BM][K]
-  int* li_all = reinterpret_cast<int*>(smem + lay.li);
-  float* wm = reinterpret_cast<float*>(smem + lay.wm);       // [warp][BM]
-  float* wsum = reinterpret_cast<float*>(smem + lay.ws);
+template <int N, bool TIED>
+__global__ void __launch_bounds__(kHeadThreads, 1)
+sample_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap tx,
+                    float* __restrict__ vals, int* __restrict__ idx,
+                    float* __restrict__ lse, float* __restrict__ ws,
+                    int* __restrict__ counter, int B, int Dm, int V, int K,
+                    float softcap, int stages) {
+  extern __shared__ unsigned char smem_fs[];
+  const int KS = (Dm + kDT - 1) / kDT;
+  const HeadSmem lay(N, K, stages);
+  unsigned char* base = smem_fs + ((1024 - (smem_u32(smem_fs) & 1023)) & 1023);
+  const uint32_t sR = smem_u32(base);                     // the ring at 0
+  const uint32_t full = sR + (uint32_t)lay.bars, empty = full + 8 * stages;
+  int* flag = reinterpret_cast<int*>(base + lay.flag);
+  const int ntiles = (V + kVT - 1) / kVT;
+  const int P = 128 / N, Q = 2 * P;            // partials a column: Q
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * BM;
-  const int NC = (V + SVC - 1) / SVC, NP = gridDim.x;
-  const int XC = Dmp / 8, KTILES = Dmp / SKT;
-  const int T = (NC - (int)blockIdx.x + NP - 1) / NP * KTILES;
-
-  // x once per CTA (unless it streams): rows >= B and columns >= Dm are
-  // zeros
-  if (!STREAM) {
-    for (int i = threadIdx.x; i < BM * XC; i += kSThreads) {
-      const int r = i / XC, c = i % XC, row = row0 + r;
-      const bool ok = row < B && c * 8 < Dm;
-      cp_async16(sX + swz(r, c, XC), x + (ok ? (long long)row * Dm + c * 8 : 0),
-                 ok ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);             // one arrival a consumer warp
     }
+    mbar_fence_init();
   }
-  auto load_w = [&](int tile, int slot) {
-    const int v0 = ((int)blockIdx.x + tile / KTILES * NP) * SVC;
-    const int d0 = tile % KTILES * SKT;
-    const uint32_t dst = sW + slot * kWTile;
-    if (STREAM) {              // x's [BM rows][64 d] slice of this tile
-      for (int i = threadIdx.x; i < BM * (SKT / 8); i += kSThreads) {
-        const int r = i >> 3, c = i & 7, row = row0 + r, d = d0 + c * 8;
-        const bool ok = row < B && d < Dm;
-        cp_async16(sX + slot * kXTile + swz(r, c, 8),
-                   x + (ok ? (long long)row * Dm + d : 0), ok ? 16 : 0);
-      }
-    }
-    for (int i = threadIdx.x; i < SVC * SKT / 8; i += kSThreads) {
-      if (TIED) {              // [128 vocab rows][64 d], d contiguous
-        const int r = i >> 3, c = i & 7, vi = v0 + r, d = d0 + c * 8;
-        const bool ok = vi < V && d < Dm;
-        cp_async16(dst + swz(r, c, 8), w + (ok ? vi * sv + d : 0),
-                   ok ? 16 : 0);
-      } else {                 // [64 d rows][128 vocab], vocab contiguous
-        const int r = i >> 4, c = i & 15, d = d0 + r, vi = v0 + c * 8;
-        const int n = d < Dm ? min(8, V - vi) : 0;
-        cp_async16(dst + swz(r, c, 16), w + (n > 0 ? d * sd + vi : 0),
-                   n > 0 ? 2 * n : 0);
-      }
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < T) load_w(s, s);
-    cp_async_commit();                     // staged x travels with tile 0
-  }
-
-  float* lv = lv_all + warp * BM * K;
-  int* li = li_all + warp * BM * K;
-  for (int i = lane; i < BM * K; i += 32) {
-    lv[i] = -CUDART_INF_F;
-    li[i] = INT_MAX;
-  }
-  __syncwarp();
-  // per (m-tile, half): this thread's row mt * 16 + g + 8 * h
-  float acc[MT][2][4], rm[MT][2], rs[MT][2], tv[MT][2];
-  int ti[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rm[mt][h] = tv[mt][h] = -CUDART_INF_F;
-      rs[mt][h] = 0.f;
-      ti[mt][h] = INT_MAX;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][h][e] = 0.f;
-    }
-
-  for (int tile = 0; tile < T; ++tile) {
-    cp_async_wait<kStages - 2>();          // this tile (and x) landed
-    __syncthreads();                       // ... and the slot to refill is free
-    if (tile + kStages - 1 < T)
-      load_w(tile + kStages - 1, (tile + kStages - 1) % kStages);
-    cp_async_commit();
-    const uint32_t wt = sW + (tile % kStages) * kWTile;
-    const int kt = tile % KTILES;
-#pragma unroll
-    for (int kk = 0; kk < SKT / 16; ++kk) {
-      uint32_t bw[4];
-      if (TIED)
-        ldmatrix_x4(bw, wt + swz(warp * 16 + (lane & 7) + 8 * (lane >> 4),
-                                 2 * kk + ((lane >> 3) & 1), 8));
-      else
-        ldmatrix_x4_trans(bw, wt + swz(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
-                                       2 * warp + (lane >> 4), 16));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        const int ar = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        if (STREAM)
-          ldmatrix_x4(a, sX + (tile % kStages) * kXTile +
-                             swz(ar, 2 * kk + (lane >> 4), 8));
-        else
-          ldmatrix_x4(a, sX + swz(ar, kt * (SKT / 8) + 2 * kk + (lane >> 4), XC));
-        mma_bf16(acc[mt][0], a, bw[0], bw[1]);
-        mma_bf16(acc[mt][1], a, bw[2], bw[3]);
-      }
-    }
-    if (kt != KTILES - 1) continue;
-
-    // the chunk is done: acc[mt][nt][e] is row mt*16 + g + 8*(e >> 1),
-    // vocab column v0 + warp*16 + nt*8 + 2t + (e & 1)
-    const int v0 = ((int)blockIdx.x + tile / KTILES * NP) * SVC + warp * 16;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + g + 8 * h;
-        const bool row_ok = row0 + r < B;
-        float z[4];
-        int vi[4];
-        bool hit = false;
-        float cmax = -CUDART_INF_F;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int nt = c >> 1, e = 2 * h + (c & 1);
-          vi[c] = v0 + nt * 8 + 2 * t + (c & 1);
-          float s = acc[mt][nt][e];
-          if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-          z[c] = row_ok && vi[c] < V ? s : -CUDART_INF_F;
-          cmax = fmaxf(cmax, z[c]);
-          hit = hit || (z[c] != -CUDART_INF_F &&
-                        better(z[c], vi[c], tv[mt][h], ti[mt][h]));
-        }
-        if (cmax != -CUDART_INF_F) {       // running logsumexp
-          const float nm = fmaxf(rm[mt][h], cmax);
-          float add = 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) add += expf(z[c] - nm);   // 0 if masked
-          rs[mt][h] = rs[mt][h] * expf(rm[mt][h] - nm) + add;
-          rm[mt][h] = nm;
-        }
-        if (__any_sync(0xffffffffu, hit)) {  // rare after the first chunk
-          float* rl = lv + r * K;
-          int* ri = li + r * K;
-          for (int q = 0; q < 4; ++q) {      // the quad's threads in turn
-            if (t == q && hit) {
-              float bv = rl[K - 1];
-              int bi = ri[K - 1];
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                if (z[c] != -CUDART_INF_F && better(z[c], vi[c], bv, bi)) {
-                  list_insert(rl, ri, K, z[c], vi[c]);
-                  bv = rl[K - 1];
-                  bi = ri[K - 1];
-                }
-              }
-            }
-            __syncwarp();
-          }
-          tv[mt][h] = rl[K - 1];
-          ti[mt][h] = ri[K - 1];
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  }
-
-  // this CTA's partial per row: logsumexp over the quad, then the warps
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float m = rm[mt][h], s = rs[mt][h];
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, m, off);
-        const float os = __shfl_xor_sync(0xffffffffu, s, off);
-        const float nm = fmaxf(m, om);
-        if (nm != -CUDART_INF_F)
-          s = (m == -CUDART_INF_F ? 0.f : s * expf(m - nm)) +
-              (om == -CUDART_INF_F ? 0.f : os * expf(om - nm));
-        m = nm;
-      }
-      if (t == 0) {
-        wm[warp * BM + mt * 16 + g + 8 * h] = m;
-        wsum[warp * BM + mt * 16 + g + 8 * h] = s;
-      }
-    }
   __syncthreads();
-  const long long NPl = NP;
-  for (int r = warp; r < BM && row0 + r < B; r += kSWarps) {
-    const long long base = (long long)(row0 + r) * NPl + blockIdx.x;
-    float m = lane < kSWarps ? wm[lane * BM + r] : -CUDART_INF_F;
-    float s = lane < kSWarps ? wsum[lane * BM + r] : 0.f;
-    const float M = warp_max(m);
-    s = warp_sum(m == -CUDART_INF_F ? 0.f : s * expf(m - M));
-    if (lane == 0) {
-      pmax[base] = M;                      // finite: the CTA saw a column
-      psum[base] = s;
+
+  if (threadIdx.x >= 256) {
+    // -- producer: one thread issues every copy ------------------------------
+    if (threadIdx.x != 256) return;
+    const uint32_t stage_tx = (uint32_t)lay.stage;
+    int it = 0;
+    for (int c = blockIdx.x; c < ntiles; c += gridDim.x)
+      for (int kt = 0; kt < KS; ++kt, ++it) {
+        const int s = it % stages;
+        mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+        const uint32_t dst = sR + s * stage_tx, bar = full + 8 * s;
+        // the untied tile's second box is not loaded where it lies past V
+        // (its rows are left out of the reductions, whatever they hold)
+        const bool half = !TIED && c * kVT + 64 >= V;
+        mbar_expect_tx(bar, stage_tx - (half ? kWTile / 2 : 0));
+        if (TIED) {                // [128 v][64 d], d contiguous
+          tma_load_2d(dst, &tw, bar, kt * kDT, c * kVT);
+        } else {                   // two [64 d][64 v] boxes, v contiguous
+          tma_load_2d(dst, &tw, bar, c * kVT, kt * kDT);
+          if (!half)
+            tma_load_2d(dst + kWTile / 2, &tw, bar, c * kVT + 64, kt * kDT);
+        }
+        tma_load_2d(dst + kWTile, &tx, bar, kt * kDT, 0);
+      }
+    return;
+  }
+
+  // -- consumers: 64 vocabulary rows of each tile a warpgroup -----------------
+  // the warpgroup's index through a shuffle, so that the compiler knows
+  // every branch around a wgmma to be uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int wt = threadIdx.x & 127, warp = wt >> 5, lane = wt & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* epi = reinterpret_cast<float*>(base + lay.epi) + wg * N * kEpiStride;
+  float* lv_all = reinterpret_cast<float*>(base + lay.lv);
+  int* li_all = reinterpret_cast<int*>(base + lay.li);
+  float* pm_all = reinterpret_cast<float*>(base + lay.pm);
+  float* ps_all = reinterpret_cast<float*>(base + lay.ps);
+  // this thread's column of the logit tile and its stride of rows
+  const int col = wt % N, part = wt / N;
+  const bool scans = part < P && col < B;
+  const int q = wg * P + part;
+  float* my_v = lv_all + ((long long)col * Q + q) * K;
+  int* my_i = li_all + ((long long)col * Q + q) * K;
+  if (scans)
+    for (int e = 0; e < K; ++e) { my_v[e] = -CUDART_INF_F; my_i[e] = INT_MAX; }
+  float run_m = -CUDART_INF_F, run_s = 0.f;
+  float thr_v = -CUDART_INF_F;
+  int thr_i = INT_MAX;
+
+  constexpr uint32_t kAtom = 8 * 128;          // 8 swizzled rows
+  // A: the tied tile's 64 rows (K-major, a k-step 32 bytes into the row);
+  // the untied tile's box of 64 vocabulary columns (MN-major, a k-step 16
+  // rows of 128 bytes)
+  const uint64_t a0 = TIED ? wgmma_desc(sR + wg * 64 * 128, 16, kAtom,
+                                        kSwizzle128)
+                           : wgmma_desc(sR + wg * (kWTile / 2), kWTile / 2,
+                                        kAtom, kSwizzle128);
+  constexpr uint32_t a_step = TIED ? 32 : 16 * 128;
+  const uint64_t b0 = wgmma_desc(sR + kWTile, 16, kAtom, kSwizzle128);
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int c = blockIdx.x; c < ntiles; c += gridDim.x) {
+    for (int kt = 0; kt < KS; ++kt, ++it) {
+      const int s = it % stages;
+      mbar_wait(full + 8 * s, (it / stages) & 1);
+      const uint64_t a = a0 + ((s * lay.stage) >> 4);
+      const uint64_t b = b0 + ((s * lay.stage) >> 4);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDT / 16; ++kk)
+        wgmma_ss_n<N, TIED ? 0 : 1>(acc, a + ((kk * a_step) >> 4),
+                                    b + ((kk * 32) >> 4), kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    // top-k of the 8 warps' lists (8 K <= 128 entries, 4 per lane)
-    float cv[4];
-    int ci[4];
+    // the tile's logits: register 4 j + e is vocabulary row 16 warp + g +
+    // 8 (e >> 1) of this warpgroup's 64, batch column 8 j + 2 t + (e & 1)
+    named_sync(1 + wg, 128);                   // the last tile's reads done
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = lane + 32 * j;           // entry e of [warp][K]
-      const bool in = e < kSWarps * K;
-      cv[j] = in ? lv_all[((e / K) * BM + r) * K + e % K] : -CUDART_INF_F;
-      ci[j] = in ? li_all[((e / K) * BM + r) * K + e % K] : INT_MAX;
-    }
-    for (int kk = 0; kk < K; ++kk) {
-      float bv = -CUDART_INF_F;
-      int bi = INT_MAX, bs = 4 * lane;       // slot: 4 * lane + j
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (better(cv[j], ci[j], bv, bi)) { bv = cv[j]; bi = ci[j]; bs = 4 * lane + j; }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        const int os = __shfl_xor_sync(0xffffffffu, bs, off);
-        if (better(ov, oi, bv, bi) || (ov == bv && oi == bi && os < bs)) {
-          bv = ov;
-          bi = oi;
-          bs = os;
+      for (int e = 0; e < 4; ++e)
+        epi[(8 * j + 2 * t + (e & 1)) * kEpiStride + 16 * warp + g +
+            8 * (e >> 1)] = acc[4 * j + e];
+    named_sync(1 + wg, 128);
+    if (scans) {
+      const int v0 = c * kVT + 64 * wg;
+      for (int r = part; r < 64 && v0 + r < V; r += P) {
+        float z = epi[col * kEpiStride + r];
+        if (softcap > 0.f) z = tanhf(z / softcap) * softcap;
+        if (z > run_m) {
+          run_s = run_s * expf(run_m - z) + 1.f;
+          run_m = z;
+        } else {
+          run_s += expf(z - run_m);
+        }
+        if (better(z, v0 + r, thr_v, thr_i)) {
+          list_insert(my_v, my_i, K, z, v0 + r);
+          thr_v = my_v[K - 1];
+          thr_i = my_i[K - 1];
         }
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (bs == 4 * lane + j) { cv[j] = -CUDART_INF_F; ci[j] = INT_MAX; }
-      if (lane == 0) {
-        ptv[base * K + kk] = bv;
-        pti[base * K + kk] = bi;
-      }
     }
   }
-}
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  // this CTA's partial of each column, one warp a column, into the
+  // column's record of the workspace: [max G][sum G][values G K][indices
+  // G K], `rec` floats (a multiple of 4) a column
+  if (scans) {
+    pm_all[col * Q + q] = run_m;
+    ps_all[col * Q + q] = run_s;
   }
-  return n > 0 ? n : 1;
+  named_sync(3, 256);
+  const int cw = threadIdx.x >> 5, G = gridDim.x;
+  const int rec = head_record_floats(G, K);
+  for (int b = cw; b < B; b += 8) {
+    float m, s;
+    float* r = ws + (long long)b * rec;
+    merge_partials(pm_all + b * Q, ps_all + b * Q, lv_all + b * Q * K,
+                   li_all + b * Q * K, Q, K, m, s, r + 2 * G + blockIdx.x * K,
+                   reinterpret_cast<int*>(r + 2 * G + G * K) + blockIdx.x * K);
+    if (lane == 0) {
+      r[blockIdx.x] = m;
+      r[G + blockIdx.x] = s;
+    }
+  }
+  // the last CTA to finish merges every CTA's partials: the records of as
+  // many columns as fit in the ring's (now idle) shared memory at a time,
+  // copied in 16-byte loads by all its threads, then one warp a column
+  __threadfence();
+  named_sync(3, 256);
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == G - 1;
+  named_sync(3, 256);
+  if (!*flag) return;
+  __threadfence();
+  float* sm = reinterpret_cast<float*>(base);
+  const int cols = max(1, (int)(lay.lv / (4 * (size_t)rec)));
+  for (int b0 = 0; b0 < B; b0 += cols) {
+    const int nb = min(cols, B - b0);
+    const float4* src = reinterpret_cast<const float4*>(ws + (long long)b0 * rec);
+    float4* dst = reinterpret_cast<float4*>(sm);
+#pragma unroll 8
+    for (int i = threadIdx.x; i < nb * rec / 4; i += 256) dst[i] = __ldcg(src + i);
+    named_sync(3, 256);
+    for (int b = b0 + cw; b < b0 + nb; b += 8) {
+      float m, s;
+      const float* r = sm + (b - b0) * rec;
+      merge_partials(r, r + G, r + 2 * G,
+                     reinterpret_cast<const int*>(r + 2 * G + G * K), G, K,
+                     m, s, vals + (long long)b * K, idx + (long long)b * K);
+      if (lane == 0) lse[b] = m + logf(fmaxf(s, 1e-30f));
+    }
+    named_sync(3, 256);
+  }
+  if (threadIdx.x == 0) *counter = 0;          // ready for the next launch
 }
 
-int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// Rows per CTA of the bf16 kernel and whether x streams: all of B (padded
-// to 16) up to 64, as far as shared memory holds x whole next to the ring
-// and the lists; where not even 16 rows fit, x streams through the ring
-// with all of B up to 64 rows.
-struct TcPlan {
-  int rows;
-  bool stream;
-};
-
-TcPlan tc_plan(int B, int Dm, int K) {
-  const int mt_max = min(4, (B + 15) / 16);
-  for (int mt = mt_max; mt >= 1; --mt)
-    if (SampleSmem(16 * mt, round_up(Dm, SKT), K, false).total <= kSmemMax)
-      return {16 * mt, false};
-  return {16 * mt_max, true};
+// 2-D map over a bf16 matrix with `inner` contiguous elements a row (row
+// stride `row_stride` elements), cut in 64-column boxes of `box_rows` rows
+// under the 128-byte swizzle; out-of-range rows and columns read as zeros.
+bool encode_2d(CUtensorMap* map, const void* base, long long inner,
+               long long rows, long long row_stride, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      (row_stride * 2) % 16 != 0)
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_stride * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kDT, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int partials(int V, int dtype) {
-  const int nc = (V + VC - 1) / VC;
-  return dtype == kBF16 ? min(nc, sm_count()) : nc;
-}
-
-template <int MT, bool TIED, bool STREAM>
-int launch_tc(const void* x, const void* w, long long sd, long long sv,
-              void* pmax, void* psum, void* ptv, void* pti, int B, int Dm,
-              int V, int K, float softcap, cudaStream_t s) {
+template <int N, bool TIED>
+int launch_head(const void* x, const void* w, long long sd, long long sv,
+                void* vals, void* idx, void* lse, void* ws, void* counter,
+                int B, int Dm, int V, int K, float softcap, int stages,
+                int grid, size_t smem, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sample_tc_kernel<MT, TIED, STREAM>,
+        sample_wgmma_kernel<N, TIED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const int Dmp = round_up(Dm, SKT), BM = 16 * MT;
-  const SampleSmem lay(BM, Dmp, K, STREAM);
-  sample_tc_kernel<MT, TIED, STREAM>
-      <<<dim3(partials(V, kBF16), (B + BM - 1) / BM), kSThreads, lay.total, s>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w), sd, sv,
-          static_cast<float*>(pmax), static_cast<float*>(psum),
-          static_cast<float*>(ptv), static_cast<int*>(pti), B, Dm, Dmp, V, K,
-          softcap);
+  CUtensorMap tw, tx;
+  const bool ok =
+      (TIED ? encode_2d(&tw, w, Dm, V, sv, kVT)
+            : encode_2d(&tw, w, V, Dm, sd, kDT)) &&
+      encode_2d(&tx, x, Dm, B, Dm, N);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  sample_wgmma_kernel<N, TIED><<<grid, kHeadThreads, smem, s>>>(
+      tw, tx, static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<float*>(lse), static_cast<float*>(ws),
+      static_cast<int*>(counter), B, Dm, V, K, softcap, stages);
   return (int)cudaGetLastError();
 }
 
-template <bool TIED, bool STREAM>
-int dispatch_tc(int BM, const void* x, const void* w, long long sd,
-                long long sv, void* pmax, void* psum, void* ptv, void* pti,
-                int B, int Dm, int V, int K, float softcap, cudaStream_t s) {
-  switch (BM) {
-    case 16: return launch_tc<1, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 32: return launch_tc<2, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 48: return launch_tc<3, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-    case 64: return launch_tc<4, TIED, STREAM>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 template <bool TIED>
-int dispatch_plan(const void* x, const void* w, long long sd, long long sv,
-                  void* pmax, void* psum, void* ptv, void* pti, int B, int Dm,
-                  int V, int K, float softcap, cudaStream_t s) {
-  const TcPlan plan = tc_plan(B, Dm, K);
-  return plan.stream
-             ? dispatch_tc<TIED, true>(plan.rows, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s)
-             : dispatch_tc<TIED, false>(plan.rows, x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
+int dispatch_n(int n, const void* x, const void* w, long long sd,
+               long long sv, void* vals, void* idx, void* lse, void* ws,
+               void* counter, int B, int Dm, int V, int K, float softcap,
+               int stages, int grid, size_t smem, cudaStream_t s) {
+#define RT_HEAD(NN)                                                        \
+  case NN:                                                                 \
+    return launch_head<NN, TIED>(x, w, sd, sv, vals, idx, lse, ws, counter, \
+                                 B, Dm, V, K, softcap, stages, grid, smem, \
+                                 s);
+  switch (n) {
+    RT_HEAD(8) RT_HEAD(16) RT_HEAD(24) RT_HEAD(32)
+    RT_HEAD(40) RT_HEAD(48) RT_HEAD(56) RT_HEAD(64)
+  }
+#undef RT_HEAD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int fused_sample_max_k() { return KMAX; }
 
-// Partials per row the scratch must hold: one per vocab chunk of 128 for
-// f32, one per CTA of the persistent bf16 kernel (min(SMs, chunks)).
-extern "C" int fused_sample_partials(int V, int dtype) {
-  return partials(V, dtype);
-}
-
-// Rows per CTA of the bf16 kernel at these shapes, negative when x streams
-// through the ring instead of being staged whole.
-extern "C" int fused_sample_bf16_plan(int B, int Dm, int K) {
-  const TcPlan plan = tc_plan(B, Dm, K);
-  return plan.stream ? -plan.rows : plan.rows;
-}
-
-// x (B,Dm) contiguous; w element (d, v) at w + d*sd + v*sv, same dtype as x
-// (bf16: sd == 1 or sv == 1, the other a multiple of 8, w and x 16-byte
-// aligned, Dm % 8 == 0); vals (B,K) f32, idx (B,K) i32, lse (B,) f32;
-// scratch pmax/psum (B,NP) f32 and ptv/pti (B,NP,K) with NP =
-// fused_sample_partials(V, dtype).  Two launches on `stream`; returns
-// cudaGetLastError() after them.
+// x (B,Dm) contiguous; w element (d, v) at w + d*sd + v*sv, same dtype as x;
+// vals (B,K) f32, idx (B,K) i32, lse (B,) f32; `ws` a workspace of
+// `ws_floats` f32 and `counter` an int32 that is 0 between launches.
+//   f32: partials of B x ceil(V / 128) chunks (B * chunks * (2 + 2K)
+//     floats) in `ws`; two launches; the plan's arguments are not read.
+//   bf16 (sd == 1 or sv == 1, the other a multiple of 8, w and x 16-byte
+//     aligned, Dm % 8 == 0, B <= n <= 64): the plan of
+//     `fused_sample.plan`: n (x rows padded to 8), `stages`, `grid` CTAs
+//     and `smem` bytes, which must equal this side's layout;
+//     workspace B records of `head_record_floats(grid, K)`; one launch.
+// Returns cudaErrorInvalidValue for what it cannot run, else
+// cudaGetLastError() after the launches on `stream`.
 extern "C" int fused_sample(const void* x, const void* w, long long sd,
                             long long sv, void* vals, void* idx, void* lse,
-                            void* pmax, void* psum, void* ptv, void* pti, int B,
-                            int Dm, int V, int K, float softcap, int dtype,
-                            void* stream) {
-  if (K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NP = partials(V, dtype);
-  int rc;
-  if (dtype == kF32) {
-    chunk_kernel<<<dim3(NP, (B + BM - 1) / BM), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sd, sv,
-        static_cast<float*>(pmax), static_cast<float*>(psum),
-        static_cast<float*>(ptv), static_cast<int*>(pti), B, Dm, V, K,
-        softcap);
-    rc = (int)cudaGetLastError();
-  } else if (dtype == kBF16 && (sd == 1 || sv == 1) && Dm % 8 == 0) {
-    rc = sd == 1 ? dispatch_plan<true>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s)
-                 : dispatch_plan<false>(x, w, sd, sv, pmax, psum, ptv, pti, B, Dm, V, K, softcap, s);
-  } else {
+                            void* ws, long long ws_floats, void* counter,
+                            int B, int Dm, int V, int K, float softcap,
+                            int dtype, int n, int stages, int grid,
+                            long long smem, void* stream) {
+  if (K < 1 || K > KMAX || B < 1 || V < K || ws == nullptr)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    const int NC = (V + VC - 1) / VC;
+    const long long BN = (long long)B * NC;
+    if (ws_floats < BN * (2 + 2 * K)) return (int)cudaErrorInvalidValue;
+    float* pmax = static_cast<float*>(ws);
+    float* psum = pmax + BN;
+    float* ptv = psum + BN;
+    int* pti = reinterpret_cast<int*>(ptv + BN * K);
+    chunk_kernel<<<dim3(NC, (B + BM - 1) / BM), kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sd, sv,
+        pmax, psum, ptv, pti, B, Dm, V, K, softcap);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    merge_kernel<<<B, kThreads, 0, s>>>(pmax, psum, ptv, pti,
+                                        static_cast<float*>(vals),
+                                        static_cast<int*>(idx),
+                                        static_cast<float*>(lse), NC, K);
+    return (int)cudaGetLastError();
   }
-  if (rc != 0) return rc;
-  merge_kernel<<<B, kThreads, 0, s>>>(
-      static_cast<const float*>(pmax), static_cast<const float*>(psum),
-      static_cast<const float*>(ptv), static_cast<const int*>(pti),
-      static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse), NP, K);
-  return (int)cudaGetLastError();
+  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+  const bool tied = sd == 1;
+  const int ntiles = (V + kVT - 1) / kVT;
+  if (!(tied ? sv % 8 == 0 : (sv == 1 && sd % 8 == 0)) || Dm % 8 != 0 ||
+      n % 8 != 0 || n < B || n > kMaxN || stages < 2 ||
+      stages > kMaxStages || grid < 1 || grid > ntiles || counter == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const HeadSmem lay(n, K, stages);
+  if ((long long)lay.total != smem || lay.total > kSmemMax ||
+      ws_floats < (long long)B * head_record_floats(grid, K))
+    return (int)cudaErrorInvalidValue;
+  return tied ? dispatch_n<true>(n, x, w, sd, sv, vals, idx, lse, ws, counter,
+                                 B, Dm, V, K, softcap, stages, grid,
+                                 lay.total, s)
+              : dispatch_n<false>(n, x, w, sd, sv, vals, idx, lse, ws,
+                                  counter, B, Dm, V, K, softcap, stages,
+                                  grid, lay.total, s);
 }

@@ -1,9 +1,10 @@
-// Tensor-core and async-copy building blocks of the fused head
-// (fused_sample.cu; the decode body, decode_attention.cuh, uses the
-// copies): `cp.async` 16-byte copies into shared memory, `ldmatrix`
+// Tensor-core and async-copy building blocks of the bf16 paged decode
+// (paged_decode_hopper.cuh; the split-KV body, decode_attention.cuh, uses
+// the copies): `cp.async` 16-byte copies into shared memory, `ldmatrix`
 // fragment loads, `mma.sync.m16n8k16` with bf16 operands and f32
 // accumulators, and the XOR swizzle of shared tiles.  The bf16 flash
-// kernel is built on Hopper's TMA and `wgmma` instead (hopper.cuh).
+// kernel and the bf16 fused head are built on Hopper's TMA and `wgmma`
+// instead (hopper.cuh).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), for lane = 4 g + t:
 //   A (16 x 16, row-major) a0: (g, 2t..2t+1)   a1: (g+8, 2t..)

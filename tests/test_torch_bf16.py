@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.core.buffer import BufferEntry
 from repro.models.model import build_model as jbuild
 from repro.rl.session import tiny_lm_config as jtiny

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.configs.base import get_smoke_config as jget_smoke
 from repro.models.model import build_model as jbuild
 from repro_torch import convert

@@ -22,6 +22,7 @@ All on ``device="cpu"`` with the engine suite's tiny model.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 import autoscaler_conformance as AC
 import chaos_conformance as CC
 from chaos_conformance import (  # noqa: F401  (collected here)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from proptest import cases, integers, lists, sampled_from
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.configs import qwen3_0_6b as JQ
 from repro.core.buffer import BufferEntry
 from repro.models.model import build_model as jbuild

@@ -27,6 +27,7 @@ Left out, with the reason:
   reference engine whatever fixture is in force; ``test_torch_engine.py``
   holds their port counterparts against the reference.
 """
+import torch_cpu  # noqa: F401
 import engine_conformance
 import pytest
 import torch

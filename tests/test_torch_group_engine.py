@@ -24,6 +24,7 @@ All on ``device="cpu"`` with the suite's tiny model.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 import engine_conformance as EC
 from engine_conformance import (  # noqa: F401  (collected here)
     test_event_order_stable_while_resident, test_interrupt_idempotent,

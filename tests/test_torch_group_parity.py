@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401
 from repro.core.policy import available_policies
 from repro.rl import session as JS
 from repro_torch import convert

@@ -20,6 +20,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_cpu  # noqa: F401
 from proptest import cases, integers, lists, tuples
 from repro.core import kv_cache as ref_kv
 from repro_torch.core import kv_cache as port_kv

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.kernels import ref as jref
 from repro.core.buffer import BufferEntry as JEntry
 from repro.rollout.engine import SlotEngine as JEngine

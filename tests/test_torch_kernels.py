@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers

@@ -20,6 +20,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.gpu
@@ -476,3 +477,96 @@ def test_paged_decode_after_a_pool_is_reallocated(dev):
     got = ops.paged_decode_attention(q, kp2, vp2, bt, kv)
     assert _decode_excess(
         got, ref.paged_decode_attention_ref(q, kp2, vp2, bt, kv)) <= 0
+
+
+# (Dm, V, tied) of the six heads of the fused head's kernel table: Qwen3-0.6B
+# (serve), Qwen3-MoE-235B-A22B, Phi-3-Vision-4.2B, Granite-MoE-3B-A800M,
+# Qwen1.5-110B and Nemotron-4-340B
+FUSED_HEADS = ((1024, 151936, True), (4096, 151936, False),
+               (3072, 32064, False), (1536, 49155, True),
+               (8192, 152064, False), (18432, 256000, False))
+
+
+def _head_weight(dev, Dm, V, tied, seed):
+    w = _bf16(dev, *((V, Dm) if tied else (Dm, V)), seed=seed) / Dm ** 0.5
+    return w.T if tied else w
+
+
+@pytest.mark.parametrize("Dm,V,tied", FUSED_HEADS)
+def test_fused_head_matches_the_plain_version_at_every_head(dev, Dm, V,
+                                                            tied):
+    """The bf16 fused head at B 1, 32 and 33 (k 1, and k 8 at 33) against
+    ``ref.fused_sample_ref``: values and lse within 1e-3, the same
+    indices; each call is one launch, and a repeated call is bit for bit
+    the same."""
+    from repro_torch.kernels import ref
+    w = _head_weight(dev, Dm, V, tied, seed=Dm)
+    x = _bf16(dev, 33, Dm, seed=V)
+    for B, k in ((1, 1), (32, 1), (33, 8)):
+        before = ops.launch_counts()["fused_sample"]
+        got = ops.fused_sample(x[:B], w, top_k=k)
+        assert ops.launch_counts()["fused_sample"] == before + 1
+        again = ops.fused_sample(x[:B], w, top_k=k)
+        rv, ri, rl = ref.fused_sample_ref(x[:B], w, top_k=k)
+        assert float((got[0] - rv).abs().max()) <= 1e-3
+        assert float((got[2] - rl).abs().max()) <= 1e-3
+        assert torch.equal(got[1], ri)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_head_calls_of_other_shapes_share_the_workspace(dev):
+    """Calls of other B, Dm, V, k and layouts in turn on one stream share
+    one workspace (grown when a call needs more; the counter left 0 by
+    each launch), each against the plain version."""
+    from repro_torch.kernels import fused_sample as fsm
+    from repro_torch.kernels import ref
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    for i, (B, Dm, V, tied, k) in enumerate((
+            (32, 1024, 151936, True, 16), (1, 3072, 32064, False, 1),
+            (64, 4096, 20000, False, 4), (5, 256, 1000, True, 16),
+            (32, 1024, 151936, True, 1))):
+        w = _head_weight(dev, Dm, V, tied, seed=i)
+        x = _bf16(dev, B, Dm, seed=10 + i)
+        vals, idx, lse = ops.fused_sample(x, w, top_k=k)
+        rv, ri, rl = ref.fused_sample_ref(x, w, top_k=k)
+        assert float((vals - rv).abs().max()) <= 1e-3
+        assert float((lse - rl).abs().max()) <= 1e-3
+        assert torch.equal(idx, ri)
+        ws, counter = fsm._workspaces[key]
+        assert ws.numel() >= fsm.plan(B, Dm, V, k).ws_floats
+        assert int(counter.item()) == 0
+    assert len([kk for kk in fsm._workspaces if kk[1] == key[1]]) == 1
+
+
+def test_fused_head_ties_across_tiles_keep_the_lowest_index(dev):
+    """Equal logits at columns 37, 300 and 900 (three 128-row tiles, so
+    three CTAs' partials) come back as [37, 300, 900], then the next."""
+    for layout in ("untied", "tied"):
+        w = torch.zeros((16, 1000), device=dev)
+        w[:, [37, 300, 900]] = 1.0
+        w[:, 5] = 0.5
+        w = w.bfloat16()
+        if layout == "tied":
+            w = w.T.contiguous().T
+        x = torch.ones((2, 16), device=dev).bfloat16()
+        vals, idx, _ = ops.fused_sample(x, w, top_k=4)
+        assert idx.tolist() == [[37, 300, 900, 5]] * 2, layout
+        assert vals[:, :3].tolist() == [[16.0] * 3] * 2
+
+
+def test_fused_head_past_64_rows_takes_a_pass_each(dev):
+    """70 rows: two passes over W (64 rows, then 6), two launches, the
+    result the plain version's."""
+    from repro_torch.kernels import fused_sample as fsm
+    from repro_torch.kernels import ref
+    w = _head_weight(dev, 1024, 5000, True, seed=1)
+    x = _bf16(dev, 70, 1024, seed=2)
+    assert fsm.plan(70, 1024, 5000, 4).passes == 2
+    before = ops.launch_counts()["fused_sample"]
+    vals, idx, lse = ops.fused_sample(x, w, top_k=4)
+    assert ops.launch_counts()["fused_sample"] == before + 2
+    rv, ri, rl = ref.fused_sample_ref(x, w, top_k=4)
+    assert float((vals - rv).abs().max()) <= 1e-3
+    assert float((lse - rl).abs().max()) <= 1e-3
+    assert torch.equal(idx, ri)

@@ -12,6 +12,7 @@ tolerances (the recurrent families: ``test_torch_launch_recurrent.py``).
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 from test_torch_launch_steps import run_prefill_and_serve, run_train
 
 ARCHS = ["phi_3_vision_4_2b", "whisper_small"]

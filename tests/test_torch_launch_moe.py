@@ -13,6 +13,7 @@ serve steps agree within the dense family's tolerances.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 from test_torch_launch_steps import run_prefill_and_serve, run_train
 
 MOE_ARCHS = ["granite_moe_3b_a800m", "qwen3_moe_235b_a22b"]

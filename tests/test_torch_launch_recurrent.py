@@ -7,6 +7,7 @@ width, no ``kv_start``, as the reference's serve step passes none).
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 from test_torch_launch_steps import run_prefill_and_serve, run_train
 
 ARCHS = ["zamba2_1_2b", "xlstm_125m"]

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.configs import base as JB
 from repro.launch import mesh as JMESH
 from repro.launch import plans as JP

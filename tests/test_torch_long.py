@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.models.model import build_model as jbuild
 from repro.rl.session import tiny_lm_config as jtiny
 from repro_torch import convert

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.configs import qwen3_0_6b as JQ
 from repro.kernels.ref import gather_pages as jgather
 from repro.models import layers as JL

@@ -19,6 +19,7 @@ keys are the reference's own and stay in ``policy_conformance.py``.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 import policy_conformance as PC
 from policy_conformance import (  # noqa: F401  (collected here)
     policy_name, test_buffer_invariants_throughout, test_conservation,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.distributed import sharding as JS
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.distributed import sharding as TS

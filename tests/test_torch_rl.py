@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.core.buffer import BufferEntry as JEntry
 from repro.models.model import build_model as jbuild
 from repro.rl import advantages as JA

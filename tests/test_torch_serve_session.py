@@ -12,6 +12,7 @@ per-tenant records but for wall-clock readings, the same update history
 import jax
 import numpy as np
 
+import torch_cpu  # noqa: F401
 from repro.rl import session as JS
 from repro_torch import convert
 from repro_torch.rl import session as TS

@@ -14,6 +14,7 @@ keys.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 import policy_conformance as PC
 import serving_conformance as SC
 from serving_conformance import (  # noqa: F401  (collected here)

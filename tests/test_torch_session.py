@@ -4,8 +4,9 @@
 packages at a tiny size (d_model 32, 2 layers, 8 slots, 2 groups, 3 SFT
 steps, greedy decode of up to 8 tokens), the port started from the reference's own
 starting weights (``init_params(PRNGKey(seed))`` through
-``repro_torch.convert``), in on-policy and partial mode under the
-``sorted`` and ``baseline`` policies.  Both runs must give:
+``repro_torch.convert``), in on-policy mode here and partial mode in
+``test_torch_session_partial.py``, under the ``sorted`` and ``baseline``
+policies.  Both runs must give:
 
 * the same SFT losses (``LOSS_TOL``);
 * the same trained uids, update by update, in the same order, with the
@@ -27,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401
 from repro.core.buffer import Mode as JMode
 from repro.rl import session as JS
 from repro_torch import convert
@@ -73,9 +75,9 @@ def _run_both(mode, policy):
     return (ref, ref_log, ref_out), (port, port_log, port_out)
 
 
-@pytest.mark.parametrize("policy", ["sorted", "baseline"])
-@pytest.mark.parametrize("mode", ["on_policy", "partial"])
-def test_tiny_session_matches_reference(mode, policy):
+def check_session(mode, policy):
+    """Both packages' tiny sessions in ``mode`` under ``policy``, held to
+    each other as the module's docstring says."""
     (ref, ref_log, ref_out), (port, port_log, port_out) = _run_both(mode,
                                                                    policy)
     np.testing.assert_allclose(port.sft_losses, ref.sft_losses, **LOSS_TOL)
@@ -109,6 +111,13 @@ def test_tiny_session_matches_reference(mode, policy):
     stitched = sum(len(set(v)) > 1 for b in port_log for *_, v in b)
     assert stitched == 0 if mode == "on_policy" or policy == "baseline" \
         else stitched > 0
+
+
+# partial mode: test_torch_session_partial.py
+@pytest.mark.parametrize("policy", ["sorted", "baseline"])
+@pytest.mark.parametrize("mode", ["on_policy"])
+def test_tiny_session_matches_reference(mode, policy):
+    check_session(mode, policy)
 
 
 @pytest.mark.parametrize("kw,needs", [

@@ -13,6 +13,7 @@ port runs apart.
 """
 import pytest
 
+import torch_cpu  # noqa: F401
 import policy_conformance as PC
 from test_torch_policy_conformance import PORT_FACTORIES
 from trainer_conformance import (  # noqa: F401  (collected here)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401
 from repro.configs.base import ARCH_ALIASES as JALIASES
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import get_smoke_config as jget_smoke
