@@ -42,10 +42,11 @@ Phases, each printing one JSON line:
    the left-pad mask as segment ids over its 1024-wide prefill wave),
    and at their edges (``family_shapes``); the launch path's long rows:
    flash at S = 32,768 (and 32,767), the dense decode over 33,280 rows
-   (B 8, D 128, G 2) and over 524,800 (B 1, D 256, G 2, softcap 50:
-   2,050 splits a head, merged); the dense decode with
+   (B 8, D 128, G 2) and over 524,800 (B 1, D 256, G 2, softcap 50: one
+   slot over every CTA, merged in the kernel); the dense decode with
    ``kv_start`` at 0, one live row, a split's edge and inside a split,
-   ``kv_start = kv_len`` and ``kv_len`` 0, in bf16 and f32; the int8
+   ``kv_start = kv_len`` and ``kv_len`` 0, in bf16 and f32, and its bf16
+   plan's edges on this card's grid; the int8
    pages at (192, 12), (128, 16) and (96, 1) at kv_len 0 and 1, a page's
    last and first row as the slot's new row, both sides of a split and a
    zero page (scale at its 1e-8 floor); bf16 flash at S 1, 63, 64, 65,
@@ -57,7 +58,9 @@ Phases, each printing one JSON line:
    head instantiations must hold ``HGMMA`` instructions (and no ``HMMA``)
    and spill nothing; a bf16 fused head call is one launch (no merge
    pass), W read once (one pass) at every head, B 1 to 64, and each case
-   repeats bit for bit.
+   repeats bit for bit.  The bf16 paged and dense decode instantiations
+   must hold ``HMMA`` and spill nothing; each bf16 decode case repeats
+   bit for bit, and a timed bf16 decode call (cold L2) is one launch.
 2. ``serve``: Qwen3-0.6B at full width and depth (28 layers, bf16, random
    weights from a seed) behind the ``SlotEngine``, continuous batching as
    in ``examples/serve_batch.py``, one path after another, each with the
@@ -172,14 +175,14 @@ Phases, each printing one JSON line:
    trainer's bf16 forward is (``phase_rl``'s ``gap_to_f32``).
 
 8. ``launch``: the launch path (``repro_torch/launch``) at published
-   widths, bf16, random weights from a seed.  ``launch_train``: 3 steps
+   widths, bf16, random weights from a seed.  ``launch_train``: 2 steps
    of ``build_train_step`` under each model's train_4k plan (its remat,
    microbatches and moment dtype) for Qwen3-0.6B, Gemma2-2B,
    Granite-MoE-3B-A800M, Phi-3-Vision-4.2B (576 zero patch rows),
    Whisper-small (1500 zero frames), Zamba2-1.2B (S 4096) and
-   xLSTM-125M (S 1024), every one at full depth, the batch cut to 2-4
-   (``LAUNCH_CUTS``): update ms (the median of the steps after the
-   first), peak GB, loss and grad norm (finite),
+   xLSTM-125M (S 1024), Qwen3 and Whisper at full depth, the others cut
+   to ``LAUNCH_DEPTH`` layers, the batch cut to 2-4 (``LAUNCH_CUTS``):
+   update ms (the second step's), peak GB, loss and grad norm (finite),
    the fit report's ``model_flops`` and persistent bytes (peak at least
    those), their share of 989 TFLOP/s, no kernel launch; where the plan
    has microbatches, the step at 2 layers in f32 held to the same step at
@@ -194,7 +197,8 @@ Phases, each printing one JSON line:
    (every call within ``DECODE_RULE``), step ms and tokens/s.
 
 ``--phase variants`` adds, after the kernel checks, one more line: the
-bf16 flash, fused-head and paged decode (fp and int8 pages) kernels
+bf16 flash, fused-head, paged decode (fp and int8 pages) and dense
+decode kernels
 rebuilt from text edits of their committed sources (another design
 choice, or one part removed) and timed through their C entry points at
 the serve shapes, to show where their time goes.
@@ -325,7 +329,7 @@ def device_ms(torch, fn, n: int = 20, cold: bool = False):
         ms = sum(v["ms"] for v in per.values())
         if ms > 0:
             kept = (ms, per)
-            if cold or whole:
+            if whole:
                 break
     ms, per = kept
     check(ms > 0, f"profiler saw no device time for {fn}")
@@ -485,6 +489,16 @@ def placed_new_row(plan_of, lens, Kh, group, edge):
     return None
 
 
+def repeat_equal(torch, what, first, call):
+    """A second call on the same inputs equals the first bit for bit (the
+    bf16 decode kernels merge split slots through counters they set back
+    to 0)."""
+    again = call()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(first, again)),
+          f"{what}: a second call differs from the first")
+
+
 def one_kernel(name, report):
     """The paged path's serve call launches exactly one kernel, the bf16
     Hopper kernel, and no merge pass."""
@@ -638,14 +652,16 @@ BF16_FUNCTIONS = {
     "paged_decode_attention_int8": ("paged_decode_attention",
                                     r"paged_decode_hopper_kernelIa"),
     "ragged_decode_attention": ("ragged_decode_attention",
-                                r"decode_split_kernelI13__nv_bfloat16"),
+                                r"dense_decode_hopper_kernel"),
 }
-# bf16 paged decode instantiations (paged_decode_hopper.cuh): fp pages at
-# D 64/128 x G 1/2/4/8, (64, 3), (192, 12), (256, 2), (128, 16), (96, 1);
-# int8 pages at the same but (256, 2).  Each must issue tensor-core
-# instructions (mma.sync: HMMA) and spill nothing.
+# bf16 decode instantiations (paged_decode_hopper.cuh,
+# dense_decode_hopper.cuh): fp pages and the dense cache at D 64/128 x G
+# 1/2/4/8, (64, 3), (192, 12), (256, 2), (128, 16), (96, 1); int8 pages at
+# the same but (256, 2).  Each must issue tensor-core instructions
+# (mma.sync: HMMA) and spill nothing.
 PAGED_BF16_INSTANTIATIONS = {"paged_decode_attention": 13,
-                             "paged_decode_attention_int8": 12}
+                             "paged_decode_attention_int8": 12,
+                             "ragged_decode_attention": 13}
 TENSOR_CORE_OPS = re.compile(r"\bHG?MMA\.")   # mma.sync -> HMMA, wgmma -> HGMMA
 WGMMA_OPS = re.compile(r"\bHGMMA\.")
 # bf16 flash instantiations (D 64, 96, 128, 192, 256): each must issue
@@ -656,8 +672,7 @@ FLASH_BF16_DS = (64, 96, 128, 192, 256)
 FUSED_BF16_FUNCTIONS = 16
 # decode kernel -> (library, regex of every instantiation: the split-KV
 # body's (f32 q at D 64/128 x G 1/2/4/8 and (64, 3), f32 D 32 G 1 on fp
-# pages; the dense kernel's also bf16 with the wide shapes) and its merge
-# pass; for the paged kernel also the bf16 Hopper kernels)
+# pages) and its merge pass, and the bf16 Hopper kernels)
 DECODE_FUNCTIONS = {
     "paged_decode_attention": ("paged_decode_attention",
                                r"decode_split_kernelIff"
@@ -668,7 +683,8 @@ DECODE_FUNCTIONS = {
                                     r"|paged_decode_hopper_kernelIa"
                                     r"|decode_merge_kernel"),
     "ragged_decode_attention": ("ragged_decode_attention",
-                                r"decode_(split|merge)_kernel"),
+                                r"decode_(split|merge)_kernel"
+                                r"|dense_decode_hopper_kernel"),
 }
 
 
@@ -688,29 +704,28 @@ def ptxas_functions(log: str, pattern: str):
     return out
 
 
-# split-pass instantiations per decode kernel: the paged kernel's f32 q
-# (D 64/128 x G 1/2/4/8, and (64, 3); on fp pages also D 32, G 1, the RL
-# session's LM); the dense kernel's f32 and bf16 (those and the wide
-# heads (192, 12), (256, 2), (128, 16), (96, 1))
+# split-pass instantiations per decode kernel, f32 q only: D 64/128 x G
+# 1/2/4/8, and (64, 3); on fp pages also D 32, G 1, the RL session's LM
 DECODE_SPLIT_INSTANTIATIONS = {"paged_decode_attention": 10,
                                "paged_decode_attention_int8": 9,
-                               "ragged_decode_attention": 22}
+                               "ragged_decode_attention": 9}
+HOPPER_DECODE = r"(paged|dense)_decode_hopper_kernel"
 
 
 def decode_registers(build):
     """Registers and spills of every decode instantiation; checked: the
     split-pass instantiations of ``DECODE_SPLIT_INSTANTIATIONS`` and the
-    bf16 paged ones of ``PAGED_BF16_INSTANTIATIONS``, none spills."""
+    bf16 ones of ``PAGED_BF16_INSTANTIATIONS``, none spills."""
     out = {}
     for name, (lib, pat) in DECODE_FUNCTIONS.items():
         fns = ptxas_functions(build.ptxas_report(lib), pat)
         n_split = sum("decode_split_kernel" in fn for fn in fns)
-        n_hopper = sum("paged_decode_hopper_kernel" in fn for fn in fns)
+        n_hopper = sum(bool(re.search(HOPPER_DECODE, fn)) for fn in fns)
         spill = sum(v["spill_bytes"] or 0 for v in fns.values())
         check(n_split == DECODE_SPLIT_INSTANTIATIONS[name]
               and n_hopper == PAGED_BF16_INSTANTIATIONS.get(name, 0)
               and all(v["spill_bytes"] is not None for v in fns.values()),
-              f"{name}: {n_split} split and {n_hopper} bf16 paged "
+              f"{name}: {n_split} split and {n_hopper} bf16 Hopper "
               f"instantiations in the ptxas log")
         check(spill == 0, f"{name}: register spills {fns}")
         out[name] = {"functions": len(fns),
@@ -947,8 +962,8 @@ def phase_kernels(torch, dev, report):
     one_kernel("paged_decode_attention", report)
 
     # -- ragged_decode_attention (dense cache) -------------------------------
-    # tolerance: as for the paged kernel, whose body it shares: f32 1e-4,
-    # bf16 the decode rule.
+    # tolerance: f32 1e-4 (only the order of f32 sums differs), bf16 the
+    # decode rule (DECODE_RULE).
     # The serve shape is the dense engine's cache (S = max_total_len
     # 2048) at the paged serve lengths; S = 64 and 300 are not multiples
     # of 128, kv_len > S reads all S rows.
@@ -972,6 +987,39 @@ def phase_kernels(torch, dev, report):
         ("d64_g3_edges_s600_f32", f32, g3, 600, 24, 8, 64, 0.0),
         ("d64_g3_edges_s600_bf16", bf16, g3, 600, 24, 8, 64, 0.0),
     ]
+    # the bf16 kernel's plan (dense_decode_hopper.cuh) with this card's
+    # grid, through its plain twin: a CTA's share ending inside a slot's
+    # rows, one slot over three or more CTAs, many one-chunk slots in one
+    # share, every slot at kv_len 0; each placement is checked on the plan
+    # before its case runs.  Every bf16 case runs twice: the second call
+    # must equal the first bit for bit (the item counters reset)
+    from repro_torch.kernels import ragged_decode_attention as rdm
+    rctas = rdm.hopper_ctas(pD, pH // pKh)
+    rrows = rdm.hopper_rows(pD, pH // pKh)
+    rgrp = rdm.hopper_group(pD, pH // pKh, pKh)
+
+    def rplan(lens, S, starts=None):
+        return ref.ragged_decode_work_plan(lens, starts, S, pKh, rctas, rrows,
+                                           rgrp)
+    one_chunk = [1 + i % rrows for i in range(600)]
+    _, pcs = rplan(serve_lens.tolist(), 2048)
+    check(any(not pc.whole and pc.lo > 0 for pc in pcs),
+          "dense plan: no share boundary inside a serve slot's rows")
+    _, pcs = rplan([2048], 2048)
+    check(max(Counter(pc.kh for pc in pcs).values()) >= 3,
+          "dense plan: the 2048-row slot spans fewer than 3 CTAs")
+    _, pcs = rplan(one_chunk, 64)
+    check(max(Counter(pc.cta for pc in pcs if pc.whole).values()) >= 2 * rgrp,
+          "dense plan: no share holds two one-chunk slots")
+    rd_cases += [
+        ("plan_share_boundary_inside_rows_bf16", bf16, serve_lens.tolist(),
+         2048, pH, pKh, pD, 0.0),
+        ("plan_one_slot_over_ctas_b1_s2048_bf16", bf16, [2048], 2048, pH, pKh,
+         pD, 0.0),
+        ("plan_600_one_chunk_slots_s64_bf16", bf16, one_chunk, 64, pH, pKh,
+         pD, 0.0),
+        ("plan_all_kv_len_0_bf16", bf16, [0] * 8, 64, pH, pKh, pD, 0.0),
+    ]
     serve_rd = None
     for name, dt, lens, S, H, Kh, D, cap in rd_cases:
         args = dense_inputs(torch, dev, dt, lens, S, H, Kh, D)
@@ -980,6 +1028,10 @@ def phase_kernels(torch, dev, report):
         torch.cuda.synchronize()
         row = decode_record("ragged_decode_attention", name, out, want,
                             dt == f32)
+        if dt == bf16:
+            repeat_equal(torch, f"ragged/{name}", out,
+                         lambda a=args, c=cap: ops.ragged_decode_attention(
+                             *a, softcap=c))
         if 0 in lens:
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"ragged/{name}: kv_len 0 not zero")
@@ -989,8 +1041,8 @@ def phase_kernels(torch, dev, report):
     # with kv_start (a left-padded slot's rows start past its pads), at
     # Zamba2-1.2B's shared attention (D 64, G 1, 32 heads) over its
     # S = 2048 cache: kv_start 0; one live row (kv_len - 1); kv_start on
-    # a split's first row and inside a split; kv_start = kv_len and a
-    # slot with kv_len 0 (zeros, checked exactly)
+    # a split's and a chunk's first row and inside them; kv_start =
+    # kv_len and a slot with kv_len 0 (zeros, checked exactly)
     ks_cases = [
         ("kv_start_0", [1500, 700, 1, 2048], [0, 0, 0, 0]),
         ("one_live_row", [1500, 700, 1, 2048], [1499, 699, 0, 2047]),
@@ -1010,6 +1062,10 @@ def phase_kernels(torch, dev, report):
             torch.cuda.synchronize()
             decode_record("ragged_decode_attention", name, out, want,
                           dt == f32)
+            if dt == bf16:
+                repeat_equal(torch, f"ragged/{name}", out,
+                             lambda a=args, s0=st: ops.ragged_decode_attention(
+                                 *a, kv_start=s0))
             empty = [i for i, (n, s0) in enumerate(zip(lens, starts))
                      if s0 >= n]
             if empty:
@@ -1036,10 +1092,13 @@ def phase_kernels(torch, dev, report):
         **timings(torch, lambda: ops.ragged_decode_attention(*args),
                   lambda: ref.ragged_decode_attention_ref(*args),
                   lambda: F.scaled_dot_product_attention(
-                      q[:, :, None], kt, vt, attn_mask=mask)),
+                      q[:, :, None], kt, vt, attn_mask=mask), cold=True),
         **bound(nbytes, 4 * live * H * D),
         shape=dict(B=B, H=H, Kh=Kh, D=D, S=S, live_rows=live,
-                   library="SDPA, key mask, cache pre-transposed"))
+                   library="SDPA, key mask, cache pre-transposed"),
+        plan=dict(ctas=rctas, rows=rrows, group=rgrp))
+    one_launch(report["ragged_decode_attention"]["kernels_per_call"],
+               "dense_decode_hopper_kernel", "ragged_decode_attention")
     del args, q, kc, vc, kt, vt, mask
 
     # -- paged_decode_attention over int8 pages -------------------------------
@@ -1454,10 +1513,16 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                                    for v in fns.values())}
 
     def timed(kernel, case, row, fn, plain, library, nbytes, flops, shape,
-              registers, note=None, plain_reps=(3, 2), cold=False):
+              registers, note=None, plain_reps=(3, 2), cold=False,
+              one=None):
+        """``one``: the function name of the one kernel a call launches
+        (checked on the call's profile; the profile is kept in the row)."""
         t = timings(torch, fn, plain, library, ms_reps=(5, 5),
                     plain_reps=plain_reps, cold=cold)
-        t.pop("kernels_per_call")
+        if one is None:
+            t.pop("kernels_per_call")
+        else:
+            one_launch(t["kernels_per_call"], one, f"{kernel}/{case}")
         check(registers["functions"] > 0 and registers["spill_bytes"] == 0,
               f"{kernel}/{case}: instantiation missing or spilling "
               f"{registers}")
@@ -1586,6 +1651,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
         torch.cuda.synchronize()
         row = decode_record("ragged_decode_attention", case, out, want,
                             False)
+        repeat_equal(torch, f"ragged/{case}", out,
+                     lambda a=args, c=cap: ops.ragged_decode_attention(
+                         *a, softcap=c))
         if 0 in lens:
             zero = out[[i for i, n in enumerate(lens) if n == 0]]
             check(bool((zero == 0).all()), f"ragged/{case}: kv_len 0 not zero")
@@ -1614,9 +1682,8 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
                   dict(B=len(lens), H=H, Kh=Kh, D=D, S=S, live_rows=live,
                        softcap=cap),
                   regs("ragged_decode_attention",
-                       rf"decode_split_kernelI13__nv_bfloat16S\w*Li{D}ELi"
-                       rf"{H // Kh}E"),
-                  note=note)
+                       rf"dense_decode_hopper_kernelILi{D}ELi{H // Kh}E"),
+                  note=note, cold=True, one="dense_decode_hopper_kernel")
             del library
         del args, out, want
         torch.cuda.empty_cache()
@@ -1627,11 +1694,7 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
     # kv_len) live, kv_start = 1024 - prompt length.  Bound: the bytes of
     # the live rows.  Yardstick: SDPA with the [kv_start, kv_len) key mask.
     import numpy as np
-    zr = np.random.RandomState(29)
-    z_plen = zr.randint(64, 1025, size=32)
-    z_gen = zr.randint(0, 65, size=32)
-    z_lens = (1024 + z_gen + 1).tolist()
-    z_starts = (1024 - z_plen).tolist()
+    z_lens, z_starts = zamba2_serve_rows()
     H, Kh, D, S = 32, 32, 64, 2048
     args = dense_inputs(torch, dev, bf16, z_lens, S, H, Kh, D)
     st = torch.tensor(z_starts, dtype=torch.int32, device=dev)
@@ -1640,6 +1703,8 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
     torch.cuda.synchronize()
     case = "zamba2_serve_b32_s2048_d64_g1_kv_start"
     row = decode_record("ragged_decode_attention", case, out, want, False)
+    repeat_equal(torch, f"ragged/{case}", out,
+                 lambda: ops.ragged_decode_attention(*args, kv_start=st))
     q, kc, vc, kvl = args
     live = int((kvl - st).sum())
     pos = torch.arange(S, device=dev)[None, :]
@@ -1655,8 +1720,9 @@ def kernels_family_shapes(torch, dev, report, record, decode_record,
           dict(B=32, H=H, Kh=Kh, D=D, S=S, live_rows=live,
                kv_start="1024 - prompt length"),
           regs("ragged_decode_attention",
-               r"decode_split_kernelI13__nv_bfloat16S\w*Li64ELi1E"),
-          note="SDPA, [kv_start, kv_len) key mask, cache pre-transposed")
+               r"dense_decode_hopper_kernelILi64ELi1E"),
+          note="SDPA, [kv_start, kv_len) key mask, cache pre-transposed",
+          cold=True, one="dense_decode_hopper_kernel")
     del args, q, kc, vc, kvl, kt, vt, mask, out, want, st
 
     # -- decode: int8 pages at the paged families' heads ----------------------
@@ -1986,6 +2052,8 @@ def variant_sources():
     fs = (csrc / "fused_sample.cu").read_text()
     pd = (csrc / "paged_decode_attention.cu").read_text()
     hop = (csrc / "paged_decode_hopper.cuh").read_text()
+    rd = (csrc / "ragged_decode_attention.cu").read_text()
+    dd = (csrc / "dense_decode_hopper.cuh").read_text()
 
     def sub(src, *pairs):
         for a, b in pairs:
@@ -1998,6 +2066,30 @@ def variant_sources():
         return ("paged_decode_attention",
                 {"paged_decode_attention.cu": sub(pd, *cu_pairs),
                  "paged_decode_hopper.cuh": sub(hop, *pairs)})
+    def dense(*pairs, cu_pairs=()):
+        return ("ragged_decode_attention",
+                {"ragged_decode_attention.cu": sub(rd, *cu_pairs),
+                 "dense_decode_hopper.cuh": sub(dd, *pairs)})
+    # bf16 q back to the split-KV body of decode_attention.cuh (the dense
+    # kernel before this design), its bf16 shapes instantiated there again
+    dense_body = ((
+        "#define RT_LAUNCH(DD, GG) (int)launch_decode<T, T, DD, GG, true>"
+        "(p, B, s)\n  RT_DECODE_SHAPES(D, G, RT_LAUNCH)\n",
+        "#define RT_LAUNCH(DD, GG) (int)launch_decode<T, T, DD, GG, true>"
+        "(p, B, s)\n  RT_DECODE_SHAPES(D, G, RT_LAUNCH)\n"
+        "  if constexpr (std::is_same<T, __nv_bfloat16>::value) {\n"
+        "    RT_DECODE_WIDE_SHAPES(D, G, RT_LAUNCH)\n"
+        "  }\n"), (
+        "  if (dtype == kBF16) {\n    if (ws == nullptr",
+        "  if (false) {\n    if (ws == nullptr"), (
+        "  if (dtype != kF32) return (int)cudaErrorInvalidValue;\n"
+        "  DecodeParams p{};",
+        "  DecodeParams p{};"), (
+        "  p.row_stride = (long long)Kh * D * 4;",
+        "  p.row_stride = (long long)Kh * D * (dtype == kF32 ? 4 : 2);"), (
+        "  return dispatch<float>(D, G, p, B, s);\n}",
+        "  if (dtype == kBF16) return dispatch<__nv_bfloat16>(D, G, p, B, s);"
+        "\n  return dispatch<float>(D, G, p, B, s);\n}"))
     cfg = "kFlashConsumers = 2, kFlashStages = 2"
     tile = "TK = 64;"
     qk = ("        qk_issue<D>(sc, qd, kd + ((slot(it) * T::kKVBytes) >> 4));"
@@ -2099,6 +2191,34 @@ def variant_sources():
         # P V products removed (bf16 pages)
         "paged_decode/ablate_scores": decode((scores, "")),
         "paged_decode/ablate_pv": decode((pvs, "")),
+        # the dense decode (timed by ``dense_decode_variants``): the shipped
+        # source, the same source built again (the spread of identical
+        # builds), the split-KV body it replaced; units in each warp's ring
+        # (2 shipped; 3 where they fit)
+        "ragged_decode/shipped": dense(),
+        "ragged_decode/shipped_again": dense(
+            ("#pragma once\n", "#pragma once\n// built again\n")),
+        "ragged_decode/split_body": dense(cu_pairs=dense_body),
+        "ragged_decode/3_stage_ring": dense(
+            ("kDdMaxStages = 2;", "kDdMaxStages = 3;")),
+        # the weights in two bf16 terms (16 bits), not three
+        "ragged_decode/two_weight_terms": dense((
+            "        mma_bf16(o[cg], a, am[0], am[2]);\n", ""), (
+            "        mma_bf16(o[2 * cg], am, r[0], r[1]);\n", ""), (
+            "        mma_bf16(o[2 * cg + 1], am, r[2], r[3]);\n", ""), (
+            "  lo = pack_bf16(ra - bf_lo(mid), rb - bf_hi(mid));",
+            "  lo = mid;\n  mid = 0u;")),
+        # every split item merged by all the CTAs holding its pieces, and
+        # none (the completing CTA merges every item)
+        "ragged_decode/spread_every_item": dense(
+            ("kDdSpreadPieces = 33;", "kDdSpreadPieces = 2;")),
+        "ragged_decode/spread_no_item": dense(
+            ("kDdSpreadPieces = 33;", "kDdSpreadPieces = 1 << 30;")),
+        # the rows copied with cp.async (16 bytes a lane, padded rows) at
+        # every D, as at D 96, instead of TMA
+        "ragged_decode/cp_async": dense((
+            "static constexpr bool kTma = D % 64 == 0;",
+            "static constexpr bool kTma = false;")),
     }
 
 
@@ -2131,6 +2251,39 @@ def serve_decode_lens():
             + rng.randint(0, 129, size=32)).tolist()
 
 
+def start_variant_builds(sources):
+    """One nvcc per entry of ``sources`` (name -> (library, {file: text}),
+    as ``variant_sources``), all started at once, each into its own
+    directory under build/variants; name -> (library, dir, process)."""
+    from repro_torch.kernels import build
+    procs = {}
+    for name, (lib, files) in sources.items():
+        d = build.BUILD_DIR / "variants" / name.replace("/", "__")
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        procs[name] = (lib, d, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-o", str(d / "lib.so"), str(d / f"{lib}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_variant_builds(procs):
+    """Wait for ``start_variant_builds``' processes; name -> (library,
+    loaded library, nvcc's log) of each that built (a failed build fails
+    the run)."""
+    import ctypes
+    out = {}
+    for name, (lib, d, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            check(False, f"variant {name}: nvcc failed\n{log[-2000:]}")
+            continue
+        out[name] = (lib, ctypes.CDLL(str(d / "lib.so")), log)
+    return out
+
+
 def phase_variants(torch, dev):
     """Build every variant in parallel, then time each through its C
     entry point (no wrapper; ``ms`` with CUDA events back to back,
@@ -2142,17 +2295,7 @@ def phase_variants(torch, dev):
 
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
-    vdir = build.BUILD_DIR / "variants"
-    procs = {}
-    for name, (lib, files) in variant_sources().items():
-        d = vdir / name.replace("/", "__")
-        d.mkdir(parents=True, exist_ok=True)
-        for fname, text in files.items():
-            (d / fname).write_text(text)
-        procs[name] = (lib, d, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(d / "lib.so"), str(d / f"{lib}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    procs = start_variant_builds(variant_sources())
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device=dev).manual_seed(0)
     B, S, H, Kh, D = 8, 1024, 16, 8, 128
@@ -2178,15 +2321,13 @@ def phase_variants(torch, dev):
                 dq, k8, v8, ks8, vs8, kn, vn, dbt, dkv, 2,
                 ref.paged_decode_attention_int8_ref(
                     dq, k8, v8, ks8, vs8, dbt, dkv, k_new=kn, v_new=vn))
-    rows, fused = {}, {}
-    for name, (lib, d, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            check(False, f"variant {name}: nvcc failed\n{log[-2000:]}")
-            continue
-        so = ctypes.CDLL(str(d / "lib.so"))
+    rows, fused, dense = {}, {}, {}
+    for name, (lib, so, log) in finish_variant_builds(procs).items():
         if lib == "fused_sample":
             fused[name.split("/")[1]] = (so, log)
+            continue
+        if lib == "ragged_decode_attention":
+            dense[name.split("/")[1]] = (so, log)
             continue
         calls = {}
         if lib == "flash_attention":
@@ -2286,13 +2427,154 @@ def phase_variants(torch, dev):
                     + 4 * (dbt.numel() + dkv.numel()), 4 * live * H_ * D_))
     del q, k, v, fa_want, fa_out, dec
     torch.cuda.empty_cache()
-    fused_rows = fused_head_variants(torch, dev, fused)
+    fused_rows = fused_head_variants(torch, dev, fused) if fused else []
+    dense_rows = dense_decode_variants(torch, dev, dense) if dense else []
     emit({"phase": "variants",
           "shapes": {"flash_attention": dict(B=B, S=S, H=H, Kh=Kh, D=D),
                      "fused_sample": {r["head"]: r["shape"]
                                       for r in fused_rows},
                      "paged_decode": paged_shapes},
-          "variants": rows, "fused_head": fused_rows})
+          "variants": rows, "fused_head": fused_rows,
+          "dense_decode": dense_rows})
+
+
+# (label, S, kv_len, H, Kh, D, softcap) of the dense decode's variant
+# timings: the launch path's long_500k (Gemma2-2B's global layers) and
+# decode_32k (Qwen3-0.6B), the dense serve shape, then Gemma2's ring and
+# global caches, Whisper's self- and cross-attention, Phi-3-Vision's
+# dense layout and Zamba2's left-padded slots (with kv_start; as
+# ``kernels_family_shapes``); the design variants run at the first four,
+# ``DENSE_EVERY_SHAPE`` at every one
+DENSE_VARIANT_SHAPES = [
+    ("long_500k_d256_g2", 524_800, [524_281], 8, 4, 256, 50.0),
+    ("decode_32k_d128_g2", 33_280, [32_761] * 8, 16, 8, 128, 0.0),
+    ("serve_d128_g2", 2048, None, 16, 8, 128, 0.0),
+    ("gemma2_ring_d256_g2", 4096, "gemma2_ring", 8, 4, 256, 50.0),
+    ("whisper_self_d64_g1", 448, "whisper_self", 12, 12, 64, 0.0),
+    ("phi3_dense_d96_g1", 2048, "phi3_dense", 32, 32, 96, 0.0),
+    ("gemma2_global_d256_g2", 8192, "gemma2_global", 8, 4, 256, 50.0),
+    ("whisper_cross_d64_g1", 1500, [1500] * 32, 12, 12, 64, 0.0),
+    ("zamba2_kv_start_d64_g1", 2048, "zamba2", 32, 32, 64, 0.0),
+]
+DENSE_EVERY_SHAPE = ("shipped", "shipped_again", "split_body")
+
+
+def zamba2_serve_rows():
+    """(kv_len, kv_start) of Zamba2-1.2B's 32 serve slots: prompts of
+    64-1024 ids left-padded to the 1024 bucket plus up to 64 generated
+    tokens and the new row; rows [kv_start, kv_len) live."""
+    import numpy as np
+    zr = np.random.RandomState(29)
+    plen = zr.randint(64, 1025, size=32)
+    gen = zr.randint(0, 65, size=32)
+    return (1024 + gen + 1).tolist(), (1024 - plen).tolist()
+
+
+def dense_variant_lens(key):
+    """(kv_len, kv_start or None) of a ``DENSE_VARIANT_SHAPES`` entry, as
+    the kernels phase gives its case."""
+    g2 = family_serve_lens(16, 512, 6144, 64, 23)
+    if key is None:
+        return serve_decode_lens(), None
+    if key == "gemma2_ring":
+        return [min(n + 1, 4096) for n in g2], None
+    if key == "gemma2_global":
+        return [n + 1 for n in g2], None
+    if key == "whisper_self":
+        return [n + 1 for n in family_serve_lens(32, 16, 224, 64, 28)], None
+    if key == "phi3_dense":
+        return family_serve_lens(16, 64 + PHI3_PATCHES, 1024 + PHI3_PATCHES,
+                                 64, 27), None
+    if key == "zamba2":
+        return zamba2_serve_rows()
+    return key, None
+
+
+def dense_decode_variants(torch, dev, builds, rounds=3):
+    """The dense decode at ``DENSE_VARIANT_SHAPES`` through the C entries of
+    ``builds`` (name -> (library, ptxas log)), cold (each call after an
+    L2 flush, as an engine's layer reads its cache), interleaved:
+    ``rounds`` rounds, each timing every variant once (``kernel_ms`` the
+    device time of a call's launches, ``ms`` CUDA events); the medians,
+    every round, and the last round's kernels a call (the split body's
+    split and merge passes apart).  Every variant's result is held to the
+    plain version by ``DECODE_RULE``."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for i, (label, S, key, H, Kh, D, cap) in enumerate(DENSE_VARIANT_SHAPES):
+        lens, starts = dense_variant_lens(key)
+        args = dense_inputs(torch, dev, torch.bfloat16, lens, S, H, Kh, D)
+        q, kc, vc, kvl = args
+        st = (None if starts is None else
+              torch.tensor(starts, dtype=torch.int32, device=dev))
+        B, G = len(lens), H // Kh
+        want = ref.ragged_decode_attention_ref(*args, softcap=cap,
+                                               kv_start=st)
+        live = int((kvl.clamp(max=S) - (0 if st is None else st))
+                   .clamp(min=0).sum())
+        limit = bound(4 * q.numel() + 4 * live * Kh * D + 4 * B,
+                      4 * live * H * D)
+        calls, errs, regs = {}, {}, {}
+        for name, (so, log) in builds.items():
+            if i >= 4 and name not in DENSE_EVERY_SHAPE:
+                continue
+            fn = so.ragged_decode_attention
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            so.ragged_decode_splits.argtypes = [ctypes.c_int]
+            so.ragged_decode_workspace_floats.argtypes = [ctypes.c_int] * 3
+            so.ragged_decode_workspace_floats.restype = ctypes.c_longlong
+            ml, acc = build.split_scratch(so.ragged_decode_splits(S), B, H,
+                                          D, dev)
+            ws = torch.empty(max(so.ragged_decode_workspace_floats(D, G, Kh),
+                                 1), device=dev)
+            cnt = torch.zeros(2 * B * Kh, dtype=torch.int32, device=dev)
+            res = torch.empty_like(q)
+
+            def call(fn=fn, t=(q, kc, vc, kvl, st, res, ml, acc, ws, cnt)):
+                return fn(*[build.data_ptr(x) for x in t], B, H, S, Kh, D,
+                          cap, 1, stream)
+            rc = call()
+            torch.cuda.synchronize()
+            check(rc == 0, f"dense variant {name}/{label}: launch failed {rc}")
+            if rc != 0:
+                continue
+            errs[name] = decode_excess(res, want)[0]
+            check(errs[name] <= 0, f"dense variant {name}/{label}: "
+                  f"{errs[name]:.3g} beyond {DECODE_RULE}")
+            calls[name] = call
+            fns = ptxas_functions(log, rf"(dense_decode_hopper_kernelI|decode_"
+                                  rf"split_kernelI13__nv_bfloat16S\w*)Li{D}E"
+                                  rf"Li{G}E")
+            regs[name] = {"registers": max((v["registers"] or 0
+                                            for v in fns.values()),
+                                           default=None),
+                          "spill_bytes": sum(v["spill_bytes"] or 0
+                                             for v in fns.values())}
+        times = {k: {"kernel_ms": [], "ms": []} for k in calls}
+        per_call = {}
+        for _ in range(rounds):
+            for name, call in calls.items():
+                times[name]["ms"].append(cuda_ms_cold(torch, call, reps=5))
+                ms, per_call[name] = device_ms(torch, call, cold=True)
+                times[name]["kernel_ms"].append(ms)
+        row = {"shape_label": label, "card": card_name_and_power(),
+               "shape": dict(B=B, S=S, H=H, Kh=Kh, D=D, softcap=cap,
+                             live_rows=live, kv_start=st is not None),
+               "rounds": rounds, "l2": "cold", **limit,
+               "variants": {k: {"kernel_ms": statistics.median(v["kernel_ms"]),
+                                "ms": statistics.median(v["ms"]),
+                                "kernel_ms_all": v["kernel_ms"],
+                                "kernels_per_call": per_call[k],
+                                "excess": errs[k], **regs[k]}
+                            for k, v in times.items()}}
+        emit({"phase": "dense_decode_variants", **row})
+        out.append(row)
+        del args, q, kc, vc, kvl, st, want, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 # (label, B, Dm, V, tied) of the fused head's timings: Qwen3-0.6B's serve
@@ -5088,8 +5370,18 @@ LAUNCH_CUTS = {
     "prefill_batch": "prefill_32k's 32 rows cut to 1 (cache 3.82 GB and "
                      "bf16 logits 9.96 GB a row)",
     "decode_32k_batch": "decode_32k's 128 rows cut to 8 (30.5 GB of cache)",
+    "train_depth": "launch_train at LAUNCH_DEPTH layers for five models "
+                   "(full width) and 2 steps, not 3: the whole script's "
+                   "time limit (its full run took 936 s of 1200 with the "
+                   "train cells at 304 s)",
 }
-LAUNCH_STEPS = 3            # update ms: the median of those after the first
+# layers of the launch_train models cut in depth (each family's layer
+# pattern kept: Gemma2's local/global pairs, Zamba2's shared block after
+# every 6 SSM layers and its 2-layer tail, xLSTM's mLSTM/sLSTM pairs);
+# Qwen3-0.6B and Whisper-small run at full depth
+LAUNCH_DEPTH = {"gemma2_2b": 8, "granite_moe": 8, "phi3_vision": 8,
+                "zamba2": 8, "xlstm": 2}
+LAUNCH_STEPS = 2            # update ms: the median of those after the first
 LAUNCH_SERVE_STEPS = 8
 LAUNCH_HOLD_SEQ = 1024      # the microbatch hold: 2 layers, f32, one batch
 LAUNCH_TIE = 0.05           # logits: a tie inside both runs of the prefill
@@ -5280,7 +5572,8 @@ def launch_micro_hold(torch, dev, arch, plan):
 
 
 def launch_train(torch, dev, launches):
-    """Each ``LAUNCH_TRAIN`` model: 3 steps of ``build_train_step`` under
+    """Each ``LAUNCH_TRAIN`` model (at ``LAUNCH_DEPTH`` layers where cut):
+    ``LAUNCH_STEPS`` steps of ``build_train_step`` under
     its train_4k plan, each timed with CUDA events (update ms: the median
     of the steps after the first), peak memory, loss and grad norm (held
     finite), the fit report's ``model_flops`` and
@@ -5299,6 +5592,8 @@ def launch_train(torch, dev, launches):
     for label, (arch, S, B) in LAUNCH_TRAIN.items():
         t0 = time.monotonic()
         cfg = get_config(arch)
+        if label in LAUNCH_DEPTH:
+            cfg = cfg.replace(num_layers=LAUNCH_DEPTH[label])
         plan = get_plan(arch, "train_4k")
         shape = ShapeConfig("train_4k", S, B, "train")
         built = steps.build_train_step(cfg, shape, plan, make_local_mesh(),
@@ -5440,6 +5735,34 @@ def launch_prefill(torch, dev, launches):
     return row
 
 
+def launch_serve_setup(torch, dev, arch, shape_name, B):
+    """A ``LAUNCH_SERVE`` run's step and inputs: ``build_serve_step`` at
+    the shape, its params from seed 0, a dense cache of
+    ``_round_len(S + 8)`` rows filled with random values scaled by
+    ``LAUNCH_CACHE_SCALE``, random tokens and kv_len = S - 8.  Returns
+    (cfg, built, params, cache, tok, kv, cache rows, S)."""
+    from repro_torch.configs.base import ShapeConfig, get_config, shape_by_name
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.plans import get_plan
+    from repro_torch.launch.steps import build_serve_step
+    cfg = get_config(arch)
+    S = shape_by_name(shape_name).seq_len
+    built = build_serve_step(cfg, ShapeConfig(shape_name, S, B, "decode"),
+                             get_plan(arch, shape_name), make_local_mesh(),
+                             False)
+    rows = max(t.shape[2] for t in built.in_specs[2].values())
+    params = built.model.init_params(torch.Generator(device=dev)
+                                     .manual_seed(0))
+    cache = built.model.init_cache(B, rows)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for t in cache.values():
+        t.normal_(generator=g).mul_(LAUNCH_CACHE_SCALE)
+    tok = torch.randint(1, cfg.vocab_size, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    kv = torch.full((B,), S - 8, dtype=torch.int32, device=dev)
+    return cfg, built, params, cache, tok, kv, rows, S
+
+
 def launch_serve(torch, dev, launches):
     """Each ``LAUNCH_SERVE`` run: ``build_serve_step`` on a dense cache of
     the shape's rows (``_round_len(S + 8)``) filled with random values
@@ -5449,30 +5772,12 @@ def launch_serve(torch, dev, launches):
     attention layer a step, nothing else), then as many under
     ``PlainWitness`` (the plain dense decode at every call, the kernel held
     to it by ``DECODE_RULE``); tokens and log-probs held finite."""
-    from repro_torch.configs.base import ShapeConfig, get_config, shape_by_name
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.plans import get_plan
-    from repro_torch.launch.steps import build_serve_step
 
     out = []
     for label, (arch, shape_name, B) in LAUNCH_SERVE.items():
-        cfg = get_config(arch)
-        full = shape_by_name(shape_name)
-        S = full.seq_len
-        built = build_serve_step(cfg, ShapeConfig(shape_name, S, B, "decode"),
-                                 get_plan(arch, shape_name),
-                                 make_local_mesh(), False)
-        rows = max(t.shape[2] for t in built.in_specs[2].values())
-        params = built.model.init_params(torch.Generator(device=dev)
-                                         .manual_seed(0))
-        cache = built.model.init_cache(B, rows)
-        g = torch.Generator(device=dev).manual_seed(4)
-        for t in cache.values():
-            t.normal_(generator=g).mul_(LAUNCH_CACHE_SCALE)
-        tok = torch.randint(1, cfg.vocab_size, (B,), generator=g, device=dev,
-                            dtype=torch.int32)
-        kv = torch.full((B,), S - 8, dtype=torch.int32, device=dev)
+        cfg, built, params, cache, tok, kv, rows, S = launch_serve_setup(
+            torch, dev, arch, shape_name, B)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -5583,37 +5888,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     report, launches, keep = {}, {}, {}
-    phase_kernels(torch, dev, report)
+    seconds, t_run = {}, time.monotonic()
+
+    def run(name, fn, *a):
+        """``fn(*a)``, its wall seconds kept under ``name``."""
+        t0 = time.monotonic()
+        res = fn(*a)
+        seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t0
+        return res
+    run("kernels", phase_kernels, torch, dev, report)
     if args.phase == "variants":
-        phase_variants(torch, dev)
+        run("variants", phase_variants, torch, dev)
     if args.phase == "all":
-        model, params = phase_serve(torch, dev, launches, keep)
-        phase_e2e(torch, dev, keep, model, params)
+        model, params = run("serve", phase_serve, torch, dev, launches, keep)
+        run("e2e", phase_e2e, torch, dev, keep, model, params)
     if args.phase in ("rl", "group"):
         from repro_torch.configs.base import get_config
         from repro_torch.models.model import build_model
         model = build_model(get_config("qwen3_0_6b"))
         params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     if args.phase in ("all", "group"):
-        phase_group(torch, dev, model, params, launches)
-        phase_serve_tier(torch, dev, model, params, launches)
+        run("group", phase_group, torch, dev, model, params, launches)
+        run("serve_tier", phase_serve_tier, torch, dev, model, params,
+            launches)
     if args.phase in ("all", "rl"):
-        phase_rl(torch, dev, model, params, launches)
+        run("rl", phase_rl, torch, dev, model, params, launches)
     if args.phase in ("all", "group"):
-        phase_long(torch, dev, model, params, launches)
+        run("long", phase_long, torch, dev, model, params, launches)
     if args.phase in ("all", "rl", "group"):
         del model, params
         release(torch)
-        phase_rl_session(torch, launches, extras_only=args.phase == "group")
+        run("rl_session", phase_rl_session, torch, launches,
+            args.phase == "group")
     if args.phase in ("all", "families"):
-        moe_layer_check(torch, dev)
-        phase_families(torch, dev, launches)
-        phase_rl_moe(torch, dev, launches)
-        phase_rl_vlm(torch, dev, launches)
-        phase_rl_hybrid(torch, dev, launches)
+        run("moe_layer", moe_layer_check, torch, dev)
+        run("families", phase_families, torch, dev, launches)
+        run("rl_moe", phase_rl_moe, torch, dev, launches)
+        run("rl_vlm", phase_rl_vlm, torch, dev, launches)
+        run("rl_hybrid", phase_rl_hybrid, torch, dev, launches)
     if args.phase in ("all", "launch"):
         release(torch)
-        phase_launch(torch, dev, launches)
+        run("launch", phase_launch, torch, dev, launches)
+    emit({"phase": "seconds", "phases": seconds,
+          "total": time.monotonic() - t_run})
     emit({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(path, {}).get(name, 0), path=path,

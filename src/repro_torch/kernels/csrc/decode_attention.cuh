@@ -1,7 +1,10 @@
-// One-token GQA decode attention, the body shared by the paged kernel
-// (paged_decode_attention.cu, fp and int8 pages) and the dense kernel
-// (ragged_decode_attention.cu), as `_flash_decode_block` is shared by the
-// three Pallas variants in src/repro/kernels/ragged_decode_attention.py.
+// One-token GQA decode attention for f32 q: the split-KV body of the
+// paged kernel (paged_decode_attention.cu, fp and int8 pages) and of the
+// dense kernel (ragged_decode_attention.cu), as `_flash_decode_block` is
+// shared by the three Pallas variants in
+// src/repro/kernels/ragged_decode_attention.py.  bf16 q runs the Hopper
+// kernels instead (paged_decode_hopper.cuh, dense_decode_hopper.cuh); f32
+// q serves the card's f32 checks and the RL session's tiny LM.
 //
 // What bounds it on the H100: bytes.  Every live K and V row is read once
 // (kv_len x Kh x D x 2 tensors x element size per slot) and there are only
@@ -56,8 +59,7 @@
 //     slot's row base moves to kv_start and the splits cut that range,
 //     so the split pass, the merge and the one-split fast path count
 //     splits from kv_start, and kv_start >= kv_len gives zeros.  Only
-//     the dense kernel's entry (`DecodeStartParams`) runs it; the paged
-//     kernel's code is what it was.
+//     the dense kernel's entry (`DecodeStartParams`) runs it.
 #pragma once
 
 #include <type_traits>

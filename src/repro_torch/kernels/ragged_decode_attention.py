@@ -7,12 +7,27 @@ past ``kv_len`` skipped, and with ``kv_start`` the rows before it too.
 It serves the engine's dense layout (``SlotEngine(paged=False)``),
 Gemma2-2B's ring and global caches included, Whisper-small's decode (its
 self-attention cache and its cross-attention over the encoder's 1500
-rows, every row live) and Zamba2-1.2B's shared attention, whose
-left-padded slots start at ``kv_start``.  Bound on
-the H100: bytes, the live K/V rows over 3.35 TB/s.  The body is the
-paged kernel's with contiguous rows (``csrc/decode_attention.cuh``: split-KV over equal row ranges, a
-``cp.async`` ring, a merge pass, splits from S so ``kv_len`` stays on the
-card); unlike the TPU kernel it takes any S, not only multiples of 128.
+rows, every row live), Zamba2-1.2B's shared attention, whose
+left-padded slots start at ``kv_start``, and the launch path's decode_32k
+and long_500k caches.  Bound on the H100: bytes, the live K/V rows over
+3.35 TB/s.  Unlike the TPU kernel it takes any S, not only multiples of
+128.
+
+bf16 q (every serve path) runs ``csrc/dense_decode_hopper.cuh``, one
+launch a call: a persistent grid of SMs x (CTAs an SM holds) splits the
+(slot, KV head group, chunk of rows) units evenly, planned on the device
+from ``kv_len`` and ``kv_start`` (the host never reads them), a warp a KV
+head streams its rows into a ring of its own (TMA boxes at D a multiple
+of 64, ``cp.async`` at D 96), both products run on tensor cores, and a
+slot split across CTAs is merged inside the kernel through a workspace
+(by the CTA that completes it, or at long rows by every CTA holding a
+piece: a cooperative launch).  That workspace (f32 partials and the
+items' arrive and depart counters, zeroed once, grown when a call needs
+more, never allocated per call) is the paged decode's, kept per device
+and stream (``paged_decode_attention.workspace``): the two kernels take
+turns on a stream and each leaves the counters at zero.  f32 q runs the
+split-KV body of ``csrc/decode_attention.cuh`` (a grid per split of S's
+rows and a merge pass from f32 partials).
 
 CPU tensors take the plain version (``ref.ragged_decode_attention_ref``);
 CUDA tensors launch the kernel or raise.
@@ -24,11 +39,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_decode_attention import workspace
 from repro_torch.kernels.ref import ragged_decode_attention_ref
 
 NAME = "ragged_decode_attention"
 launches = {NAME: 0}    # kernel launches since the last reset
 _lib = None
+_grids = {}         # (device, D, G) -> CTAs of the bf16 grid
+_ws_floats = {}     # (device, D, G, Kh) -> f32 of its workspace
 
 
 def _bind():
@@ -36,13 +54,54 @@ def _bind():
     if _lib is None:
         lib = build.load(NAME)
         lib.ragged_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.ragged_decode_attention.restype = ctypes.c_int
         lib.ragged_decode_splits.argtypes = [ctypes.c_int]
         lib.ragged_decode_splits.restype = ctypes.c_int
+        lib.ragged_decode_ctas.argtypes = [ctypes.c_int] * 2
+        lib.ragged_decode_ctas.restype = ctypes.c_int
+        lib.ragged_decode_rows.argtypes = [ctypes.c_int] * 2
+        lib.ragged_decode_rows.restype = ctypes.c_int
+        lib.ragged_decode_group.argtypes = [ctypes.c_int] * 3
+        lib.ragged_decode_group.restype = ctypes.c_int
+        lib.ragged_decode_workspace_floats.argtypes = [ctypes.c_int] * 3
+        lib.ragged_decode_workspace_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def hopper_ctas(D: int, G: int) -> int:
+    """CTAs of the bf16 kernel's grid at (D, G) on the current device: SMs
+    x (CTAs an SM holds).  The card's plan edges are placed with it
+    (``ref.ragged_decode_work_plan``)."""
+    key = (torch.cuda.current_device(), D, G)
+    if key not in _grids:
+        n = _bind().ragged_decode_ctas(D, G)
+        build.require(n > 0, NAME, f"no bf16 kernel at D={D} G={G}")
+        _grids[key] = n
+    return _grids[key]
+
+
+def hopper_rows(D: int, G: int) -> int:
+    """Rows of a unit (a chunk of a slot's live rows) of the bf16 kernel."""
+    return _bind().ragged_decode_rows(D, G)
+
+
+def hopper_group(D: int, G: int, Kh: int) -> int:
+    """KV heads one unit of the bf16 kernel takes (one warp each)."""
+    return _bind().ragged_decode_group(D, G, Kh)
+
+
+def workspace_floats(D: int, G: int, Kh: int) -> int:
+    """f32 of the bf16 kernel's workspace at (D, G, Kh) on the current
+    device (the C side owns its layout)."""
+    key = (torch.cuda.current_device(), D, G, Kh)
+    if key not in _ws_floats:
+        n = _bind().ragged_decode_workspace_floats(D, G, Kh)
+        build.require(n > 0, NAME, f"no bf16 kernel at D={D} G={G}")
+        _ws_floats[key] = n
+    return _ws_floats[key]
 
 
 def ragged_decode_attention(q, k_cache, v_cache, kv_len,
@@ -81,18 +140,27 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     build.require(all(t.is_contiguous() for t in args
                       if t is not None), NAME,
                   "all inputs must be contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    build.require(not bf16 or (k_cache.data_ptr() % 16 == 0
+                               and v_cache.data_ptr() % 16 == 0), NAME,
+                  "caches must start on a 16-byte boundary (bulk copies)")
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _bind()
-    part_ml, part_acc = build.split_scratch(lib.ragged_decode_splits(S), B,
-                                            H, D, dev)
+    part_ml = part_acc = ws = counters = None
+    if bf16:
+        ws, counters = workspace(dev, workspace_floats(D, H // Kh, Kh),
+                                 2 * B * Kh)
+    else:
+        part_ml, part_acc = build.split_scratch(lib.ragged_decode_splits(S),
+                                                B, H, D, dev)
     rc = lib.ragged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), build.data_ptr(kv_start), out.data_ptr(),
-        build.data_ptr(part_ml),
-        build.data_ptr(part_acc), B, H, S, Kh, D, float(softcap), code,
-        build.stream_ptr(dev))
+        build.data_ptr(part_ml), build.data_ptr(part_acc),
+        build.data_ptr(ws), build.data_ptr(counters), B, H, S, Kh, D,
+        float(softcap), code, build.stream_ptr(dev))
     build.check(rc, NAME)
     launches[NAME] += 1
     return out

@@ -193,13 +193,18 @@ def paged_decode_work_plan(kv_len, P: int, nb: int, Kh: int, ctas: int,
     item by item (an item is a (slot, KV head group); one piece a KV head
     of the group), each item's pieces in CTA order."""
     lens = [max(0, min(int(n), nb * P)) for n in kv_len]
-    pages = [-(-n // P) for n in lens]
+    return _work_plan([-(-n // P) for n in lens], Kh, ctas, group)
+
+
+def _work_plan(units, Kh: int, ctas: int, group: int):
+    """The shares and pieces of a decode plan over ``units[b]`` units of
+    each of slot b's KV head groups (see ``paged_decode_work_plan``)."""
     groups = Kh // group
-    U = groups * sum(pages)
+    U = groups * sum(units)
     ce = min(ctas, U)
     shares = [(c * U // ce, (c + 1) * U // ce) for c in range(ce)]
     pieces, item0 = [], 0
-    for b, npg in enumerate(pages):
+    for b, npg in enumerate(units):
         for kg in range(groups if npg else 0):
             cf = ((item0 + 1) * ce - 1) // U
             cl = ((item0 + npg) * ce - 1) // U
@@ -248,18 +253,87 @@ def paged_decode_plan_ref(q, k_pages, v_pages, block_tables, kv_len,
             k = torch.cat([k, k_new[pc.b, pc.kh][None].float()])
             v = torch.cat([v, v_new[pc.b, pc.kh][None].float()])
         qh = q[pc.b, pc.kh * G:(pc.kh + 1) * G].float()
-        s = qh @ k.T / math.sqrt(D)
-        if softcap > 0:
-            s = torch.tanh(s / softcap) * softcap
-        m = s.amax(-1)
-        p = torch.exp(s - m[:, None])
-        parts.append((m, p.sum(-1), p @ v))
+        parts.append(_piece_partial(qh, k, v, softcap))
         by_item.setdefault((pc.b, pc.kh), []).append(parts[-1])
+    _merge_items(out, by_item, G)
+    return out.to(q.dtype), pieces, parts
+
+
+def _piece_partial(qh, k, v, softcap: float):
+    """f32 (max, sum, unnormalised accumulator) of the G heads ``qh``
+    (G, D) over the rows ``k``/``v`` (n, D)."""
+    s = qh @ k.T / math.sqrt(qh.shape[-1])
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    m = s.amax(-1)
+    p = torch.exp(s - m[:, None])
+    return m, p.sum(-1), p @ v
+
+
+def _merge_items(out, by_item, G: int) -> None:
+    """Each (slot, KV head)'s piece partials merged in CTA order into
+    ``out`` (B, H, D)."""
     for (b, kh), ps in by_item.items():
         m, l, acc = zip(*ps)
         out[b, kh * G:(kh + 1) * G] = merge_split_partials_ref(
             torch.stack(m, -1)[None], torch.stack(l, -1)[None],
             torch.stack(acc, 1)[None])[0]
+
+
+def _live_rows(kv_len, kv_start, S: int):
+    """Each slot's first live row and live rows: [kv_start, min(kv_len,
+    S)), none where kv_start >= min(kv_len, S)."""
+    starts = ([0] * len(kv_len) if kv_start is None
+              else [max(0, int(s)) for s in kv_start])
+    return starts, [max(0, min(int(n), S) - s0)
+                    for n, s0 in zip(kv_len, starts)]
+
+
+def ragged_decode_work_plan(kv_len, kv_start, S: int, Kh: int, ctas: int,
+                            rows: int = 16, group: int = 1
+                            ) -> Tuple[List[Tuple[int, int]],
+                                       List[DecodePiece]]:
+    """The plain twin of the bf16 dense decode kernel's plan
+    (``csrc/dense_decode_hopper.cuh``).  Slot b's live rows are
+    [kv_start[b], min(kv_len[b], S)) (``kv_start`` None: from row 0); a
+    unit is one chunk of ``rows`` of them (the kernel's ``dd_rows``) of a
+    group of ``group`` KV heads (its ``pd_group``): chunks(b) =
+    ceil(live(b) / rows), ordered by slot, then KV head group, then
+    chunk.  Of the U units, CTA c of C = min(ctas, U) takes [c U // C,
+    (c + 1) U // C).  Returns the shares ((u0, u1) per CTA) and the
+    pieces, item by item, each item's pieces in CTA order; a piece's
+    ``lo``/``hi`` count chunks of its slot's live rows."""
+    _, lens = _live_rows(kv_len, kv_start, S)
+    return _work_plan([-(-n // rows) for n in lens], Kh, ctas, group)
+
+
+def ragged_decode_plan_ref(q, k_cache, v_cache, kv_len, ctas: int,
+                           rows: int = 16, group: int = 1,
+                           softcap: float = 0.0, kv_start=None):
+    """The dense decode as the bf16 kernel's plan cuts it, in f32: each
+    piece's partials (max, sum, unnormalised accumulator) over its chunks'
+    live rows, then each item's pieces merged in CTA order
+    (``merge_split_partials_ref``); slots with no live row give zeros.
+    Returns (out in q's dtype, the pieces, their (m, l, acc) as (G,),
+    (G,), (G, D))."""
+    B, H, D = q.shape
+    S, Kh = k_cache.shape[1], k_cache.shape[2]
+    G = H // Kh
+    starts, lens = _live_rows(kv_len.tolist(), None if kv_start is None
+                              else kv_start.tolist(), S)
+    _, pieces = ragged_decode_work_plan(kv_len.tolist(), starts, S, Kh,
+                                        ctas, rows, group)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    parts, by_item = [], {}
+    for pc in pieces:
+        r0 = starts[pc.b] + pc.lo * rows
+        r1 = starts[pc.b] + min(pc.hi * rows, lens[pc.b])
+        k = k_cache[pc.b, r0:r1, pc.kh].float()
+        v = v_cache[pc.b, r0:r1, pc.kh].float()
+        qh = q[pc.b, pc.kh * G:(pc.kh + 1) * G].float()
+        parts.append(_piece_partial(qh, k, v, softcap))
+        by_item.setdefault((pc.b, pc.kh), []).append(parts[-1])
+    _merge_items(out, by_item, G)
     return out.to(q.dtype), pieces, parts
 
 

@@ -570,3 +570,103 @@ def test_fused_head_past_64_rows_takes_a_pass_each(dev):
     assert float((vals - rv).abs().max()) <= 1e-3
     assert float((lse - rl).abs().max()) <= 1e-3
     assert torch.equal(idx, ri)
+
+
+# (D, G) of every bf16 dense decode instantiation (dense_decode_hopper.cuh)
+DENSE_BF16_SHAPES = ((64, 1), (64, 2), (64, 3), (64, 4), (64, 8), (128, 1),
+                     (128, 2), (128, 4), (128, 8), (192, 12), (256, 2),
+                     (128, 16), (96, 1))
+
+
+def _dense_case(dev, lens, S, H, Kh, D, seed=0, starts=None):
+    q = _bf16(dev, len(lens), H, D, seed=seed)
+    kc, vc = (_bf16(dev, len(lens), S, Kh, D, seed=seed + i) for i in (1, 2))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    st = (None if starts is None
+          else torch.tensor(starts, dtype=torch.int32, device=dev))
+    return (q, kc, vc, kv), st
+
+
+@pytest.mark.parametrize("D,G", DENSE_BF16_SHAPES)
+def test_dense_decode_matches_the_plain_version_at_every_bf16_shape(dev, D,
+                                                                    G):
+    """The bf16 dense kernel at each of its 13 (D, G): S 300 (not a
+    multiple of 16), kv_len 0, 1, a unit's edges, past S; then with
+    kv_start (at kv_len: zeros; inside a unit), and a softcap; against
+    the plain version by ``chip_smoke.py``'s decode rule."""
+    from repro_torch.kernels import ref
+    Kh = {12: 8, 16: 4}.get(G, 4)          # Nemotron's, Qwen3-MoE's
+    args, st = _dense_case(dev, [0, 1, 16, 17, 33, 300, 512, 150], 300,
+                           Kh * G, Kh, D, seed=D + G,
+                           starts=[0, 0, 3, 16, 40, 299, 100, 149])
+    for kw in ({}, {"softcap": 30.0}, {"kv_start": st}):
+        got = ops.ragged_decode_attention(*args, **kw)
+        want = ref.ragged_decode_attention_ref(*args, **kw)
+        assert _decode_excess(got, want) <= 0
+        assert not got[0].any()
+        if "kv_start" in kw:
+            assert not got[4].any()
+
+
+def test_dense_decode_repeats_bit_for_bit_in_one_launch_a_call(dev):
+    """The bf16 dense kernel merges a slot split across CTAs in the kernel,
+    through counters it sets back to 0: repeated calls give the same bits,
+    and each call is one launch of one kernel (wrapper count and profile),
+    no merge pass."""
+    from torch.profiler import ProfilerActivity, profile
+    args, st = _dense_case(dev, [2048, 700, 1, 0, 333], 2048, 16, 8, 128,
+                           starts=[0, 5, 0, 0, 100])
+    first = ops.ragged_decode_attention(*args, kv_start=st)
+    before = ops.launch_counts()["ragged_decode_attention"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = [ops.ragged_decode_attention(*args, kv_start=st)
+                 for _ in range(3)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, first) for a in again)
+    assert ops.launch_counts()["ragged_decode_attention"] == before + 3
+    kernels = {r.key: r.count for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA}
+    if kernels:                    # a profile may come back without them
+        assert list(kernels.values()) == [3]
+        assert "dense_decode_hopper_kernel" in next(iter(kernels))
+
+
+def test_dense_decode_calls_of_other_shapes_share_the_workspace(dev):
+    """Calls of other B, S, heads and kv_start in turn on one stream (the
+    decode kernels' one workspace a stream, grown when a call needs more,
+    shared with the paged kernel), each against the plain version."""
+    from repro_torch.kernels import paged_decode_attention as pdm
+    from repro_torch.kernels import ref
+    for i, (lens, S, H, Kh, D, starts) in enumerate((
+            ([1500, 20, 900], 1500, 16, 8, 128, None),
+            ([17] * 40, 64, 16, 8, 128, None),
+            ([600, 1], 700, 64, 4, 128, [10, 0]),
+            ([4000], 4096, 8, 4, 256, None),
+            ([1000, 300, 5, 640], 1024, 96, 8, 192, [0, 299, 0, 600]))):
+        args, st = _dense_case(dev, lens, S, H, Kh, D, seed=10 * i,
+                               starts=starts)
+        got = ops.ragged_decode_attention(*args, kv_start=st)
+        want = ref.ragged_decode_attention_ref(*args, kv_start=st)
+        assert _decode_excess(got, want) <= 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert [k for k in pdm._workspaces if k[1] == stream] == [
+        (dev.index or 0, stream)]
+
+
+def test_dense_decode_after_a_cache_is_reallocated(dev):
+    """The wrapper keeps only a workspace per stream, nothing of a cache:
+    a cache freed and made again (at another address, or the same one with
+    other contents) is read as it is now."""
+    from repro_torch.kernels import ref
+    (q, kc, vc, kv), _ = _dense_case(dev, [900, 40], 1024, 16, 8, 128, seed=1)
+    ops.ragged_decode_attention(q, kc, vc, kv)
+    del kc, vc
+    torch.cuda.synchronize()
+    kc2, vc2 = (_bf16(dev, 2, 1024, 8, 128, seed=s) for s in (7, 8))
+    got = ops.ragged_decode_attention(q, kc2, vc2, kv)
+    assert _decode_excess(
+        got, ref.ragged_decode_attention_ref(q, kc2, vc2, kv)) <= 0
+    kc2.copy_(_bf16(dev, 2, 1024, 8, 128, seed=9))
+    got = ops.ragged_decode_attention(q, kc2, vc2, kv)
+    assert _decode_excess(
+        got, ref.ragged_decode_attention_ref(q, kc2, vc2, kv)) <= 0
