@@ -12,6 +12,9 @@
                                             # (dense, MoE, VLM, audio,
                                             # hybrid, ssm) + rl_moe +
                                             # rl_vlm + rl_hybrid
+    python3 chip_smoke.py --phase moe_ep    # kernel checks + moe_layer +
+                                            # moe_ep (the expert-parallel
+                                            # MoE on an NCCL world of one)
     python3 chip_smoke.py --phase launch    # kernel checks + the launch
                                             # path (train, prefill, serve
                                             # steps at full width)
@@ -115,6 +118,16 @@ Phases, each printing one JSON line:
 7. ``moe_layer``: the MoE layer (the reference's capacity-drop
    ``moe_mlp_dense``) at Granite-MoE's width and published capacity
    factor on the card against the CPU, f32: routing and drops equal.
+   ``moe_ep``: an NCCL world of one (a ``FileStore`` in a temporary
+   directory, no network) and the (1, 1) ``("data", "model")``
+   ``DeviceMesh`` on the card; the reference's expert-parallel layer
+   (``moe_mlp_ep``: ``all_to_all_single`` over the model axis) at that
+   width against ``moe_mlp_dense`` (idx and keep equal, y within 1e-4 of
+   the largest |y|, aux within 1e-6, each call timed), then Granite's
+   bf16 ``build_prefill_step`` (the flash kernel at every layer) and 2
+   ``build_train_step`` steps at ``LAUNCH_DEPTH`` layers on that mesh
+   against the same steps on ``make_local_mesh()`` (``MOE_EP_TOL``); the
+   group destroyed at the end.
    ``families``: Gemma2-2B at full width and depth (26 local/global
    layers, rings of 4096, the dense layout, 16 requests of 512-6144 ids
    in one 8192-wide wave), Qwen1.5-110B at full width cut to 4 layers and
@@ -2761,11 +2774,16 @@ def profile_call(torch, fn):
             if r.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(r.self_device_time_total for r in rows) / 1e3
     top = sorted(rows, key=lambda r: -r.self_device_time_total)[:8]
+    host = sorted((r for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda r: -r.self_cpu_time_total)[:8]
     return {"wall_ms": wall, "device_ms": dev_ms,
             "device_busy_share": dev_ms / wall if dev_ms else "not measured",
             "kernel_launches": sum(r.count for r in rows),
             "top_kernels_ms": {r.key[:60]: r.self_device_time_total / 1e3
-                               for r in top}}
+                               for r in top},
+            "top_host_ops_ms": {r.key[:60]: r.self_cpu_time_total / 1e3
+                                for r in host}}
 
 
 def profile_steps(engine, n, outputs):
@@ -5339,6 +5357,247 @@ def moe_layer_check(torch, dev):
           "cases": rows})
 
 
+# moe_ep: the expert-parallel layer against the dense one on the NCCL
+# (1, 1) mesh, where the two are the same arithmetic.  The layer: y within
+# 1e-4 of the largest |y| and the aux within 1e-6 (moe_layer's rule, f32,
+# TF32 off); the steps: loss and grad norm within LAUNCH_STEP_TOL, every
+# parameter and cache leaf within one bf16 rounding of its largest value
+# (2^-7 relative), prefill tokens equal.
+MOE_EP_TOL = {"y_rel": 1e-4, "aux_abs": 1e-6, "bf16_rel": 2.0 ** -7}
+MOE_EP_TRAIN = ("train_4k", 2048, 4)     # shape, S, B (train_4k's S halved)
+MOE_EP_PREFILL = ("prefill_32k", 4096, 2)
+
+
+class DispatchRecord:
+    """While installed, keeps (idx, keep) of every ``_dispatch_indices``
+    call of ``repro_torch.models.moe``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.MOE, real = MOE, MOE._dispatch_indices
+        self.real, self.calls = real, []
+
+        def recorded(idx, E, C):
+            pos, keep = real(idx, E, C)
+            self.calls.append((idx.cpu(), keep.cpu()))
+            return pos, keep
+        MOE._dispatch_indices = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE._dispatch_indices = self.real
+
+
+def leaf_gap(torch, want, got):
+    """max |got - want| over a leaf, and that over max |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err, err / scale if scale else err
+
+
+def moe_ep_layer(torch, dev, mesh):
+    """``moe_mlp_ep`` on ``mesh`` against ``moe_mlp_dense`` at
+    Granite-MoE-3B-A800M's width (d 1536, 40 experts top-8, cf 1.25), f32,
+    one random layer from a seed, at moe_layer's T = 32 and 4 x 256: idx
+    and keep equal, y and aux within ``MOE_EP_TOL``; each call timed
+    (CUDA events) and profiled once (``profile_call``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import collectives as COL
+    from repro_torch.models import moe as MOE
+    cfg = get_config("granite_moe_3b_a800m").replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+    p = MOE.init_moe_mlp(torch.Generator(device=dev).manual_seed(5), cfg,
+                         torch.float32, dev)
+    tree = MOE.shard_experts({"layers": {"mlp": {
+        k: v[None] for k, v in p.items()}}}, cfg, mesh)["layers"]["mlp"]
+    p_ep = {k: v[0] for k, v in tree.items()}
+    rows = []
+    for B, S in ((32, 1), (4, 256)):
+        x = torch.randn((B, S, cfg.d_model),
+                        generator=torch.Generator().manual_seed(B * S)).to(dev)
+        a2a = COL.CALLS["all_to_all_single"]
+        with torch.no_grad(), DispatchRecord() as rec:
+            y_ep, aux_ep = MOE.moe_mlp_ep(p_ep, cfg, x, mesh)
+            y, aux = MOE.moe_mlp_dense(p, cfg, x)
+        exchanges = COL.CALLS["all_to_all_single"] - a2a
+        (idx_ep, keep_ep), (idx, keep) = rec.calls
+        err, rel = leaf_gap(torch, y, y_ep)
+        aux_err = max(abs(float(aux_ep[k]) - float(aux[k])) for k in aux)
+        with torch.no_grad():
+            ep_ms = cuda_ms(torch, lambda: MOE.moe_mlp_ep(p_ep, cfg, x, mesh))
+            dense_ms = cuda_ms(torch, lambda: MOE.moe_mlp_dense(p, cfg, x))
+            profiles = {
+                "ep": profile_call(torch, lambda: MOE.moe_mlp_ep(
+                    p_ep, cfg, x, mesh)),
+                "dense": profile_call(torch, lambda: MOE.moe_mlp_dense(
+                    p, cfg, x))}
+        row = {"T": B * S, "B": B, "S": S,
+               "capacity": MOE._capacity(cfg, B * S),
+               "dropped": int((~keep).sum()), "pairs": int(keep.numel()),
+               "idx_equal": bool(torch.equal(idx_ep, idx)),
+               "keep_equal": bool(torch.equal(keep_ep, keep)),
+               "max_abs_err": err, "rel_err": rel, "aux_abs_err": aux_err,
+               "aux_ep": {k: float(v) for k, v in aux_ep.items()},
+               "all_to_all_single": exchanges,
+               "ep_ms": ep_ms, "dense_ms": dense_ms, "profile": profiles}
+        check(row["idx_equal"] and row["keep_equal"],
+              f"moe_ep layer T={B * S}: routing or drops differ {row}")
+        check(rel <= MOE_EP_TOL["y_rel"] and aux_err <= MOE_EP_TOL["aux_abs"],
+              f"moe_ep layer T={B * S}: {row}")
+        check(exchanges == 2, f"moe_ep layer T={B * S}: {exchanges} "
+              "all_to_all_single calls, not 2")
+        rows.append(row)
+    return rows
+
+
+def moe_ep_steps(torch, dev, mesh, launches):
+    """Granite-MoE-3B-A800M in bf16 at ``LAUNCH_DEPTH`` layers: its
+    ``build_prefill_step`` (``MOE_EP_PREFILL``, the flash kernel at every
+    layer, counted) and ``LAUNCH_STEPS`` steps of ``build_train_step``
+    (``MOE_EP_TRAIN``, its train_4k plan: remat, 4 microbatches) on
+    ``mesh``, where the MoE layers are ``moe_mlp_ep``, and again on
+    ``make_local_mesh()`` (``moe_mlp_dense``), from the same weights and
+    batch; held by ``MOE_EP_TOL``."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distributed import collectives as COL
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.plans import get_plan
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             tree_leaves)
+    arch = "granite_moe_3b_a800m"
+    cfg = get_config(arch).replace(num_layers=LAUNCH_DEPTH["granite_moe"])
+    out = {"model": cfg.name, "layers": cfg.num_layers}
+
+    shape_name, S, B = MOE_EP_PREFILL
+    plan = get_plan(arch, shape_name)
+    runs = {}
+    for label, m in (("mesh", mesh), ("local", make_local_mesh())):
+        built = steps.build_prefill_step(
+            cfg, ShapeConfig(shape_name, S, B, "prefill"), plan, m, False,
+            device=dev)
+        params = built.model.init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(3)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                         generator=g, device=dev,
+                                         dtype=torch.int32),
+                 "prompt_lens": torch.full((B,), S, dtype=torch.int32,
+                                           device=dev)}
+        cache = built.model.init_cache(B, built.in_specs[2]["k"].shape[2])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        a2a = COL.CALLS["all_to_all_single"]
+        (tok, cache), t = timed_call(torch, built.fn, params, batch, cache)
+        counts = ops.launch_counts()
+        runs[label] = {"token": tok.cpu(), "cache": cache, "ms": t,
+                       "exchanges": COL.CALLS["all_to_all_single"] - a2a}
+        launches[f"moe_ep_prefill_{label}"] = counts
+        check_launches(f"moe_ep prefill on {label}", counts,
+                       {"flash_attention": cfg.num_layers})
+        del params, built
+    gaps = {k: leaf_gap(torch, runs["local"]["cache"][k],
+                        runs["mesh"]["cache"][k])[1]
+            for k in runs["local"]["cache"]}
+    prefill = {"seq": S, "batch": B, "step_ms": {k: r["ms"] for k, r in
+                                                 runs.items()},
+               "token_mesh": runs["mesh"]["token"].tolist(),
+               "token_local": runs["local"]["token"].tolist(),
+               "cache_rel_gap": gaps,
+               "cache_bit_equal": all(torch.equal(
+                   runs["mesh"]["cache"][k], runs["local"]["cache"][k])
+                   for k in gaps),
+               "all_to_all_single": {k: r["exchanges"]
+                                     for k, r in runs.items()}}
+    check(torch.equal(runs["mesh"]["token"], runs["local"]["token"]),
+          f"moe_ep prefill: tokens differ {prefill}")
+    check(max(gaps.values()) <= MOE_EP_TOL["bf16_rel"]
+          and prefill["all_to_all_single"] == {"mesh": 2 * cfg.num_layers,
+                                                "local": 0},
+          f"moe_ep prefill: {prefill}")
+    out["prefill"] = prefill
+    del runs
+    release(torch)
+
+    shape_name, S, B = MOE_EP_TRAIN
+    plan = get_plan(arch, shape_name)
+    runs = {}
+    for label, m in (("mesh", mesh), ("local", make_local_mesh())):
+        built = steps.build_train_step(
+            cfg, ShapeConfig(shape_name, S, B, "train"), plan, m, False,
+            device=dev)
+        params = built.model.init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        opt = init_opt_state(params, AdamWConfig(state_dtype=plan.opt_dtype))
+        batch = train.make_batch(cfg, B, S, dev,
+                                 torch.Generator().manual_seed(1))
+        ops.reset_launch_counts()
+        ms, losses, gnorms = [], [], []
+        for _ in range(LAUNCH_STEPS):
+            (params, opt, metrics), t = timed_call(torch, built.fn, params,
+                                                   opt, batch)
+            ms.append(t)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+        counts = ops.launch_counts()
+        check(not any(counts.values()), f"moe_ep train on {label}: {counts}")
+        runs[label] = {"params": tree_leaves(params), "update_ms": ms,
+                       "loss": losses, "grad_norm": gnorms}
+        del opt, built, batch
+    rel = max(leaf_gap(torch, a, b)[1] for a, b in zip(
+        runs["local"]["params"], runs["mesh"]["params"]))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        runs["local"]["params"], runs["mesh"]["params"]))
+    steps_ok = all(math.isclose(a, b, rel_tol=LAUNCH_STEP_TOL["rtol"],
+                                abs_tol=LAUNCH_STEP_TOL["atol"])
+                   for k in ("loss", "grad_norm")
+                   for a, b in zip(runs["local"][k], runs["mesh"][k]))
+    train_row = {"seq": S, "batch": B, "plan": {
+        "remat": plan.remat, "microbatches": plan.microbatches},
+        "params_rel_gap": rel, "params_bit_equal": bit_equal,
+        **{f"{k}_{label}": r[k] for label, r in runs.items()
+           for k in ("loss", "grad_norm", "update_ms")}}
+    check(steps_ok and rel <= MOE_EP_TOL["bf16_rel"]
+          and all(math.isfinite(x) for x in runs["mesh"]["loss"]),
+          f"moe_ep train: {train_row}")
+    out["train"] = train_row
+    del runs
+    release(torch)
+    return out
+
+
+def phase_moe_ep(torch, dev, launches):
+    """The expert-parallel MoE on the card: an NCCL world of one through a
+    ``FileStore`` in a temporary directory (no network), the (1, 1)
+    ``("data", "model")`` mesh on ``cuda``, then ``moe_ep_layer`` and
+    ``moe_ep_steps``; the group destroyed at the end."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_compat_mesh
+    tmp = tempfile.mkdtemp(prefix="moe_ep_")
+    store = dist.FileStore(str(Path(tmp) / "store"), 1)
+    cuda = dev.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120),
+                            device_id=dev if cuda else None)
+    try:
+        mesh = make_compat_mesh((1, 1), ("data", "model"), dev.type)
+        layer = moe_ep_layer(torch, dev, mesh)
+        steps = moe_ep_steps(torch, dev, mesh, launches)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "moe_ep", "card": card_name_and_power(),
+          "backend": dist.Backend.NCCL if cuda else dist.Backend.GLOO,
+          "mesh": [1, 1], "tol": MOE_EP_TOL,
+          "step_tol": LAUNCH_STEP_TOL, "layer": layer, **steps})
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the launch path (repro_torch/launch) at full width
 # ---------------------------------------------------------------------------
@@ -5526,9 +5785,9 @@ def launch_micro_hold(torch, dev, arch, plan):
             del gsum
         seen = {}
 
-        def capture(p, grads, state, ocfg, seen=seen):
+        def capture(p, grads, state, ocfg, seen=seen, **kw):
             seen["grads"] = [g.detach().clone() for g in grads]
-            return real(p, grads, state, ocfg)
+            return real(p, grads, state, ocfg, **kw)
         steps.adamw_update = capture
         try:
             _, _, metrics = built.fn(params, opt, batch)
@@ -5865,7 +6124,8 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl",
-                                        "group", "families", "launch"),
+                                        "group", "families", "moe_ep",
+                                        "launch"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -5920,8 +6180,10 @@ def main() -> int:
         release(torch)
         run("rl_session", phase_rl_session, torch, launches,
             args.phase == "group")
-    if args.phase in ("all", "families"):
+    if args.phase in ("all", "families", "moe_ep"):
         run("moe_layer", moe_layer_check, torch, dev)
+        run("moe_ep", phase_moe_ep, torch, dev, launches)
+    if args.phase in ("all", "families"):
         run("families", phase_families, torch, dev, launches)
         run("rl_moe", phase_rl_moe, torch, dev, launches)
         run("rl_vlm", phase_rl_vlm, torch, dev, launches)

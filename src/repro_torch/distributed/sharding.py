@@ -8,8 +8,9 @@ equal slice on each.  The port runs on one card, so placement means
 nothing: ``axis_rules`` records the mesh and rules for the enclosed
 region, ``logical_constraint`` returns its input, and
 ``shard_update_batch`` only pads (inside a context) to the count that
-``data_shard_count`` reads from ``mesh.shape``.  Outside any context
-every function is the identity, as in the reference.
+``data_shard_count`` reads from the mesh's axis sizes (a ``LocalMesh``'s
+``shape`` dict or a ``DeviceMesh``'s names and shape).  Outside any
+context every function is the identity, as in the reference.
 
 Left out, because they mean nothing on one device: ``logical_to_spec``,
 ``train_rules``, ``decode_rules`` and every ``NamedSharding`` placement.
@@ -23,6 +24,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import axis_sizes
+
 _state = threading.local()
 
 
@@ -33,7 +36,7 @@ def _current() -> Optional[Tuple[object, Dict[str, object]]]:
 @contextlib.contextmanager
 def axis_rules(mesh, rules: Dict[str, object]):
     """Install (mesh, logical -> mesh-axis rules) for the enclosed region.
-    ``mesh`` needs only ``.shape``, a mapping of mesh axis name to size;
+    ``mesh`` is a ``LocalMesh`` or a ``DeviceMesh`` (``launch/mesh.py``);
     ``rules`` maps a logical axis name to a mesh axis name, a tuple of
     them, or None (replicated)."""
     prev = _current()
@@ -58,12 +61,13 @@ def data_shard_count() -> int:
     if ctx is None:
         return 1
     mesh, rules = ctx
+    sizes = axis_sizes(mesh)
     spec = rules.get("batch")
     axes = spec if isinstance(spec, (tuple, list)) else (spec,)
     size = 1
     for a in axes:
         if a is not None:
-            size *= mesh.shape[a]
+            size *= sizes[a]
     return size
 
 

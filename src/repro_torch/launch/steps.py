@@ -3,12 +3,22 @@ card (counterpart of ``repro/launch/steps.py``).
 
 ``build_step`` returns a :class:`Built`: the step function and its
 inputs as meta-device stand-ins (``in_specs``, the reference's
-``ShapeDtypeStruct`` pytrees), the activation rules it installs and the
-model.  The reference also returns shardings over its mesh; one card has
-none, so the plan acts only through ``remat``, ``microbatches`` and
-``opt_dtype``.  The MoE family takes ``moe_mlp_dense``, the port's one
-MoE layer: on a 1x1 mesh the reference's expert-parallel layer is the
-same arithmetic.
+``ShapeDtypeStruct`` pytrees, of the unsharded tree), the activation
+rules it installs and the model.  The reference also returns shardings
+over its mesh; the port places nothing but the MoE family's experts, so
+the plan acts only through ``remat``, ``microbatches`` and
+``opt_dtype``.
+
+The MoE family's train and prefill steps take the reference's
+expert-parallel layer (``moe_mlp_ep``) when ``mesh`` is a ``DeviceMesh``,
+as the reference does: every rank runs the whole step on the whole
+batch, replicated, except inside the MoE layers, where each rank routes
+its block of the tokens and runs its ``E_local`` experts.  Their
+parameters (and moments) on a rank are then its slice
+(``moe.shard_experts``), the grad norm the unsharded tree's
+(``moe.ep_global_norm``).  The serve step stays on ``moe_mlp_dense``, as
+the reference's does, and so does every step on a ``LocalMesh``: on one
+device the expert-parallel layer is the same arithmetic.
 
 The steps run on the device of the tensors they are given; the model is
 built on the card unless the caller passes ``device="cpu"`` (or
@@ -23,8 +33,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import axis_rules
+from repro_torch.launch.mesh import is_device_mesh
 from repro_torch.launch.plans import Plan, activation_rules
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as MOE
 from repro_torch.rl.losses import LossConfig, total_loss
 from repro_torch.rl.trainer import value_and_grad
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_update,
@@ -47,6 +59,20 @@ def _round_len(n: int, align: int = 512) -> int:
     return -(-n // align) * align
 
 
+def _batch_axes(multi_pod: bool, plan: Plan) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over (the reference's)."""
+    axes = ("pod", "data") if multi_pod else ("data",)
+    if plan.strategy == "dp":
+        axes = axes + ("model",)
+    return axes
+
+
+def _ep_mesh(cfg: ModelConfig, mesh):
+    """The mesh of the expert-parallel layer: ``mesh`` for the MoE family
+    on a ``DeviceMesh``, else None (``moe_mlp_dense``)."""
+    return mesh if cfg.family == "moe" and is_device_mesh(mesh) else None
+
+
 def _meta_params(cfg: ModelConfig):
     """The parameter tree as meta tensors (the real init's shapes and
     dtypes, no storage)."""
@@ -63,7 +89,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     Parameters and moments are updated in place."""
     cfg = cfg.replace(remat=plan.remat)
     rules = activation_rules(plan, multi_pod, "train")
-    model = model_lib.build_model(cfg, device=device)
+    ep_mesh = _ep_mesh(cfg, mesh)
+    model = model_lib.build_model(cfg, device=device, ep_mesh=ep_mesh,
+                                  data_axes=_batch_axes(multi_pod, plan))
     loss_cfg = LossConfig()
     opt_cfg = AdamWConfig(state_dtype=plan.opt_dtype)
     nmicro = plan.microbatches
@@ -96,8 +124,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
                 grads = [g.div_(nmicro) for g in grads]
                 loss = loss / nmicro
                 metrics = {}
+            gnorm = (None if ep_mesh is None
+                     else MOE.ep_global_norm(params, grads, ep_mesh))
             params, opt_state, om = adamw_update(params, grads, opt_state,
-                                                 opt_cfg)
+                                                 opt_cfg, gnorm=gnorm)
             metrics.update(om)
             metrics["loss"] = loss
             return params, opt_state, metrics
@@ -124,7 +154,9 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     the prompt fills the width (or the family pads on the left)."""
     cfg = cfg.replace(remat=False)
     rules = activation_rules(plan, multi_pod, "prefill")
-    model = model_lib.build_model(cfg, device=device)
+    model = model_lib.build_model(cfg, device=device,
+                                  ep_mesh=_ep_mesh(cfg, mesh),
+                                  data_axes=_batch_axes(multi_pod, plan))
     max_len = _round_len(shape.seq_len + model.prefill_extra + 8)
 
     @torch.no_grad()
@@ -149,6 +181,7 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     int32, its f32 log-softmax (B,), cache)."""
     cfg = cfg.replace(remat=False)
     rules = activation_rules(plan, multi_pod, "decode")
+    # decode uses the dense-dispatch MoE layer, as the reference's does
     model = model_lib.build_model(cfg, device=device)
     max_len = _round_len(shape.seq_len + model.prefill_extra + 8)
 

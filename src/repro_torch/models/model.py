@@ -29,10 +29,15 @@ hybrid family (Zamba2: Mamba2 layers and a shared attention block,
 carry recurrent state, so they pad prompts on the left
 (``padding_side == "left"``) and take the dense layout only; the
 hybrid's ``decode_step`` takes ``kv_start``, a slot's first live cache
-row (its attention reads rows ``[kv_start, kv_len]``).  The
-reference's ``ep_mesh`` (expert parallelism over a device mesh) has no
-counterpart yet.  The model lives on one device, the card unless the
-caller passes ``device="cpu"``.
+row (its attention reads rows ``[kv_start, kv_len]``).  The model lives
+on one device, the card unless the caller passes ``device="cpu"``.
+
+``ep_mesh`` (a ``DeviceMesh``, the MoE family only) is the reference's
+expert parallelism: every block's MLP is ``moe_mlp_ep`` over it (with
+``data_axes`` the batch's mesh axes), ``init_params`` returns this
+rank's tree, its experts cut by ``moe.shard_experts`` (a tree from
+elsewhere, ``convert.from_jax_params``'s, is cut the same way, once),
+and there is no paged decode (the reference has none for it).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as HY
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
 from repro_torch.models import whisper as WH
 from repro_torch.models import xlstm as XL
@@ -67,9 +73,12 @@ class Model:
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, device=None, ep_mesh=None,
+                data_axes=("data",)) -> Model:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}")
+    if cfg.family != "moe":
+        ep_mesh = None
     if cfg.family not in ("ssm", "audio"):
         TF.check_supported(cfg)
     dev = resolve_device(device)
@@ -86,12 +95,18 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         tok = TF.embed_tokens(params, cfg, batch["tokens"])
         return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
 
+    mlp, mlp_no_aux = (TF.mlp_fn(cfg, aux, ep_mesh, data_axes)
+                       for aux in (True, False))
+
     def init_params(generator: torch.Generator):
-        return TF.init_params(cfg, generator, dev)
+        params = TF.init_params(cfg, generator, dev)
+        if ep_mesh is not None:
+            params = MOE.shard_experts(params, cfg, ep_mesh)
+        return params
 
     def forward(params, batch):
         return TF.forward(params, cfg, batch["tokens"],
-                          embeds=embeds(params, batch))
+                          embeds=embeds(params, batch), mlp=mlp)
 
     def init_cache(batch_size, max_len):
         return TF.init_cache(cfg, batch_size, max_len, dev)
@@ -99,26 +114,27 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     def prefill(params, batch, cache, return_logits=True):
         return TF.prefill(params, cfg, batch["tokens"], cache,
                           batch["prompt_lens"], return_logits=return_logits,
-                          embeds=embeds(params, batch))
+                          embeds=embeds(params, batch), mlp=mlp_no_aux)
 
     def prefill_packed(params, batch, cache, return_logits=True):
         return TF.prefill(params, cfg, batch["tokens"], cache,
                           batch["prompt_lens"], seg_ids=batch["seg_ids"],
                           positions=batch["positions"],
-                          return_logits=return_logits)
+                          return_logits=return_logits, mlp=mlp_no_aux)
 
     def decode_step_paged(params, token, pool, block_tables, kv_len, **kw):
         return TF.decode_step_paged(params, cfg, token, pool, block_tables,
                                     kv_len, **kw)
 
     def decode_step(params, token, cache, kv_len, **kw):
-        return TF.decode(params, cfg, token, cache, kv_len, **kw)
+        return TF.decode(params, cfg, token, cache, kv_len, mlp=mlp_no_aux,
+                         **kw)
 
     # vlm prepends stub patch rows to each prompt, which the packed
     # layout's contiguous segments cannot hold (the reference's reason)
     return Model(cfg, dev, init_params, forward, init_cache, prefill,
-                 decode_step_paged, None if vlm else prefill_packed,
-                 decode_step,
+                 None if ep_mesh is not None else decode_step_paged,
+                 None if vlm else prefill_packed, decode_step,
                  prefill_extra=cfg.num_stub_positions if vlm else 0)
 
 

@@ -10,8 +10,19 @@ every slot (idle ones included) and its prefill on the whole bucketed wave
 (pad columns included), as the reference's do.  ``moe_mlp_ref`` is the
 reference's no-drop oracle, for the tests.
 
-The reference's expert-parallel ``moe_mlp_ep`` (``shard_map`` and
-``all_to_all`` over a device mesh) waits for a distributed port.
+``moe_mlp_ep`` is the reference's expert-parallel layer over a
+``DeviceMesh`` (``launch/mesh.py``), line for line: each (data, model)
+rank routes its own block of the tokens (B over the data axes, S over
+``model``) under its own capacity ``C = _capacity(cfg, T_l)``, the
+expert axis padded with never-routed zero experts to ``E_pad``, a
+multiple of the model axis; the (n_model, E_local, C, d) buffers cross
+the model axis with ``all_to_all_single`` to the rank owning the
+experts, which holds only its ``E_local`` of them (``shard_experts``,
+once per parameter tree).  On a mesh of more than one rank this is other
+arithmetic than ``moe_mlp_dense``'s (other capacities, other drops).
+Its router losses are the mean over every rank of the mesh, which is
+what the reference's backward differentiates; the reference's forward
+returns data shard 0's value instead (``ROADMAP.md`` section 3).
 
 The three expert products are batched matrix products (``torch.bmm``);
 the router is f32 whatever the parameter dtype, as in the reference.
@@ -22,9 +33,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as COL
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
@@ -149,6 +163,166 @@ def moe_mlp_dense(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y2d = y2d + torch.where(keep[:, j, None],
                                 gathered.float() * gates[:, j, None], 0.0)
     y = y2d.reshape(B, S, d).to(x.dtype)
+    if "shared" in p:
+        y = y + L.mlp(p["shared"], x, "silu", True)
+    return y, aux
+
+
+EXPERT_KEYS = ("w_in", "w_gate", "w_out")
+
+
+def expert_padding(E: int, n_model: int) -> Tuple[int, int]:
+    """(E_pad, E_local): the expert axis padded up to a multiple of the
+    model axis (Granite's 40 experts on a 16-way axis: 48, 3 a rank)."""
+    E_pad = -(-E // n_model) * n_model
+    return E_pad, E_pad // n_model
+
+
+def shard_experts(params: Params, cfg: ModelConfig, mesh,
+                  model_axis: str = "model") -> Params:
+    """The parameter tree with every expert weight (``layers.mlp.w_in``,
+    ``w_gate``, ``w_out``: (L, E, ...)) padded with zero experts to
+    ``E_pad`` and cut to this rank's ``E_local`` along the model axis of
+    ``mesh``, as the reference pads and then shards them.  The rest of
+    the tree is shared, not copied.  For ``moe_mlp_ep``; once per tree."""
+    n = MESH.axis_size(mesh, model_axis)
+    _, E_local = expert_padding(cfg.moe.num_experts, n)
+    c = mesh.get_local_rank(model_axis) if n > 1 else 0
+
+    def cut(w):
+        own = w[:, c * E_local:(c + 1) * E_local]
+        pad = torch.zeros((w.shape[0], E_local - own.shape[1]) + w.shape[2:],
+                          dtype=w.dtype, device=w.device)
+        return torch.cat([own, pad], 1)
+    mlp = dict(params["layers"]["mlp"])
+    mlp.update({k: cut(mlp[k]) for k in EXPERT_KEYS})
+    return dict(params, layers=dict(params["layers"], mlp=mlp))
+
+
+def expert_leaf_mask(params: Params):
+    """Per leaf of ``params`` in ``tree_leaves`` order (sorted keys): is
+    it an expert weight (``layers.mlp.w_in``, ``w_gate``, ``w_out``)."""
+    def mark(tree, path):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in mark(tree[k],
+                                                          path + (k,))]
+        return [path[:2] == ("layers", "mlp") and len(path) == 3
+                and path[2] in EXPERT_KEYS]
+    return mark(params, ())
+
+
+def ep_global_norm(params: Params, grads, mesh,
+                   model_axis: str = "model") -> torch.Tensor:
+    """The global gradient norm of the unsharded tree, on every rank:
+    each leaf's sum of squares, the expert leaves' summed over the model
+    axis (each rank holds ``E_local`` of the experts; the zero experts'
+    gradients are zero), in ``tree_leaves`` order as ``global_norm``."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    mask = expert_leaf_mask(params)
+    idx = [i for i, e in enumerate(mask) if e]
+    if idx:
+        summed = COL.sum_over(torch.stack([sq[i] for i in idx]),
+                              [MESH.axis_group(mesh, model_axis)])
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
+
+
+def moe_mlp_ep(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh,
+               data_axes=("data",), model_axis: str = "model",
+               with_aux: bool = True
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Expert-parallel MoE over ``mesh`` (a ``DeviceMesh``), the
+    reference's ``moe_mlp_ep``.  x (B, S, d), the same on every rank ->
+    (y (B, S, d), the same on every rank, aux).
+
+    ``p``'s expert weights are this rank's (E_local, ...) slices
+    (``shard_experts``); the router is the full (d, E) f32.  The rank
+    takes its block of x (B over ``data_axes``, S over ``model_axis``),
+    routes it (padded experts' logits -1e30, ``density`` over the real E),
+    fills (E_pad, C, d) with ``C = _capacity(cfg, B_l * S_l)``, sends it
+    as (n_model, E_local, C, d) with ``all_to_all_single`` over the model
+    axis, runs its own experts on every source's tokens, sends the
+    results back, combines in f32 and gathers the blocks into y.  The
+    ``shared`` MLP is added outside the exchange, on the full x.
+
+    Gradients are ``jax.grad`` of the reference's on every rank
+    (``distributed/collectives.py``): x's gathered back to full, the
+    router's summed over the mesh, the experts' over the data axes.  The
+    aux is the mean over every rank of the mesh (each block's losses, as
+    ``_route``'s).  Raises without a process group, on a mesh that is not
+    a ``DeviceMesh``, on expert weights not cut to ``E_local``, and where
+    the mesh does not divide B or S, as ``shard_map`` does."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("moe_mlp_ep: no process group is initialised")
+    if not MESH.is_device_mesh(mesh):
+        raise TypeError(f"moe_mlp_ep: needs a DeviceMesh, got {mesh!r}")
+    data_axes = tuple(data_axes)
+    if model_axis in data_axes:
+        raise ValueError(f"moe_mlp_ep: the batch axes {data_axes} and the "
+                         f"sequence axis {model_axis!r} overlap")
+    m = cfg.moe
+    E, K = m.num_experts, m.experts_per_token
+    n_model = MESH.axis_size(mesh, model_axis)
+    E_pad, E_local = expert_padding(E, n_model)
+    for k in EXPERT_KEYS:
+        if p[k].shape[0] != E_local:
+            raise ValueError(
+                f"moe_mlp_ep: {k} holds {p[k].shape[0]} experts, this "
+                f"rank owns {E_local} of {E_pad}; cut the tree with "
+                "shard_experts")
+    B, S, d = x.shape
+    n_data = math.prod(MESH.axis_size(mesh, a) for a in data_axes)
+    if B % n_data or S % n_model:
+        raise ValueError(f"moe_mlp_ep: x {tuple(x.shape)} does not divide "
+                         f"over the mesh ({n_data} batch, {n_model} "
+                         "sequence blocks)")
+    data_groups = [MESH.axis_group(mesh, a) for a in data_axes]
+    model_group = MESH.axis_group(mesh, model_axis)
+    split = [(g, 0) for g in data_groups] + [(model_group, 1)]
+    router = COL.sum_grad(p["router"], data_groups + [model_group])
+    w = {k: COL.sum_grad(p[k], data_groups) for k in EXPERT_KEYS}
+
+    xb = COL.to_block(x, split)
+    B_l, S_l = xb.shape[:2]
+    T_l = B_l * S_l
+    x2d = xb.reshape(T_l, d)
+    logits = x2d.float() @ router.float()
+    if E_pad > E:
+        logits = F.pad(logits, (0, E_pad - E), value=-1e30)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = top_k_lowest_first(probs, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    aux = None
+    if with_aux:
+        density = F.one_hot(idx[:, 0], E_pad)[:, :E].float().mean(0)
+        block = torch.stack([
+            E * torch.sum(density * probs[:, :E].mean(0)),
+            torch.mean(torch.square(torch.logsumexp(logits, -1)))])
+        every = COL.from_blocks(
+            block[None], [(g, 0) for g in data_groups + [model_group]]
+        ).mean(0)
+        aux = {"load_balance": every[0], "router_z": every[1]}
+    C = _capacity(cfg, T_l)
+    pos, keep = _dispatch_indices(idx, E_pad, C)
+    safe = torch.where(keep, pos, C - 1)
+    buf = torch.zeros((E_pad, C, d), dtype=xb.dtype, device=xb.device)
+    for j in range(K):
+        buf.index_put_((idx[:, j], safe[:, j]),
+                       torch.where(keep[:, j, None], x2d, 0).to(xb.dtype),
+                       accumulate=True)
+    recv = COL.all_to_all(buf.reshape(n_model, E_local, C, d), model_group)
+    xe = recv.transpose(0, 1).reshape(E_local, n_model * C, d)
+    out_e = _expert_ffn(w, xe, cfg.mlp_act)
+    back = COL.all_to_all(
+        out_e.reshape(E_local, n_model, C, d).transpose(0, 1), model_group)
+    back = back.reshape(E_pad, C, d)
+    y2d = torch.zeros((T_l, d), dtype=torch.float32, device=x.device)
+    for j in range(K):
+        gathered = back[idx[:, j], safe[:, j]]
+        y2d = y2d + torch.where(keep[:, j, None],
+                                gathered.float() * gates[:, j, None], 0.0)
+    y = COL.from_blocks(y2d.reshape(B_l, S_l, d).to(x.dtype), split)
     if "shared" in p:
         y = y + L.mlp(p["shared"], x, "silu", True)
     return y, aux

@@ -9,7 +9,8 @@ is local (sliding window, ring cache), sub-layer 1 global.  The layer
 loop is a Python loop over the layers (the reference scans the groups).
 
 The MoE family is this backbone with ``mlp`` replaced by the expert
-layer (``repro_torch/models/moe.py``, the reference's ``moe_mlp_dense``):
+layer (``repro_torch/models/moe.py``: the reference's ``moe_mlp_dense``,
+or ``moe_mlp_ep`` over a mesh when the caller passes its ``mlp_fn``):
 each block's MLP returns (y, aux), and ``forward`` returns the router
 losses summed over the layers.  The MoE sees exactly the tokens the
 reference's calls give it, which set its capacity and so its drops: the
@@ -197,10 +198,17 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     return logits
 
 
-def mlp_fn(cfg: ModelConfig, with_aux: bool = True):
+def mlp_fn(cfg: ModelConfig, with_aux: bool = True, ep_mesh=None,
+           data_axes=("data",)):
     """``fn(params, h) -> (y, aux)``, the block's MLP (the reference's
-    ``_apply_mlp``): the expert layer for the MoE family (aux None when
-    ``with_aux`` is off), else the dense MLP with ``ZERO_AUX``."""
+    ``_apply_mlp`` and ``_moe_mlp_fn``): the expert layer for the MoE
+    family (aux None when ``with_aux`` is off), ``moe_mlp_ep`` over
+    ``ep_mesh`` when one is given, else ``moe_mlp_dense``; the dense MLP
+    with ``ZERO_AUX`` for the other families."""
+    if cfg.family == "moe" and ep_mesh is not None:
+        return lambda p, h: MOE.moe_mlp_ep(p, cfg, h, ep_mesh,
+                                           data_axes=data_axes,
+                                           with_aux=with_aux)
     if cfg.family == "moe":
         return lambda p, h: MOE.moe_mlp_dense(p, cfg, h, with_aux=with_aux)
     return lambda p, h: (L.mlp(p, h, cfg.mlp_act, cfg.gated_mlp),
@@ -225,7 +233,7 @@ def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
-            embeds: Optional[torch.Tensor] = None):
+            embeds: Optional[torch.Tensor] = None, mlp=None):
     """Returns (logits (B, S, V), aux), aux the router losses summed over
     the layers (``ZERO_AUX`` for the dense family).  ``embeds`` (B, S, d)
     in the compute dtype replace the token embeddings (the vision-language
@@ -237,14 +245,15 @@ def forward(params: Params, cfg: ModelConfig,
     backward).  It is the independent check of the engine's kernel path,
     and the trainer's path.  With ``cfg.remat`` each group of
     ``pattern_len`` layers (the reference's scan body, the aux sums
-    included) is recomputed in the backward (``L.remat``)."""
+    included) is recomputed in the backward (``L.remat``).  ``mlp`` is
+    the blocks' ``mlp_fn`` (``mlp_fn(cfg)`` when None)."""
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
                  else L.blockwise_attention)
     pl = pattern_len(cfg)
-    mlp = mlp_fn(cfg)
+    mlp = mlp or mlp_fn(cfg)
 
     def group(x, aux_sum, gi):
         for i in range(gi * pl, (gi + 1) * pl):
@@ -312,7 +321,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             seg_ids: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             return_logits: bool = True,
-            embeds: Optional[torch.Tensor] = None):
+            embeds: Optional[torch.Tensor] = None, mlp=None):
     """tokens (B, S) right-padded.  Fills ``cache[:, :, :S]`` in place and
     returns (logits (B, S, V) or None, cache).  Padded positions are
     masked downstream via kv_len.  ``embeds`` (B, S', d) replace the token
@@ -327,7 +336,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     to back, ``seg_ids`` (B, S) the row-local segment (-1 for padding) and
     ``positions`` each token's position inside its segment; the pattern
     refuses it, as the reference does.  Attention goes through
-    ``ops.flash_attention`` (the kernel on CUDA)."""
+    ``ops.flash_attention`` (the kernel on CUDA).  ``mlp`` is the blocks'
+    ``mlp_fn`` (``mlp_fn(cfg, with_aux=False)`` when None)."""
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     pl = pattern_len(cfg)
@@ -343,7 +353,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         ring = ring[:, :, None, None].expand(
             B, ring.shape[1], cfg.num_kv_heads, cfg.resolved_head_dim)
 
-    mlp = mlp_fn(cfg, with_aux=False)
+    mlp = mlp or mlp_fn(cfg, with_aux=False)
     for i in range(cfg.num_layers):
         def attend(q, k, v, window=_sub_window(cfg, i % pl)):
             return ops.flash_attention(q.contiguous(), k.contiguous(),
@@ -374,13 +384,15 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                   kv_len: torch.Tensor, attend_layer, return_hidden: bool):
-    """The layer loop of both decode steps.  ``attend_layer(i, q, k, v)``
+                   kv_len: torch.Tensor, attend_layer, return_hidden: bool,
+                   mlp=None):
+    """The layer loop of the decode steps.  ``attend_layer(i, q, k, v)``
     writes layer ``i``'s new K/V and returns its attention (B, 1, H, D);
-    the result is the logits (B, V) or the final-normed hidden (B, d)."""
+    the result is the logits (B, V) or the final-normed hidden (B, d).
+    ``mlp`` is the blocks' ``mlp_fn`` (without aux when None)."""
     x = embed_tokens(params, cfg, token[:, None])
     positions = kv_len[:, None]
-    mlp = mlp_fn(cfg, with_aux=False)
+    mlp = mlp or mlp_fn(cfg, with_aux=False)
     for i in range(cfg.num_layers):
         x, _, _, _ = _block(layer(params, i, cfg), cfg, x, positions,
                             lambda q, k, v, i=i: attend_layer(i, q, k, v),
@@ -393,7 +405,7 @@ def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, torch.Tensor], kv_len: torch.Tensor,
-                return_hidden: bool = False):
+                return_hidden: bool = False, mlp=None):
     """Dense layout.  token (B,); cache {"k", "v"} (L, B, S, Kh, D);
     kv_len (B,) int32, the position of the new token (< S).
 
@@ -419,7 +431,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         return o[:, None]
 
     out = _decode_layers(params, cfg, token, kv_len, attend_layer,
-                         return_hidden)
+                         return_hidden, mlp)
     return out, cache
 
 
@@ -455,15 +467,16 @@ def decode_step_pattern(params: Params, cfg: ModelConfig,
 
 def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
            cache: Dict[str, torch.Tensor], kv_len: torch.Tensor,
-           return_hidden: bool = False):
+           return_hidden: bool = False, mlp=None):
     """The dense layout's decode step of either pattern (the reference's
-    ``decode``)."""
+    ``decode``); ``mlp`` reaches the global pattern's blocks (the MoE
+    family has no other)."""
     if pattern_len(cfg) == 2:
         if return_hidden:
             raise ValueError("return_hidden: local/global not supported")
         return decode_step_pattern(params, cfg, token, cache, kv_len)
     return decode_step(params, cfg, token, cache, kv_len,
-                       return_hidden=return_hidden)
+                       return_hidden=return_hidden, mlp=mlp)
 
 
 def requantize_written_pages(pages: torch.Tensor, scales: torch.Tensor,

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,14 +86,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: OptState, cfg: AdamWConfig
+def adamw_update(params: Any, grads: Any, state: OptState, cfg: AdamWConfig,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  ``grads`` is a tree shaped like ``params``, or the
     list of its leaves in ``tree_leaves`` order.  Parameters and moments
     are updated in place; returns (params, new state, {"grad_norm",
-    "lr"})."""
+    "lr"}).  ``gnorm`` replaces ``global_norm(grads)`` where the tree is
+    a rank's part of a larger one (``moe.ep_global_norm``)."""
     flat_g = tree_leaves(grads)
-    gnorm = global_norm(flat_g)
+    if gnorm is None:
+        gnorm = global_norm(flat_g)
     scale = (torch.where(gnorm > cfg.grad_clip,
                          cfg.grad_clip / (gnorm + 1e-9),
                          torch.ones_like(gnorm))

@@ -250,7 +250,7 @@ def test_fit_report_skips_and_meshes():
                    "skipped": True,
                    "reason": "full attention, no windowed variant"}
     assert TMESH.make_local_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="the world has 1"):
         TMESH.make_production_mesh()
     assert np.isclose(TMESH.PEAK_FLOPS_BF16, 989e12)
 
