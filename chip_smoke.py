@@ -15,6 +15,9 @@
     python3 chip_smoke.py --phase moe_ep    # kernel checks + moe_layer +
                                             # moe_ep (the expert-parallel
                                             # MoE on an NCCL world of one)
+    python3 chip_smoke.py --phase mesh      # kernel checks + mesh (the
+                                            # placed launch steps on an
+                                            # NCCL world of one)
     python3 chip_smoke.py --phase launch    # kernel checks + the launch
                                             # path (train, prefill, serve
                                             # steps at full width)
@@ -44,6 +47,12 @@ Phases, each printing one JSON line:
    dense decode with ``kv_start`` over its left-padded slots, flash with
    the left-pad mask as segment ids over its 1024-wide prefill wave),
    and at their edges (``family_shapes``); the launch path's long rows:
+   the dense decode's lse output (``LSE_RULE``) at the serve shape, at
+   one ``seqshard`` block of decode_32k (8,320 rows, a slot with none),
+   over one 33,280-row slot (every CTA's merge) and in f32, timed with
+   and without it; decode_32k's 33,280 rows cut into 4 blocks, each
+   through the kernel with its lse and combined, against one call
+   (``DECODE_RULE``);
    flash at S = 32,768 (and 32,767), the dense decode over 33,280 rows
    (B 8, D 128, G 2) and over 524,800 (B 1, D 256, G 2, softcap 50: one
    slot over every CTA, merged in the kernel); the dense decode with
@@ -128,6 +137,12 @@ Phases, each printing one JSON line:
    ``build_train_step`` steps at ``LAUNCH_DEPTH`` layers on that mesh
    against the same steps on ``make_local_mesh()`` (``MOE_EP_TOL``); the
    group destroyed at the end.
+   ``mesh``: the dense family's placed launch steps on an NCCL world of
+   one and the (1, 1) ``DeviceMesh``: Qwen3-0.6B at full width, bf16, 4
+   layers, its train_4k (B 2, S 4096, 2 steps), prefill_32k (B 1) and
+   decode_32k (B 8, 4 steps) plans, each against the same step on
+   ``make_local_mesh()`` bit for bit (tokens, caches, loss, grad norm,
+   every leaf), flash and dense decode launches counted.
    ``families``: Gemma2-2B at full width and depth (26 local/global
    layers, rings of 4096, the dense layout, 16 requests of 512-6144 ids
    in one 8192-wide wave), Qwen1.5-110B at full width cut to 4 layers and
@@ -607,6 +622,138 @@ def decode_excess(out, want):
     beyond = (o - w).abs() - DECODE_RTOL * w.abs()
     return (float((beyond - DECODE_RMS * rms_b).max()),
             float((beyond / rms_b).max()), float(rms.min()))
+
+
+LSE_RULE = ("|lse - want| <= u * max over live rows of sum_d |q_d| |k_d| "
+            "/ sqrt(D) + 1e-4, u = 2^-8 in bf16 (the plain version rounds "
+            "q / sqrt(D) to bf16; the kernel scales the f32 product), 0 in "
+            "f32; -inf exactly where the plain version has it")
+# one seqshard block of decode_32k's 33,280 cache rows on 4 ranks, Qwen3's
+# heads (H 16, Kh 8, D 128): slot 3 has no live row in the block
+LSE_BLOCK_LENS = [8320, 8320, 5000, 0, 1, 17, 8320, 4000]
+COMBINE_ROWS, COMBINE_BLOCKS = 33_280, 4
+COMBINE_LENS = [33_272, 33_272, 20_000, 8_000, 1, 33_280, 12_345, 9_000]
+
+
+def lse_excess(torch, lse, want, q, k, kv_len, bf16):
+    """Max of |lse - want| less ``LSE_RULE``'s bound over the heads with
+    live rows (<= 0 passes), and whether -inf sits exactly where
+    ``want`` has it."""
+    B, H, D = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    qa = q.float().abs().reshape(B, Kh, H // Kh, D) / D ** 0.5
+    live = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
+    bound = torch.zeros((B, H), device=q.device)
+    for b in range(B):            # one slot at a time: (Kh, G, S) floats
+        if live[b].any():
+            s = torch.einsum("kgd,skd->kgs", qa[b], k[b].float().abs())
+            bound[b] = s[..., live[b]].amax(dim=-1).reshape(H)
+    tol = (2.0 ** -8 if bf16 else 0.0) * bound + 1e-4
+    inf_equal = bool(torch.equal(torch.isneginf(lse), torch.isneginf(want)))
+    fin = torch.isfinite(want)
+    excess = float(((lse - want).abs() - tol)[fin].max()) if fin.any() \
+        else 0.0
+    return excess, inf_equal
+
+
+def dense_lse_checks(torch, dev, serve_args, report):
+    """The dense decode's lse output against its plain version
+    (``LSE_RULE``) at the serve shape (its items whole and merged by the
+    completing CTA), at one ``seqshard`` block of decode_32k (8,320 rows,
+    slot 3 with none: lse -inf, output zeros), over one slot of 33,280
+    rows (B 1: its item over every CTA, merged by each; the plan twin
+    says more than ``kDdSpreadPieces`` pieces) and in f32 (the split body
+    and its merge pass); the output with the lse equals the one without it
+    bit for bit; the serve shape timed with and without it (cold L2)."""
+    from collections import Counter
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ragged_decode_attention as rdm
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("serve_b32_s2048_bf16", serve_args)]
+    for name, dt, lens, S, H, Kh, D in (
+            ("seqshard_block_b8_s8320_bf16", bf16, LSE_BLOCK_LENS, 8320, 16,
+             8, 128),
+            ("one_slot_b1_s33280_bf16", bf16, [33_280], 33_280, 16, 8, 128),
+            ("split_merge_b4_s4096_f32", f32, [4096, 0, 1, 3000], 4096, 16,
+             8, 128)):
+        cases.append((name, dense_inputs(torch, dev, dt, lens, S, H, Kh, D)))
+    pieces = ref.ragged_decode_work_plan(
+        [33_280], None, 33_280, 8, rdm.hopper_ctas(128, 2),
+        rdm.hopper_rows(128, 2), rdm.hopper_group(128, 2, 8))[1]
+    spread = max(Counter(pc.kh for pc in pieces).values())
+    check(spread >= 33, f"dense lse: the one-slot case's item has {spread} "
+          "pieces, not the every-CTA merge's 33 or more")
+    rows = []
+    for name, args in cases:
+        q, k, v, kv = args
+        out, lse = ops.ragged_decode_attention(*args, return_lse=True)
+        plain = ops.ragged_decode_attention(*args)
+        want_o, want = ref.ragged_decode_attention_ref(*args, return_lse=True)
+        torch.cuda.synchronize()
+        excess, inf_equal = lse_excess(torch, lse, want, q, k, kv,
+                                       q.dtype == bf16)
+        row = {"case": name, "lse_excess": excess, "inf_equal": inf_equal,
+               "out_equal_without_lse": bool(torch.equal(out, plain)),
+               "lse_max_abs_err": float((lse - want)[torch.isfinite(want)]
+                                        .abs().max())}
+        check(excess <= 0 and inf_equal and row["out_equal_without_lse"],
+              f"dense lse/{name}: {row}")
+        empty = (kv == 0).nonzero()[:, 0]
+        if len(empty):
+            check(bool((out[empty] == 0).all())
+                  and bool(torch.isneginf(lse[empty]).all()),
+                  f"dense lse/{name}: a slot with no live row")
+        rows.append(row)
+    ms = cuda_ms_cold(torch, lambda: ops.ragged_decode_attention(
+        *serve_args))
+    ms_lse = cuda_ms_cold(torch, lambda: ops.ragged_decode_attention(
+        *serve_args, return_lse=True))
+    report["ragged_decode_attention"].update(
+        lse_rule=LSE_RULE, lse_cases=rows, ms_serve_cold=ms,
+        ms_serve_cold_with_lse=ms_lse)
+    emit({"phase": "kernels_dense_lse", "card": card_name_and_power(),
+          "rule": LSE_RULE, "cases": rows, "every_cta_merge_pieces": spread,
+          "serve_ms_cold": ms, "serve_ms_cold_with_lse": ms_lse})
+
+
+def dense_combine_check(torch, dev):
+    """decode_32k's 33,280 cache rows (B 8, Qwen3's heads) cut into 4
+    blocks of 8,320, the kernel called on each with its local lengths
+    (``clamp(kv_len - offset, 0, 8320)``) and its lse, the blocks combined
+    (``sharding.combine_decode``, f32 weights), against one call over every
+    row and against the plain version, by ``DECODE_RULE``; slot 4 (one
+    row) has rows in block 0 only."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.distributed.sharding import combine_decode
+    args = dense_inputs(torch, dev, torch.bfloat16, COMBINE_LENS,
+                        COMBINE_ROWS, 16, 8, 128)
+    q, k, v, kv = args
+    whole = ops.ragged_decode_attention(*args)
+    R = COMBINE_ROWS // COMBINE_BLOCKS
+    parts = []
+    for r in range(COMBINE_BLOCKS):
+        kb, vb = (t[:, r * R:(r + 1) * R].contiguous() for t in (k, v))
+        local = (kv - r * R).clamp(0, R).to(torch.int32)
+        parts.append(ops.ragged_decode_attention(q, kb, vb, local,
+                                                 return_lse=True))
+        del kb, vb
+    combined, _ = combine_decode(parts)
+    want = ref.ragged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    row = {"phase": "kernels_dense_combine", "card": card_name_and_power(),
+           "rows": COMBINE_ROWS, "blocks": COMBINE_BLOCKS,
+           "kv_len": COMBINE_LENS, "rule": DECODE_RULE,
+           "excess_vs_one_call": decode_excess(combined, whole)[0],
+           "excess_vs_plain": decode_excess(combined, want)[0],
+           "one_call_excess_vs_plain": decode_excess(whole, want)[0],
+           "max_abs_diff_vs_one_call": float((combined.float()
+                                              - whole.float()).abs().max())}
+    check(row["excess_vs_one_call"] <= 0 and row["excess_vs_plain"] <= 0,
+          f"dense combine: {row}")
+    emit(row)
+    del args, q, k, v, whole, parts, want
+    release(torch)
 
 
 def flash_inputs(torch, dev, dtype, B, S, H, Kh, D, seg=False, seed=0):
@@ -1112,7 +1259,10 @@ def phase_kernels(torch, dev, report):
         plan=dict(ctas=rctas, rows=rrows, group=rgrp))
     one_launch(report["ragged_decode_attention"]["kernels_per_call"],
                "dense_decode_hopper_kernel", "ragged_decode_attention")
+    dense_lse_checks(torch, dev, args, report)
     del args, q, kc, vc, kt, vt, mask
+    release(torch)
+    dense_combine_check(torch, dev)
 
     # -- paged_decode_attention over int8 pages -------------------------------
     # Inputs: int8 pages and per-page f32 scales from quantize_pages_ref of
@@ -2534,7 +2684,7 @@ def dense_decode_variants(torch, dev, builds, rounds=3):
             if i >= 4 and name not in DENSE_EVERY_SHAPE:
                 continue
             fn = so.ragged_decode_attention
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             so.ragged_decode_splits.argtypes = [ctypes.c_int]
             so.ragged_decode_workspace_floats.argtypes = [ctypes.c_int] * 3
@@ -2546,7 +2696,8 @@ def dense_decode_variants(torch, dev, builds, rounds=3):
             cnt = torch.zeros(2 * B * Kh, dtype=torch.int32, device=dev)
             res = torch.empty_like(q)
 
-            def call(fn=fn, t=(q, kc, vc, kvl, st, res, ml, acc, ws, cnt)):
+            def call(fn=fn, t=(q, kc, vc, kvl, st, res, None, ml, acc, ws,
+                                   cnt)):
                 return fn(*[build.data_ptr(x) for x in t], B, H, S, Kh, D,
                           cap, 1, stream)
             rc = call()
@@ -5599,6 +5750,177 @@ def phase_moe_ep(torch, dev, launches):
 
 
 # ---------------------------------------------------------------------------
+# The placed launch steps on an NCCL world of one
+# ---------------------------------------------------------------------------
+
+# shape -> (S, B): Qwen3-0.6B's plans at PERF.md section 4's cut batches
+# (train_4k 2 rows, prefill_32k 1, decode_32k 8) at MESH_DEPTH layers
+MESH_RUNS = {"train_4k": (4096, 2), "prefill_32k": (32_768, 1),
+             "decode_32k": (32_768, 8)}
+MESH_DEPTH = 4
+MESH_SERVE_STEPS = 4
+
+
+def mesh_step_run(torch, dev, cfg, shape_name, S, B, mesh):
+    """One ``MESH_RUNS`` step on ``mesh``: built there, its inputs from
+    seeds (placed by the step's ``in_shardings`` where it has them), the
+    launch counts zeroed just before the run and read just after; the
+    results gathered back to whole trees."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import plans, steps, train
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             tree_leaves)
+    plan = plans.get_plan("qwen3_0_6b", shape_name)
+    kind = {"train_4k": "train", "prefill_32k": "prefill"}.get(shape_name,
+                                                               "decode")
+    built = steps.build_step(cfg, ShapeConfig(shape_name, S, B, kind), plan,
+                             mesh, False, device=dev)
+    sh = built.in_shardings or (None,) * 4
+
+    def place(tree, spec):
+        return tree if spec is None else plans.place(tree, spec, mesh)
+
+    def whole(tree, spec):
+        return tree if spec is None else plans.gather(tree, spec, mesh)
+    params = built.model.init_params(torch.Generator(device=dev)
+                                     .manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {"placed": built.in_shardings is not None}
+    if kind == "train":
+        opt = init_opt_state(params, AdamWConfig(state_dtype=plan.opt_dtype))
+        batch = train.make_batch(cfg, B, S, dev,
+                                 torch.Generator().manual_seed(1))
+        params, opt, batch = (place(params, sh[0]), place(opt, sh[1]),
+                              place(batch, sh[2]))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        losses, gnorms, ms = [], [], []
+        for _ in range(LAUNCH_STEPS):
+            (params, opt, m), t = timed_call(torch, built.fn, params, opt,
+                                             batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            ms.append(t)
+        out.update(counts=ops.launch_counts(), loss=losses, grad_norm=gnorms,
+                   ms=ms, leaves=tree_leaves(whole(params, sh[0])))
+        return out
+    rows = max(t.shape[2] for t in built.in_specs[2].values())
+    cache = built.model.init_cache(B, rows)
+    if kind == "prefill":
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                 "prompt_lens": torch.full((B,), S, dtype=torch.int32,
+                                           device=dev)}
+        params, batch, cache = (place(params, sh[0]), place(batch, sh[1]),
+                                place(cache, sh[2]))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        (tok, cache), t = timed_call(torch, built.fn, params, batch, cache)
+        out.update(counts=ops.launch_counts(), tokens=[tok.cpu()], ms=[t],
+                   cache=whole(cache, sh[2]))
+        return out
+    for t in cache.values():
+        t.normal_(generator=gen).mul_(LAUNCH_CACHE_SCALE)
+    tok = torch.randint(1, cfg.vocab_size, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kv = torch.full((B,), S - 8, dtype=torch.int32, device=dev)
+    params, tok, cache, kv = (place(params, sh[0]), place(tok, sh[1]),
+                              place(cache, sh[2]), place(kv, sh[3]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    toks, lps, ms = [], [], []
+    for _ in range(MESH_SERVE_STEPS):
+        (tok, lp, cache), t = timed_call(torch, built.fn, params, tok, cache,
+                                         kv)
+        toks.append(whole(tok, sh[1]).cpu())
+        lps.append(whole(lp, sh[1]).cpu())
+        ms.append(t)
+        kv = kv + 1
+    out.update(counts=ops.launch_counts(), tokens=toks, logprobs=lps, ms=ms,
+               cache=whole(cache, sh[2]))
+    return out
+
+
+def phase_mesh(torch, dev, launches):
+    """The dense family's placed launch steps on the card: an NCCL world
+    of one through a ``FileStore`` (no network), the (1, 1) ``("data",
+    "model")`` ``DeviceMesh``; Qwen3-0.6B at full width, bf16,
+    ``MESH_DEPTH`` layers, its train_4k, prefill_32k and decode_32k plans
+    at ``MESH_RUNS``' cut batches, each step placed on the mesh and again
+    on ``make_local_mesh()`` from the same seeds: tokens, caches, loss,
+    grad norm and every leaf after ``LAUNCH_STEPS`` steps equal bit for
+    bit, and exactly the flash (prefill) and dense decode (serve) launches
+    (none in the train steps)."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_compat_mesh, make_local_mesh
+    cfg = get_config("qwen3_0_6b").replace(num_layers=MESH_DEPTH)
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    store = dist.FileStore(str(Path(tmp) / "store"), 1)
+    cuda = dev.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120),
+                            device_id=dev if cuda else None)
+    rows = []
+    try:
+        mesh = make_compat_mesh((1, 1), ("data", "model"), dev.type)
+        for shape_name, (S, B) in MESH_RUNS.items():
+            runs = {}
+            for label, m in (("mesh", mesh), ("local", make_local_mesh())):
+                runs[label] = mesh_step_run(torch, dev, cfg, shape_name, S, B,
+                                            m)
+                launches[f"mesh_{shape_name}_{label}"] = runs[label]["counts"]
+                release(torch)
+            a, b = runs["mesh"], runs["local"]
+            equal = {"placed": a["placed"] and not b["placed"]}
+            for k in ("loss", "grad_norm"):
+                if k in a:
+                    equal[k] = a[k] == b[k]
+            if "leaves" in a:
+                equal["leaves"] = all(torch.equal(x, y) for x, y in
+                                      zip(a["leaves"], b["leaves"]))
+            for k in ("tokens", "logprobs"):
+                if k in a:
+                    equal[k] = all(torch.equal(x, y)
+                                   for x, y in zip(a[k], b[k]))
+            if "cache" in a:
+                equal["cache"] = all(torch.equal(a["cache"][k], b["cache"][k])
+                                     for k in a["cache"])
+            want = {"train_4k": {},
+                    "prefill_32k": {"flash_attention": cfg.num_layers},
+                    "decode_32k": {"ragged_decode_attention":
+                                   cfg.num_layers * MESH_SERVE_STEPS}}
+            for label, r in runs.items():
+                check_launches(f"mesh {shape_name} on {label}", r["counts"],
+                               want[shape_name])
+            row = {"shape": shape_name, "seq": S, "batch": B,
+                   "equal": equal,
+                   "ms": {k: r["ms"] for k, r in runs.items()},
+                   "loss": a.get("loss"), "grad_norm": a.get("grad_norm"),
+                   "tokens": [t.tolist() for t in a.get("tokens", [])],
+                   "launches": {k: r["counts"] for k, r in runs.items()}}
+            check(all(equal.values()), f"mesh {shape_name}: the placed step "
+                  f"differs from the local one {row}")
+            rows.append(row)
+            del runs, a, b
+            release(torch)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "mesh", "card": card_name_and_power(),
+          "backend": "nccl" if cuda else "gloo", "mesh": [1, 1],
+          "model": cfg.name,
+          "layers": cfg.num_layers, "runs": rows})
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the launch path (repro_torch/launch) at full width
 # ---------------------------------------------------------------------------
 
@@ -6125,7 +6447,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "variants", "rl",
                                         "group", "families", "moe_ep",
-                                        "launch"),
+                                        "mesh", "launch"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -6183,6 +6505,9 @@ def main() -> int:
     if args.phase in ("all", "families", "moe_ep"):
         run("moe_layer", moe_layer_check, torch, dev)
         run("moe_ep", phase_moe_ep, torch, dev, launches)
+    if args.phase in ("all", "mesh"):
+        release(torch)
+        run("mesh", phase_mesh, torch, dev, launches)
     if args.phase in ("all", "families"):
         run("families", phase_families, torch, dev, launches)
         run("rl_moe", phase_rl_moe, torch, dev, launches)

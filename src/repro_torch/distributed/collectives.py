@@ -22,6 +22,22 @@ every rank holds ``jax.grad`` of the reference's step:
 * :func:`all_to_all` exchanges equal chunks of the leading axis with
   ``all_to_all_single``; its backward is the same exchange.
 
+The placed launch steps (``launch/steps.py``: FSDP over ``data``, tensor
+and sequence parallelism over ``model``) use the collectives over one
+mesh axis, each with its autograd rule:
+
+* :func:`all_gather` concatenates every rank's block along a dim; its
+  backward is a reduce-scatter (the gathered tensor's gradient is a
+  partial sum on each rank: an FSDP weight under a batch split over the
+  axis, a sequence-parallel residual entering a column-parallel product)
+  or, with ``grad="slice"``, keeps the rank's block (the gradient is the
+  same on every rank: a batch replicated over the axis).
+* :func:`reduce_scatter` sums the ranks' tensors and keeps the rank's
+  block along a dim (a row-parallel product's output entering the
+  sequence-parallel residual); its backward is an all-gather.
+* :func:`all_reduce` sums the ranks' tensors (a row-parallel product's
+  output, a vocabulary-split lookup); its backward is the identity.
+
 A split is a list of (process group, tensor dim) pairs, outermost
 first: the tensor is cut over the first group, that block over the
 next, and so on, as a ``PartitionSpec`` of several mesh axes cuts a
@@ -46,6 +62,8 @@ CALLS: collections.Counter = collections.Counter()
 def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     """Every rank's ``x``, in the group's rank order."""
     CALLS["all_gather"] += 1
+    if x.ndim == 0:
+        return [p[0] for p in _gather(x[None], group)]
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
@@ -75,6 +93,61 @@ def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
         for p in parts[1:]:
             x += p
     return x
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of the sum of every rank's ``x``:
+    each rank sends block i to rank i (``all_to_all_single``), then adds
+    the blocks it received in rank order."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: {n} ranks do not divide dim "
+                         f"{dim} of {tuple(x.shape)}")
+    CALLS["reduce_scatter"] += 1
+    xs = x.movedim(dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    parts = out.chunk(n, dim=0)
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc.movedim(0, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, grad):
+        ctx.group, ctx.dim, ctx.grad = group, dim, grad
+        return torch.cat(_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "slice":
+            n = dist.get_world_size(ctx.group)
+            g = g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)]
+            return g.contiguous(), None, None, None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_gather(g, ctx.group), dim=ctx.dim), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_over(x, [group])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _ToBlock(torch.autograd.Function):
@@ -148,3 +221,32 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Chunk ``i`` of ``x``'s leading axis to rank ``i`` of ``group``;
     chunk ``i`` of the result from rank ``i``."""
     return _AllToAll.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int,
+               grad: str = "reduce_scatter") -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order; the backward reduce-scatters the gradient (``grad=
+    "reduce_scatter"``) or keeps the rank's block of it (``"slice"``)."""
+    if grad not in ("reduce_scatter", "slice"):
+        raise ValueError(f"all_gather: grad {grad!r}")
+    return _AllGather.apply(x, group, dim, grad)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of the sum over ``group`` (rank
+    order); the backward all-gathers the gradient."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, added in rank order
+    (the same bits on every rank); the backward is the identity."""
+    return _AllReduce.apply(x, group)
+
+
+def max_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x``'s elementwise max over each group in turn (not autograd)."""
+    for group in groups:
+        x = torch.stack(_gather(x, group)).amax(dim=0)
+    return x

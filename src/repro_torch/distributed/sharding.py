@@ -1,56 +1,536 @@
-"""Logical-axis sharding on one device (counterpart of
-``repro/distributed/sharding.py``).
+"""Logical-axis sharding (counterpart of ``repro/distributed/sharding.py``).
 
 The reference's models annotate activations with logical axis names, and
 an installed rule set maps them to the axes of a device mesh; its
 trainer pads an update batch to the data shards' count and places one
-equal slice on each.  The port runs on one card, so placement means
-nothing: ``axis_rules`` records the mesh and rules for the enclosed
-region, ``logical_constraint`` returns its input, and
-``shard_update_batch`` only pads (inside a context) to the count that
-``data_shard_count`` reads from the mesh's axis sizes (a ``LocalMesh``'s
-``shape`` dict or a ``DeviceMesh``'s names and shape).  Outside any
-context every function is the identity, as in the reference.
+equal slice on each.  Outside any context every function here is the
+identity, as in the reference, and so is every function on a
+``LocalMesh`` (one device holds every block) but the padding of
+``shard_update_batch``.
 
-Left out, because they mean nothing on one device: ``logical_to_spec``,
-``train_rules``, ``decode_rules`` and every ``NamedSharding`` placement.
+On a ``DeviceMesh`` the port runs one program a rank (SPMD) on the
+blocks the reference's shardings give the device at the rank's mesh
+coordinates.  ``axis_rules(mesh, rules, placement=...)`` installs, beside
+the rules, a :class:`Placement`: the mesh axes the step's batch rows are
+split over, and the specs of the parameters and of the cache as the rank
+holds them (``launch/plans.py``).  The model code then calls the
+functions below at the reference's constraint sites, and they act only
+under a placement on a ``DeviceMesh``:
+
+* tensor parallelism over the axis the ``heads`` rule names (``model``,
+  "the model axis" below): :func:`weight` gives a layer the rank's block
+  of a weight (its FSDP dims gathered over their axes, its heads, FFN
+  columns or vocabulary rows cut to the rank's), :func:`enter_columns`
+  hands the residual to a column-parallel product, and
+  :func:`logical_constraint` lays a product's output out as the rule
+  names (a row-parallel product's partial sums reduce-scattered to the
+  sequence-parallel residual or all-reduced);
+* the batch's axes: a weight replicated over an axis the batch is split
+  over gets a partial gradient on each rank, summed at the step's end
+  (:func:`sync_grads`); an FSDP weight's gather reduce-scatters it.
+
+Gradients follow two rules, one per kind of axis.  Over the model axis a
+replicated tensor's gradient is the whole gradient on every rank (the
+rank computes the same values as the others), so a replicated input of
+a split product sums its gradient over the axis in the backward
+(``collectives.sum_grad``).  Over a batch axis each rank's loss is its
+rows' part of the whole (the masked means divided by the whole batch's
+token count), so a replicated weight's gradient is a partial sum.
+
+Sums add the ranks' copies in rank order (``distributed/
+collectives.py``): a replicated parameter stays the same bits on every
+rank.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
-from typing import Dict, Optional, Sequence, Tuple
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.distributed import collectives as COL
+from repro_torch.launch.mesh import axis_group, axis_sizes, is_device_mesh
 
-_state = threading.local()
 
 
-def _current() -> Optional[Tuple[object, Dict[str, object]]]:
+class _State:
+    """The installed (mesh, rules, placement), process-wide: autograd runs
+    a CUDA backward (and ``torch.utils.checkpoint``'s recomputation of a
+    layer's forward) on its own device threads, which must see the rules
+    and placement the step installed on the calling thread (the
+    reference's is thread-local: JAX traces on the calling thread).
+    ``placed`` is ``ctx`` where it holds a placement on a ``DeviceMesh``,
+    else None: the one attribute every function here reads first, so that
+    outside a placement each costs the host one lookup."""
+    ctx = None
+    placed = None
+
+
+_state = _State()
+
+
+def _install(ctx) -> None:
+    _state.ctx = ctx
+    _state.placed = (ctx if ctx is not None and ctx[2] is not None
+                     and is_device_mesh(ctx[0]) else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """What a placed step holds on each rank: ``batch_axes`` the mesh
+    axes its batch rows are split over (data-major, as a ``PartitionSpec``
+    entry), ``params`` the parameter tree's specs (None: every parameter
+    replicated) and ``cache`` the cache tree's (None: no cache)."""
+    batch_axes: Tuple[str, ...] = ()
+    params: Any = None
+    cache: Any = None
+
+
+def _current() -> Optional[Tuple[object, Dict[str, object], Any]]:
     return getattr(_state, "ctx", None)
 
 
 @contextlib.contextmanager
-def axis_rules(mesh, rules: Dict[str, object]):
-    """Install (mesh, logical -> mesh-axis rules) for the enclosed region.
-    ``mesh`` is a ``LocalMesh`` or a ``DeviceMesh`` (``launch/mesh.py``);
-    ``rules`` maps a logical axis name to a mesh axis name, a tuple of
-    them, or None (replicated)."""
+def axis_rules(mesh, rules: Dict[str, object],
+               placement: Optional[Placement] = None):
+    """Install (mesh, logical -> mesh-axis rules, placement) for the
+    enclosed region.  ``mesh`` is a ``LocalMesh`` or a ``DeviceMesh``
+    (``launch/mesh.py``); ``rules`` maps a logical axis name to a mesh
+    axis name, a tuple of them, or None (replicated).  ``placement``
+    (:class:`Placement`) turns on the SPMD functions of this module."""
     prev = _current()
-    _state.ctx = (mesh, dict(rules))
+    _install((mesh, dict(rules), placement))
     try:
         yield
     finally:
-        _state.ctx = prev
+        _install(prev)
 
 
-def logical_constraint(x, logical: Sequence[Optional[str]]):
-    """The reference's sharding constraint by logical axis names: ``x``
-    unchanged (one device holds every shard)."""
+def logical_to_spec(logical: Sequence[Optional[str]],
+                    rules: Dict[str, object]) -> Tuple:
+    """The spec tuple of a tensor by its logical axis names."""
+    return tuple(None if name is None else rules.get(name)
+                 for name in logical)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes (outermost first)."""
+    if entry is None:
+        return ()
+    if isinstance(entry, (tuple, list)):
+        return tuple(a for a in entry if a is not None)
+    return (entry,)
+
+
+def _placed():
+    """(mesh, rules, placement) under a placement on a ``DeviceMesh``."""
+    return _state.placed
+
+
+def placed() -> bool:
+    """A placement is installed on a ``DeviceMesh``."""
+    return _placed() is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One mesh axis of the current placement: its name, process group,
+    size and this rank's coordinate."""
+    name: str
+    group: Any
+    size: int
+    rank: int
+
+
+def mesh_axis(mesh, name: str) -> Axis:
+    return Axis(name, axis_group(mesh, name), axis_sizes(mesh)[name],
+                mesh.get_local_rank(name))
+
+
+def model_axis() -> Optional[Axis]:
+    """The tensor-parallel axis (the one the ``heads`` rule names) when it
+    splits anything: under a placement on a ``DeviceMesh``, size > 1."""
+    ctx = _placed()
+    if ctx is None:
+        return None
+    mesh, rules, _ = ctx
+    name = rules.get("heads")
+    if name is None or axis_sizes(mesh)[name] == 1:
+        return None
+    return mesh_axis(mesh, name)
+
+
+def seq_parallel() -> bool:
+    """The residual stream is split over the model axis on its sequence
+    dim (the ``seq`` rule names it: train steps of the ``tp`` plans)."""
+    ax = model_axis()
+    return ax is not None and _current()[1].get("seq") == ax.name
+
+
+def batch_axes() -> Tuple[Axis, ...]:
+    """The axes of size > 1 the batch rows are split over, outermost
+    first (none outside a placement)."""
+    ctx = _placed()
+    if ctx is None:
+        return ()
+    mesh, _, placement = ctx
+    return tuple(mesh_axis(mesh, a) for a in placement.batch_axes
+                 if axis_sizes(mesh)[a] > 1)
+
+
+def sum_batch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the batch's axes in rank order (not autograd):
+    the whole batch's value of a per-rank partial."""
+    return COL.sum_over(x, [a.group for a in batch_axes()])
+
+
+def gather_batch(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's rows along ``dim`` gathered to the whole batch, in the
+    batch spec's order (not autograd)."""
+    for a in reversed(batch_axes()):
+        x = torch.cat(COL._gather(x, a.group), dim=dim)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def logical_constraint(x, logical: Sequence[Optional[str]],
+                       partial: bool = False):
+    """The reference's sharding constraint by logical axis names.
+
+    Under a placement on a ``DeviceMesh``: ``x`` holds the rank's batch
+    rows and every other dim whole, the same on the model axis' ranks,
+    or with ``partial`` a partial sum over that axis (a row-parallel
+    product's output).  A dim whose rule names the model axis is cut to
+    the rank's block (a partial ``x`` reduce-scattered to it); a partial
+    ``x`` with no such dim is all-reduced.  The identity elsewhere, and
+    on the batch dims (their rows are placed with the step's inputs)."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    rules = _current()[1]
+    dims = [i for i, name in enumerate(logical)
+            if name not in (None, "batch")
+            and ax.name in entry_axes(rules.get(name))]
+    for i, name in enumerate(logical):
+        if name in (None, "batch") or i in dims:
+            continue
+        if entry_axes(rules.get(name)):
+            raise NotImplementedError(
+                f"logical_constraint: {name!r} over {rules.get(name)}")
+    if not dims:
+        return COL.all_reduce(x, ax.group) if partial else x
+    (dim,) = dims
+    if partial:
+        return COL.reduce_scatter(x, ax.group, dim)
+    return COL.to_block(x, [(ax.group, dim)])
+
+
+def enter_columns(h: torch.Tensor) -> torch.Tensor:
+    """The residual ``h`` (B, S or its block, d) as the input of a
+    column-parallel product over the model axis: the sequence-parallel
+    block gathered to the whole sequence (the backward reduce-scatters
+    its gradient), or the replicated ``h`` with its gradient summed over
+    the axis (each rank's product reads it for its own columns)."""
+    ax = model_axis()
+    if ax is None:
+        return h
+    if seq_parallel():
+        return COL.all_gather(h, ax.group, 1)
+    return COL.sum_grad(h, [ax.group])
+
+
+def shared(p):
+    """A replicated weight (or dict of them) that takes part in a
+    computation split over the model axis: its gradient summed over the
+    axis.  Norms under sequence parallelism, ``q_norm``/``k_norm``."""
+    ax = model_axis()
+    if ax is None:
+        return p
+    if isinstance(p, dict):
+        return {k: shared(v) for k, v in p.items()}
+    return COL.sum_grad(p, [ax.group])
+
+
+def seq_shared(p):
+    """``shared(p)`` where the residual is sequence-parallel, else ``p``
+    (a norm of the residual runs on the rank's block of the sequence)."""
+    return shared(p) if seq_parallel() else p
+
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+
+def param_spec(path: Sequence[str], ndim: int) -> Tuple:
+    """The stored spec of parameter ``path`` (keys into the parameter
+    tree) over its last ``ndim`` dims (a layer's view drops the stacked
+    layer dims, which are never split); replicated without a placement
+    or a parameter spec tree."""
+    ctx = _placed()
+    if ctx is None or ctx[2].params is None:
+        return (None,) * ndim
+    node = ctx[2].params
+    for k in path:
+        node = node[k]
+    return tuple(node)[len(node) - ndim:]
+
+
+def weight(w: torch.Tensor, path: Sequence[str],
+           split: Optional[int] = None) -> torch.Tensor:
+    """The rank's view of weight ``w`` for a layer's product.
+
+    Each dim stored split over an axis other than the model axis (FSDP
+    over ``data``) is gathered over it: the backward reduce-scatters the
+    gradient where the batch is split over that axis (each rank's is a
+    partial sum), else keeps the rank's block.  With the model axis
+    active, dim ``split`` (heads, FFN columns, vocabulary) is the rank's
+    block: as stored where the spec splits it, else cut from the
+    replicated weight, whose gradient is then summed over the axis; with
+    ``split`` None a weight stored replicated over the model axis keeps
+    its whole extent, its gradient summed over the axis (``shared``),
+    and one stored split keeps its block (a KV projection whose heads
+    the cache holds split)."""
+    ctx = _placed()
+    if ctx is None:
+        return w
+    mesh = ctx[0]
+    spec = param_spec(path, w.ndim)
+    ax = model_axis()
+    bnames = {a.name for a in batch_axes()}
+    sizes = axis_sizes(mesh)
+    for dim in reversed(range(w.ndim)):
+        for name in reversed(entry_axes(spec[dim])):
+            if sizes[name] == 1 or (ax is not None and name == ax.name):
+                continue
+            w = COL.all_gather(w, axis_group(mesh, name), dim,
+                               "reduce_scatter" if name in bnames
+                               else "slice")
+    if ax is None:
+        return w
+    model_dims = [i for i, e in enumerate(spec) if ax.name in entry_axes(e)]
+    if split is None:
+        return w if model_dims else COL.sum_grad(w, [ax.group])
+    if split in model_dims:
+        return w
+    n = w.shape[split]
+    if n % ax.size:
+        raise ValueError(f"weight {'/'.join(path)}: the model axis' "
+                         f"{ax.size} ranks do not divide dim {split} of "
+                         f"{tuple(w.shape)}")
+    w = COL.sum_grad(w, [ax.group])
+    blk = n // ax.size
+    return w.narrow(split, ax.rank * blk, blk)
+
+
+def model_block(n: int) -> Tuple[int, int]:
+    """[lo, hi) of this rank's block of an extent ``n`` split over the
+    model axis ((0, n) without one)."""
+    ax = model_axis()
+    if ax is None:
+        return 0, n
+    if n % ax.size:
+        raise ValueError(f"the model axis' {ax.size} ranks do not divide "
+                         f"{n}")
+    blk = n // ax.size
+    return ax.rank * blk, (ax.rank + 1) * blk
+
+
+def kv_heads_for_q(H: int, Kh: int, k_heads: int) -> Tuple[int, int]:
+    """[lo, hi) of the KV heads, among the ``k_heads`` a rank's k/v hold
+    (all ``Kh``, or its block of them), that its block of the ``H`` query
+    heads reads (query head h reads KV head h // G, G = H / Kh: the
+    global G is kept).  Raises where a rank's query heads would straddle
+    a KV head's group unevenly."""
+    h0, h1 = model_block(H)
+    G = H // Kh
+    n = h1 - h0
+    if n % G and G % n:
+        raise ValueError(f"{n} query heads a rank do not tile groups of "
+                         f"{G} (H {H}, Kh {Kh})")
+    lo, hi = h0 // G, (h1 - 1) // G + 1
+    if k_heads == Kh:
+        return lo, hi
+    k0, _ = model_block(Kh)
+    return lo - k0, hi - k0
+
+
+# ---------------------------------------------------------------------------
+# The vocabulary split over the model axis (the head and the loss)
+# ---------------------------------------------------------------------------
+
+
+def vocab_split() -> Optional[Axis]:
+    """The model axis where the ``vocab`` rule names it (the head's
+    logits are then the rank's block of the vocabulary)."""
+    ax = model_axis()
+    if ax is None or _current()[1].get("vocab") != ax.name:
+        return None
+    return ax
+
+
+def split_logsumexp(lf: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """logsumexp over the last dim of f32 logits whose vocabulary is split
+    over ``ax``: the max over the ranks (no gradient: the result does not
+    depend on it), then the sum of exponentials all-reduced."""
+    m = COL.max_over(lf.detach().amax(dim=-1), [ax.group])
+    s = torch.exp(lf - m[..., None]).sum(dim=-1)
+    return m + torch.log(COL.all_reduce(s, ax.group))
+
+
+def split_pick(lf: torch.Tensor, idx: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """``lf[..., idx]`` for vocabulary ids ``idx`` over a vocabulary split
+    over ``ax``: the rank holding an id gives its logit, the others 0,
+    all-reduced."""
+    n = lf.shape[-1]
+    local = idx.long() - ax.rank * n
+    inside = (local >= 0) & (local < n)
+    got = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return COL.all_reduce(torch.where(inside, got, torch.zeros_like(got)),
+                          ax.group)
+
+
+def split_argmax(x: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last dim of the whole vocabulary where ``x``
+    is the rank's block of it (the first index of the max, as
+    ``torch.argmax``); ``torch.argmax`` without the split."""
+    ax = vocab_split()
+    if ax is None:
+        return torch.argmax(x, dim=-1)
+    n = x.shape[-1]
+    vals, idx = torch.max(x, dim=-1)
+    vals = torch.stack(COL._gather(vals.contiguous(), ax.group))
+    idx = torch.stack(COL._gather((idx + ax.rank * n).contiguous(),
+                                  ax.group))
+    best = torch.argmax(vals, dim=0, keepdim=True)   # first rank of the max
+    return torch.gather(idx, 0, best)[0]
+
+
+# ---------------------------------------------------------------------------
+# The decode over a cache whose sequence axis is split
+# ---------------------------------------------------------------------------
+
+
+def cache_seq_axes(name: str = "k") -> Tuple[Axis, ...]:
+    """The axes (size > 1, outermost first) the placed cache's leaf
+    ``name`` splits its sequence dim (2) over; none without a placement."""
+    ctx = _placed()
+    if ctx is None or ctx[2].cache is None:
+        return ()
+    mesh, _, placement = ctx
+    spec = placement.cache[name]
+    return tuple(mesh_axis(mesh, a) for a in entry_axes(spec[2])
+                 if axis_sizes(mesh)[a] > 1)
+
+
+def block_index(axes: Sequence[Axis]) -> int:
+    """This rank's block among the blocks a dim split over ``axes``
+    (outermost first) has."""
+    i = 0
+    for a in axes:
+        i = i * a.size + a.rank
+    return i
+
+
+def axis_max(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The reference's ``pmax`` over mesh axis ``axis`` of the installed
+    ``DeviceMesh`` (no placement needed)."""
+    mesh = _current()[0]
+    return COL.max_over(x, [axis_group(mesh, axis)])
+
+
+def axis_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The reference's ``psum`` over ``axis``, added in rank order."""
+    mesh = _current()[0]
+    return COL.sum_over(x, [axis_group(mesh, axis)])
+
+
+def combine_decode(parts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention over several blocks of a cache's rows from each
+    block's output and log-sum-exp: ``parts`` is the list of (o (B, H, D),
+    lse (B, H)) of every block, in order.  A block with no live row has
+    lse -inf and weighs 0; no block with one gives zeros and -inf.  f32
+    weights ``exp(lse - max)``, summed in the list's order; returns (o in
+    the blocks' dtype, the combined lse)."""
+    lses = torch.stack([x for _, x in parts])             # (n, B, H)
+    top = torch.amax(lses, dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    o0 = parts[0][0]
+    num = torch.zeros(o0.shape, dtype=torch.float32, device=o0.device)
+    den = torch.zeros(top.shape, dtype=torch.float32, device=o0.device)
+    for ob, lb in parts:
+        w = torch.where(torch.isfinite(lb), torch.exp(lb - top),
+                        torch.zeros_like(lb))
+        num += w[..., None] * ob.float()
+        den += w
+    o = (num / torch.clamp(den, min=1e-30)[..., None]).to(o0.dtype)
+    lse = torch.where(den > 0, top + torch.log(torch.clamp(den, min=1e-30)),
+                      torch.full_like(den, float("-inf")))
+    return o, lse
+
+
+def combine_over(o: torch.Tensor, lse: torch.Tensor,
+                 axes: Sequence[Axis]) -> torch.Tensor:
+    """Every rank's decode output ``o`` (B, H, D) over its block of the
+    cache's rows, with its ``lse`` (B, H), combined over ``axes`` into the
+    attention over every block (:func:`combine_decode`, in rank order,
+    the innermost axis first), the same on every rank."""
+    for a in reversed(axes):
+        o, lse = combine_decode(list(zip(COL._gather(o, a.group),
+                                         COL._gather(lse, a.group))))
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Gradients and the update batch
+# ---------------------------------------------------------------------------
+
+
+def sync_grads(grads, specs) -> list:
+    """Each gradient (``tree_leaves`` order, ``specs`` the parameters'
+    spec tuples in the same order, or None: all replicated) summed over
+    the batch axes its parameter is replicated over, in rank order: the
+    whole batch's gradient, the same bits on every rank that holds the
+    block."""
+    axes = batch_axes()
+    if not axes:
+        return list(grads)
+    out = []
+    for i, g in enumerate(grads):
+        spec = (None,) * g.ndim if specs is None else specs[i]
+        held = {n for e in spec for n in entry_axes(e)}
+        out.append(COL.sum_over(g, [a.group for a in axes
+                                    if a.name not in held]))
+    return out
+
+
+def placed_global_norm(grads, specs) -> torch.Tensor:
+    """The global gradient norm of the unsharded tree on every rank: each
+    leaf's sum of squares summed over the axes its spec splits it over (a
+    replicated leaf counted once), in ``tree_leaves`` order."""
+    ctx = _placed()
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    if ctx is not None and specs is not None:
+        mesh = ctx[0]
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for i, spec in enumerate(specs):
+            names = tuple(n for e in spec for n in entry_axes(e)
+                          if axis_sizes(mesh)[n] > 1)
+            if names:
+                by_axes.setdefault(names, []).append(i)
+        for names, idx in by_axes.items():
+            summed = COL.sum_over(torch.stack([sq[i] for i in idx]),
+                                  [axis_group(mesh, n) for n in names])
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
 
 
 def data_shard_count() -> int:
@@ -60,15 +540,9 @@ def data_shard_count() -> int:
     ctx = _current()
     if ctx is None:
         return 1
-    mesh, rules = ctx
+    mesh, rules = ctx[0], ctx[1]
     sizes = axis_sizes(mesh)
-    spec = rules.get("batch")
-    axes = spec if isinstance(spec, (tuple, list)) else (spec,)
-    size = 1
-    for a in axes:
-        if a is not None:
-            size *= sizes[a]
-    return size
+    return math.prod(sizes[a] for a in entry_axes(rules.get("batch")))
 
 
 def pad_update_batch(batch: Dict[str, object], multiple: int,
@@ -100,12 +574,81 @@ def pad_update_batch(batch: Dict[str, object], multiple: int,
     return out
 
 
-def shard_update_batch(batch: Dict[str, object],
-                       pad_token: int = 0) -> Dict[str, object]:
+def shard_update_batch(batch: Dict[str, object], pad_token: int = 0,
+                       split: bool = True) -> Dict[str, object]:
     """The update batch padded to a multiple of :func:`data_shard_count`
     with inert rows (:func:`pad_update_batch`) inside an
-    :func:`axis_rules` context, and left where it is (one device); the
-    batch itself outside any context."""
-    if _current() is None:
+    :func:`axis_rules` context; on a ``DeviceMesh`` with ``split`` each
+    array then keeps the rank's contiguous slice of its leading dim, the
+    block the reference's ``NamedSharding(mesh, P(batch, ...))`` gives the
+    device at the rank's coordinates (the ``batch`` rule's axes, outermost
+    first).  On a ``LocalMesh``, or without ``split``, the padded batch;
+    outside any context the batch itself."""
+    ctx = _current()
+    if ctx is None:
         return batch
-    return pad_update_batch(batch, data_shard_count(), pad_token)
+    batch = pad_update_batch(batch, data_shard_count(), pad_token)
+    mesh, rules = ctx[0], ctx[1]
+    if not split or not is_device_mesh(mesh):
+        return batch
+    axes = [mesh_axis(mesh, a) for a in entry_axes(rules.get("batch"))]
+    n, i = math.prod(a.size for a in axes), block_index(axes)
+    out = {}
+    for key, x in batch.items():
+        rows = x.shape[0] // n
+        out[key] = x[i * rows:(i + 1) * rows]
+    return out
+
+
+def update_placement() -> Optional[Placement]:
+    """The placement of a trainer's update under an installed
+    ``axis_rules`` on a ``DeviceMesh`` with no placement of its own: the
+    batch rows over the ``batch`` rule's axes (``shard_update_batch``'s
+    slices), every parameter replicated; None elsewhere."""
+    ctx = _current()
+    if ctx is None or not is_device_mesh(ctx[0]):
+        return None
+    if ctx[2] is not None:
+        return ctx[2]
+    return Placement(entry_axes(ctx[1].get("batch")))
+
+
+# ---------------------------------------------------------------------------
+# Standard rule sets
+# ---------------------------------------------------------------------------
+
+
+def train_rules(multi_pod: bool = False) -> Dict[str, object]:
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": batch,
+        "seq": None,
+        "embed": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "ffn": "model",
+        "vocab": "model",
+        "experts": "model",
+        "expert_capacity": None,
+        "ssm_heads": "model",
+        "ssm_state": None,
+        # FSDP: parameters stored sharded over the data axis on this
+        # logical axis (biggest dim of each weight), gathered on use.
+        "fsdp": batch,
+        "cache_seq": None,
+    }
+
+
+def decode_rules(multi_pod: bool = False, context_parallel: bool = False
+                 ) -> Dict[str, object]:
+    """Decode: batch over data; long-context mode shards the KV cache's
+    sequence axis over `data` (distributed flash-decode combine)."""
+    batch = ("pod", "data") if multi_pod else ("data",)
+    r = train_rules(multi_pod)
+    if context_parallel:
+        r["batch"] = ("pod",) if multi_pod else None
+        r["cache_seq"] = "data"
+    else:
+        r["batch"] = batch
+    return r

@@ -157,6 +157,7 @@ struct DecodeParams {
   float* part_acc;           // (B, H, splits, D)
   int H, Kh, splits, cap;    // cap: rows the source reaches (nb*P or S)
   float scale, softcap;
+  float* lse;                // dense: (B, H) f32 log-sum-exp, or null
 };
 
 // 16 bytes of K/V storage -> f32.  bf16 is the top half of an f32; an
@@ -389,8 +390,13 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
   const int r0 = split * SR;
   T* out = static_cast<T*>(p.out) + ((long long)b * p.H + kh * G) * D;
   if (r0 >= len) {
-    if (split == 0)                           // no live row: zeros
+    if (split == 0) {                         // no live row: zeros
       for (int i = tid; i < G * D; i += NT) out[i] = from_f<T>(0.f);
+      if constexpr (kStart) {                 // the dense entry's lse
+        if (p.lse != nullptr && tid < G)
+          p.lse[(long long)b * p.H + kh * G + tid] = -CUDART_INF_F;
+      }
+    }
     return;
   }
   const int n = min(SR, len - r0);            // rows of this split
@@ -558,6 +564,10 @@ __device__ __forceinline__ void decode_split(const DecodeParams p) {
     for (int r = 0; r < Sh::kRowGroups; ++r) A += red[(r * G + g) * D + d];
     if (single) {
       out[i] = from_f<T>(A / fmaxf(ml[G + g], 1e-30f));
+      if constexpr (kStart) {
+        if (p.lse != nullptr && d == 0)
+          p.lse[(long long)b * p.H + kh * G + g] = ml[g] + logf(ml[G + g]);
+      }
     } else {
       const long long o = ((long long)b * p.H + kh * G + g) * p.splits + split;
       p.part_acc[o * D + d] = A;
@@ -596,7 +606,8 @@ __global__ void decode_merge_kernel(const float* __restrict__ pml,
                                     const float* __restrict__ pacc,
                                     const int* __restrict__ kv_len,
                                     const int* __restrict__ kv_start,
-                                    T* __restrict__ out, int H, int D,
+                                    T* __restrict__ out,
+                                    float* __restrict__ lse, int H, int D,
                                     int splits, int cap) {
   const int h = blockIdx.x, b = blockIdx.y;
   int len = min(kv_len[b], cap);
@@ -615,6 +626,9 @@ __global__ void decode_merge_kernel(const float* __restrict__ pml,
     A += w * pacc[(base + s) * D + d];
   }
   out[((long long)b * H + h) * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  if constexpr (kStart) {
+    if (lse != nullptr && d == 0) lse[(long long)b * H + h] = M + logf(L);
+  }
 }
 
 // Both passes on stream `s`: the split pass, then (splits > 1) the merge.
@@ -638,7 +652,7 @@ static cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t s) {
   if (e != cudaSuccess || p.splits == 1) return e;
   decode_merge_kernel<T, kStart><<<dim3(p.H, B), D, 0, s>>>(
       p.part_ml, p.part_acc, p.kv_len, p.kv_start, static_cast<T*>(p.out),
-      p.H, D, p.splits, p.cap);
+      p.lse, p.H, D, p.splits, p.cap);
   return cudaGetLastError();
 }
 

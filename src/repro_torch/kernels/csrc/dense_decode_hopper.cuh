@@ -97,6 +97,8 @@ constexpr int kDdMergeBatch = 8;        // pieces a merging lane loads at once
 // pieces from which every CTA holding one merges a slice of the item (below
 // it the CTA that completes the item merges all of it)
 constexpr int kDdSpreadPieces = 33;
+// ln 2: an lse in log2 units (the running maxima's) to natural log
+constexpr float kDdLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int dd_warps(int D, int G) {
   return D >= 192 || G > 8 ? kDdWideWarps : kDdWarps;
@@ -161,6 +163,7 @@ struct DdParams {
   const int* kv_len;            // (B,)
   const int* kv_start;          // (B,) first live row, or null for 0
   __nv_bfloat16* out;           // (B, H, D)
+  float* lse;                   // (B, H) f32 log-sum-exp, or null
   float* ws;                    // 2 C slots x kg x G x (2 + D) f32
   int* counters;                // (B, Kh), 0 between launches
   int B, H, S, Kh, kg;          // kg: KV heads a unit, pd_group(Kh, W)
@@ -233,11 +236,14 @@ dense_decode_hopper_kernel(const DdParams p,
   };
   const auto units_of = [&](int b) { return (len_of(b) + R - 1) / R; };
 
-  // slots with no live row get zeros (no unit reaches them)
+  // slots with no live row get zeros and an lse of -inf (no unit
+  // reaches them)
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     if (len_of(b) == 0) {
       __nv_bfloat16* o = p.out + (long long)b * p.H * D;
       for (int i = tid; i < p.H * D; i += NT) o[i] = __float2bfloat16(0.f);
+      if (p.lse != nullptr)
+        for (int i = tid; i < p.H; i += NT) p.lse[(long long)b * p.H + i] = -kInf;
     }
   }
 
@@ -618,6 +624,16 @@ dense_decode_hopper_kernel(const DdParams p,
             __floats2bfloat162_rn(v0 * iv, v1 * iv);
       });
     }
+    // the lse of head g + 8 r, natural log: its max is in log2 units
+    if (p.lse != nullptr && t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int h = g + 8 * r;
+        if (h < G && (r == 0 || S::kHi))
+          p.lse[(long long)w.b * p.H + kh * G + h] =
+              (m[r] + log2f(l[r])) * kDdLn2;
+      }
+    }
   };
   // a piece that ends: a whole item writes its output; a split one its
   // partial, (max, sum) of its G heads and the f32 accumulators (G x D),
@@ -730,6 +746,10 @@ dense_decode_hopper_kernel(const DdParams p,
         *reinterpret_cast<uint2*>(out + (kk * G + h) * D + d) =
             make_uint2(pack_bf16(A.x * inv, A.y * inv),
                        pack_bf16(A.z * inv, A.w * inv));
+        // a head's lse from the lane of its first columns
+        if (p.lse != nullptr && d == 0)
+          p.lse[((long long)it.b * Kh + it.kg * KG + kk) * G + h] =
+              (M + log2f(L)) * kDdLn2;
       }
     }
   };

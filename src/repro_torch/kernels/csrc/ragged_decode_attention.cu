@@ -106,7 +106,10 @@ extern "C" long long ragged_decode_workspace_floats(int D, int G, int Kh) {
 }
 
 // q (B,H,D), k/v cache (B,S,Kh,D) of dtype `dtype`, contiguous; kv_len
-// (B,) int32; kv_start (B,) int32 or null (rows from 0); out (B,H,D).
+// (B,) int32; kv_start (B,) int32 or null (rows from 0); out (B,H,D);
+// lse (B,H) f32 or null: each head's log-sum-exp of its scaled (and
+// capped) scores over the live rows, -inf where a slot has none (what a
+// caller needs to combine outputs over blocks of rows).
 // bf16: `ws` f32 of ragged_decode_workspace_floats(D, G, Kh) and
 // `counters` int32 (2, B, Kh), zero (the launch leaves them zero), the
 // caches 16-byte aligned; one cooperative launch.  f32: part_ml/part_acc
@@ -115,13 +118,11 @@ extern "C" long long ragged_decode_workspace_floats(int D, int G, int Kh) {
 // `stream`.  Returns
 // the cudaGetLastError() after the launches (cudaErrorInvalidValue for a
 // shape the kernel was not instantiated for).
-extern "C" int ragged_decode_attention(const void* q, const void* kc,
-                                       const void* vc, const void* kv_len,
-                                       const void* kv_start, void* out,
-                                       void* part_ml, void* part_acc,
-                                       void* ws, void* counters, int B, int H,
-                                       int S, int Kh, int D, float softcap,
-                                       int dtype, void* stream) {
+extern "C" int ragged_decode_attention(
+    const void* q, const void* kc, const void* vc, const void* kv_len,
+    const void* kv_start, void* out, void* lse, void* part_ml,
+    void* part_acc, void* ws, void* counters, int B, int H, int S, int Kh,
+    int D, float softcap, int dtype, void* stream) {
   const int G = H / Kh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
@@ -136,6 +137,7 @@ extern "C" int ragged_decode_attention(const void* q, const void* kc,
     p.kv_len = static_cast<const int*>(kv_len);
     p.kv_start = static_cast<const int*>(kv_start);
     p.out = static_cast<__nv_bfloat16*>(out);
+    p.lse = static_cast<float*>(lse);
     p.ws = static_cast<float*>(ws);
     p.counters = static_cast<int*>(counters);
     p.B = B;
@@ -156,6 +158,7 @@ extern "C" int ragged_decode_attention(const void* q, const void* kc,
   p.kv_len = static_cast<const int*>(kv_len);
   p.kv_start = static_cast<const int*>(kv_start);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.part_ml = static_cast<float*>(part_ml);
   p.part_acc = static_cast<float*>(part_acc);
   p.H = H;

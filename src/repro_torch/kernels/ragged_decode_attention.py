@@ -29,6 +29,13 @@ turns on a stream and each leaves the counters at zero.  f32 q runs the
 split-KV body of ``csrc/decode_attention.cuh`` (a grid per split of S's
 rows and a merge pass from f32 partials).
 
+With ``return_lse`` the call also writes each head's log-sum-exp (B, H)
+f32 of its scores over the live rows (-inf where a slot has none), in
+all three ways a call ends (one piece, the completing CTA's merge, every
+CTA's slice of a long row's merge; in f32 the split body and its merge
+pass): what a rank needs to combine its block of a cache's rows with the
+other ranks' (``distributed.sharding.combine_decode``).
+
 CPU tensors take the plain version (``ref.ragged_decode_attention_ref``);
 CUDA tensors launch the kernel or raise.
 """
@@ -54,7 +61,7 @@ def _bind():
     if _lib is None:
         lib = build.load(NAME)
         lib.ragged_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.ragged_decode_attention.restype = ctypes.c_int
         lib.ragged_decode_splits.argtypes = [ctypes.c_int]
@@ -106,19 +113,21 @@ def workspace_floats(D: int, G: int, Kh: int) -> int:
 
 def ragged_decode_attention(q, k_cache, v_cache, kv_len,
                             softcap: float = 0.0, window: int = 0,
-                            kv_start=None) -> torch.Tensor:
+                            kv_start=None, return_lse: bool = False):
     """q (B, H, D); k/v_cache (B, S, Kh, D); kv_len (B,) int32 ->
-    (B, H, D).  Rows at or past ``kv_len`` are masked (all S rows when
+    (B, H, D), and with ``return_lse`` also the heads' log-sum-exp (B, H)
+    f32.  Rows at or past ``kv_len`` are masked (all S rows when
     ``kv_len > S``), and with ``kv_start`` (B,) int32 the rows before it
     (a left-padded slot's pads); no live row (``kv_len == 0``, or
-    ``kv_start >= kv_len``) gives zeros.  ``window`` is applied by
-    the plain version only: the kernel takes none, so a window on CUDA
-    raises instead of being ignored."""
+    ``kv_start >= kv_len``) gives zeros and an lse of -inf.  ``window``
+    is applied by the plain version only: the kernel takes none, so a
+    window on CUDA raises instead of being ignored."""
     args = (q, k_cache, v_cache, kv_len, kv_start)
     if build.takes_plain(*args):
         return ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
                                            softcap=softcap, window=window,
-                                           kv_start=kv_start)
+                                           kv_start=kv_start,
+                                           return_lse=return_lse)
     if window:
         raise NotImplementedError(
             f"{NAME}: the CUDA kernel has no sliding window (got {window})")
@@ -145,8 +154,10 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
                                and v_cache.data_ptr() % 16 == 0), NAME,
                   "caches must start on a 16-byte boundary (bulk copies)")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _bind()
     part_ml = part_acc = ws = counters = None
     if bf16:
@@ -158,9 +169,10 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_len,
     rc = lib.ragged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), build.data_ptr(kv_start), out.data_ptr(),
-        build.data_ptr(part_ml), build.data_ptr(part_acc),
+        build.data_ptr(lse), build.data_ptr(part_ml),
+        build.data_ptr(part_acc),
         build.data_ptr(ws), build.data_ptr(counters), B, H, S, Kh, D,
         float(softcap), code, build.stream_ptr(dev))
     build.check(rc, NAME)
     launches[NAME] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -19,11 +19,14 @@ KV_INT8_DECODE_ATOL = 0.05
 
 def ragged_decode_attention_ref(q, k_cache, v_cache, kv_len,
                                 softcap: float = 0.0, window: int = 0,
-                                kv_start=None) -> torch.Tensor:
+                                kv_start=None, return_lse: bool = False):
     """(B, H, D) x (B, S, Kh, D) x (B,) -> (B, H, D); rows
-    ``[kv_start, kv_len)`` (``kv_start`` (B,) or None for 0)."""
+    ``[kv_start, kv_len)`` (``kv_start`` (B,) or None for 0).  With
+    ``return_lse`` also each head's log-sum-exp (B, H) f32 over those
+    rows' scores, -inf where a slot has none."""
     return L.decode_attention(q, k_cache, v_cache, kv_len, softcap=softcap,
-                              window=window, kv_start=kv_start)
+                              window=window, kv_start=kv_start,
+                              return_lse=return_lse)
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor

@@ -7,9 +7,10 @@ the reference's (16, 16) and (2, 16, 16) pod meshes at worlds of 256 and
 512 ranks), or the :class:`LocalMesh` stand-in of one device for callers
 with no process group (``make_local_mesh``).  Both kinds name their axes
 ``"data"`` and ``"model"`` (and ``"pod"``); :func:`axis_size` and
-:func:`axis_group` read either.  The steps place nothing on a mesh but the
-MoE family's experts (``launch/steps.py``): every other tensor is
-replicated on every rank.
+:func:`axis_group` read either.  On a ``DeviceMesh`` the dense family's
+steps hold each tensor as its plan's specs place it (``launch/steps.py``,
+``launch/plans.py`` ``place``/``gather``); the MoE family's steps cut its
+experts and replicate the rest.
 
 Functions, not module constants: importing this module touches no device
 and no process group.

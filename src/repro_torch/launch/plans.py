@@ -2,12 +2,15 @@
 ``repro/launch/plans.py``): sharding strategy, remat, microbatching,
 optimizer-state dtype, decode-cache layout.
 
-The tables are the reference's, entry for entry.  Where the reference
-returns a ``PartitionSpec``, this module returns a tuple of mesh-axis
-names (None: replicated), with the same entries.  On one card the
-specs and rules are carried, not acted on (``distributed/sharding.py``
-places nothing); of a plan only ``remat``, ``microbatches`` and
-``opt_dtype`` change what the step computes.
+The tables are the reference's, entry for entry, with its divisibility
+test against the production mesh's 16 (a dim 16 does not divide stays
+replicated, whatever the mesh).  Where the reference returns a
+``PartitionSpec``, this module returns a tuple of mesh-axis names (None:
+replicated; a tuple of names: split over those axes, outermost first),
+one entry a dim.  :func:`place` cuts a tree by its specs to the blocks a
+rank of a ``DeviceMesh`` holds (those of the reference's
+``NamedSharding`` at the rank's mesh coordinates) and :func:`gather`
+gathers them back; on a ``LocalMesh`` both are the identity.
 
 Strategies
 ----------
@@ -25,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import entry_axes
 
 Spec = Tuple[Any, ...]
 
@@ -332,3 +336,75 @@ def cache_specs_for(cache_shape, cfg: ModelConfig, plan: Plan,
         return tuple(spec)
 
     return _map_with_path(spec_for, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Placement: a tree cut to a rank's blocks by its specs, and back
+# ---------------------------------------------------------------------------
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (dicts, named tuples such as
+    ``OptState``) and its spec tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, tree[k], specs[k]) for k in tree}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_map_specs(fn, t, s)
+                            for t, s in zip(tree, specs)])
+    return fn(tree, tuple(specs))
+
+
+def block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The rank's block of the whole tensor ``x`` under ``spec`` on
+    ``mesh`` (a new contiguous tensor; ``x`` itself on a ``LocalMesh``):
+    each dim split over its axes, outermost first."""
+    from repro_torch.launch.mesh import axis_sizes, is_device_mesh
+    if not is_device_mesh(mesh):
+        return x
+    sizes = axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+    for dim, entry in enumerate(spec):
+        n, i = 1, 0
+        for a in entry_axes(entry):
+            n, i = n * sizes[a], i * sizes[a] + mesh.get_local_rank(a)
+        if n > 1:
+            if x.shape[dim] % n:
+                raise ValueError(f"place: {n} blocks do not divide dim "
+                                 f"{dim} of {tuple(x.shape)} ({spec})")
+            w = x.shape[dim] // n
+            x = x.narrow(dim, i * w, w)
+    return x.contiguous()
+
+
+def place(tree, specs, mesh):
+    """Every leaf of ``tree`` (whole tensors, the same on every rank) cut
+    to the rank's block by its spec (:func:`block`)."""
+    return _map_specs(lambda x, s: block(x, s, mesh), tree, specs)
+
+
+def gather(tree, specs, mesh):
+    """The inverse of :func:`place`: every rank's blocks gathered to the
+    whole tensors (the innermost axis of a dim first), on every rank;
+    for checkpoints and comparisons.  The identity on a ``LocalMesh``."""
+    from repro_torch.distributed import collectives as COL
+    from repro_torch.launch.mesh import axis_group, axis_sizes, is_device_mesh
+    if not is_device_mesh(mesh):
+        return tree
+    sizes = axis_sizes(mesh)
+
+    def whole(x, spec):
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                if sizes[a] > 1:
+                    x = torch.cat(COL._gather(x, axis_group(mesh, a)),
+                                  dim=dim)
+        return x
+    return _map_specs(whole, tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The spec tuples of a spec tree in ``tree_leaves`` order (sorted
+    dict keys), beside the parameters' leaves."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [tuple(specs)]

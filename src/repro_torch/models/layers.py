@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed import sharding as SH
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -230,7 +232,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
-                     window: int = 0, kv_start=None) -> torch.Tensor:
+                     window: int = 0, kv_start=None, cache_offset: int = 0,
+                     combine_axis=None, return_lse: bool = False):
     """Single-token ragged decode attention.
 
     q: (B, H, D); k/v_cache: (B, S, Kh, D); kv_len: (B,) valid lengths;
@@ -238,6 +241,16 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     ``[kv_start, kv_len)`` are attended (zeros where none is).
     As in the reference, q/sqrt(D) is rounded to the cache dtype and the
     products accumulate in f32 (exact products of the cache dtype).
+
+    ``cache_offset``: the global position of cache row 0 (a rank's block
+    of a cache whose sequence axis is split over a mesh axis).
+    ``combine_axis``: that mesh axis (a name of the ``DeviceMesh`` of the
+    installed ``axis_rules``): the running max is taken over its ranks,
+    then the sums and the accumulators are added over them (the
+    reference's ``pmax`` and ``psum``, in rank order), so every rank
+    returns the attention over all its ranks' rows.  ``return_lse``: also
+    each head's log-sum-exp (B, H) f32 of its scores over the attended
+    rows, -inf where a slot has none.
     """
     B, H, D = q.shape
     S, Kh = k_cache.shape[1], k_cache.shape[2]
@@ -245,7 +258,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     qf = (q / math.sqrt(D)).to(k_cache.dtype).reshape(B, Kh, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf.float(), k_cache.float())
     s = _softcap(s, softcap)
-    pos = torch.arange(S, device=q.device)
+    pos = cache_offset + torch.arange(S, device=q.device)
     kv_len = kv_len.to(q.device)
     valid = pos[None, :] < kv_len[:, None]
     if kv_start is not None:
@@ -254,14 +267,24 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
         valid &= pos[None, :] >= (kv_len[:, None] - window)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     m = torch.amax(s, dim=-1)                            # (B, Kh, G)
+    if combine_axis is not None:
+        m = SH.axis_max(m, combine_axis)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
                     torch.zeros_like(s))
     l = torch.sum(p, dim=-1)
     acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, H, D).to(q.dtype)
+    if combine_axis is not None:
+        l = SH.axis_sum(l, combine_axis)
+        acc = SH.axis_sum(acc, combine_axis)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, H, D)
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m_safe + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, float("-inf")))
+    return out, lse.reshape(B, H)
 
 
 # ---------------------------------------------------------------------------
@@ -299,15 +322,27 @@ def qkv_project(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,Kh,D); bias, qk-norm, rope.
 
     qk-norm uses rmsnorm's default eps (1e-6), not ``cfg.norm_eps``, as
-    the reference does."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    the reference does.
+
+    Under a placement with a model axis (``distributed/sharding.py``), x
+    is the column-parallel input (``sharding.enter_columns``), q holds
+    the rank's block of the heads and k/v the KV heads of ``wk``/``wv``
+    as the rank holds them (its block where the plan splits them, else
+    all of them): the reference's ``heads``/``kv_heads`` constraints."""
+    path = ("layers", "attn")
+    wq = SH.weight(p["wq"], path + ("wq",), split=1)
+    wk = SH.weight(p["wk"], path + ("wk",))
+    wv = SH.weight(p["wv"], path + ("wv",))
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + SH.weight(p["bq"], path + ("bq",), split=0)
+        k = k + SH.weight(p["bk"], path + ("bk",))
+        v = v + SH.weight(p["bv"], path + ("bv",))
     if "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        q = rmsnorm(q, SH.shared(p["q_norm"]))
+        k = rmsnorm(k, SH.shared(p["k_norm"]))
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
@@ -315,7 +350,13 @@ def qkv_project(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
 
 
 def attn_output(p: Params, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    """o (B, S, H or the rank's heads, D) -> (B, S, d), laid out as the
+    residual (``("batch", "seq", "embed")``: a row-parallel product's
+    partial sums reduced over the model axis)."""
+    wo = SH.weight(p["wo"], ("layers", "attn", "wo"), split=0)
+    out = torch.einsum("bshk,hkd->bsd", o, wo)
+    return SH.logical_constraint(out, ("batch", "seq", "embed"),
+                                 partial=SH.model_axis() is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -339,8 +380,11 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, gated: bool,
 
 def mlp(p: Params, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     """``act(x @ w_in) * (x @ w_gate) @ w_out`` — the reference's naming,
-    the opposite of the ``act(gate) * up`` habit elsewhere."""
-    h = x @ p["w_in"]
+    the opposite of the ``act(gate) * up`` habit elsewhere.  Under a
+    placement with a model axis the rank's FFN columns (the reference's
+    ``ffn`` constraint), the output laid out as the residual."""
+    path = ("layers", "mlp")
+    h = x @ SH.weight(p["w_in"], path + ("w_in",), split=1)
     if act == "silu":
         a = F.silu(h)
     elif act == "relu2":
@@ -350,5 +394,7 @@ def mlp(p: Params, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     else:
         raise ValueError(act)
     if gated:
-        a = a * (x @ p["w_gate"])
-    return a @ p["w_out"]
+        a = a * (x @ SH.weight(p["w_gate"], path + ("w_gate",), split=1))
+    out = a @ SH.weight(p["w_out"], path + ("w_out",), split=0)
+    return SH.logical_constraint(out, ("batch", "seq", "embed"),
+                                 partial=SH.model_axis() is not None)

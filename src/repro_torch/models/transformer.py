@@ -60,6 +60,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as COL
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -176,7 +178,25 @@ def init_norm(cfg, dtype, device):
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    """(B, S) ids -> (B, S, d) in the compute dtype.  Under a placement
+    with a model axis, as the embedding's spec holds it: vocabulary rows
+    split (a tied head) -> a lookup masked to the rank's rows, summed
+    over the axis; the model dim split (an untied one) -> the rank's
+    columns, gathered."""
+    emb = params["embed"]
+    ax = SH.model_axis()
+    spec = SH.param_spec(("embed",), 2)
+    if ax is not None and ax.name in SH.entry_axes(spec[0]):
+        n = emb.shape[0]
+        local = tokens.long() - ax.rank * n
+        inside = (local >= 0) & (local < n)
+        x = emb[local.clamp(0, n - 1)] * inside[..., None]
+        x = COL.all_reduce(x, ax.group)
+    elif ax is not None and ax.name in SH.entry_axes(spec[1]):
+        x = COL.all_gather(emb[tokens.long()], ax.group, 2, grad="slice")
+    else:
+        x = emb[tokens.long()]
+    x = x.to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -191,8 +211,22 @@ def head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    x = L.norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
-    logits = x @ head_weight(params, cfg)
+    """Final norm, head, softcap.  Under a placement the head is the
+    rank's block of it (``sharding.weight``): with the vocabulary split
+    over the model axis the logits are the rank's block of the
+    vocabulary, over the whole sequence."""
+    x = L.norm(x, SH.seq_shared(params["final_norm"]), cfg.norm_type,
+               cfg.norm_eps)
+    split = SH.vocab_split() is not None
+    if split:
+        x = SH.enter_columns(x)
+    if cfg.tie_embeddings:
+        w = SH.weight(params["embed"], ("embed",),
+                      split=0 if split else None).T
+    else:
+        w = SH.weight(params["lm_head"], ("lm_head",),
+                      split=1 if split else None)
+    logits = x @ w.to(cfg.compute_dtype)
     if cfg.logit_softcap > 0:
         logits = L._softcap(logits.float(), cfg.logit_softcap)
     return logits
@@ -217,13 +251,25 @@ def mlp_fn(cfg: ModelConfig, with_aux: bool = True, ep_mesh=None,
 
 def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor, attend, mlp) -> Tuple[torch.Tensor, ...]:
-    """Returns (x, k, v, aux): ``mlp`` is an ``mlp_fn``."""
-    h = L.norm(x, bp["ln1"], cfg.norm_type, cfg.norm_eps)
-    q, k, v = L.qkv_project(bp["attn"], cfg, h, positions)
+    """Returns (x, k, v, aux): ``mlp`` is an ``mlp_fn``; ``attend(q, k,
+    v)`` gets k/v with the KV heads the rank holds (``for_q`` picks those
+    its query heads read).  Under a placement (``distributed/
+    sharding.py``) x is the residual as the rank holds it (its block of
+    the sequence under sequence parallelism) and the products run on the
+    rank's heads and FFN columns."""
+    h = L.norm(x, SH.seq_shared(bp["ln1"]), cfg.norm_type, cfg.norm_eps)
+    q, k, v = L.qkv_project(bp["attn"], cfg, SH.enter_columns(h), positions)
     x = x + L.attn_output(bp["attn"], attend(q, k, v))
-    h = L.norm(x, bp["ln2"], cfg.norm_type, cfg.norm_eps)
-    y, aux = mlp(bp["mlp"], h)
+    h = L.norm(x, SH.seq_shared(bp["ln2"]), cfg.norm_type, cfg.norm_eps)
+    y, aux = mlp(bp["mlp"], SH.enter_columns(h))
     return x + y, k, v, aux
+
+
+def for_q(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
+    """The KV heads of ``k`` (B, S, heads as the rank holds them, D) that
+    the rank's query heads read (all of them without a model axis)."""
+    lo, hi = SH.kv_heads_for_q(cfg.num_heads, cfg.num_kv_heads, k.shape[2])
+    return k if (lo, hi) == (0, k.shape[2]) else k[:, :, lo:hi]
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +296,9 @@ def forward(params: Params, cfg: ModelConfig,
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    # the residual as the rank holds it (its block of the sequence under
+    # sequence parallelism); positions are the whole sequence's
+    x = SH.logical_constraint(x, ("batch", "seq", "embed"))
     attention = (L.full_attention if S <= FULL_ATTN_MAX_SEQ
                  else L.blockwise_attention)
     pl = pattern_len(cfg)
@@ -258,7 +307,8 @@ def forward(params: Params, cfg: ModelConfig,
     def group(x, aux_sum, gi):
         for i in range(gi * pl, (gi + 1) * pl):
             def attend(q, k, v, window=_sub_window(cfg, i % pl)):
-                return attention(q, k, v, causal=True, window=window,
+                return attention(q, for_q(cfg, k), for_q(cfg, v),
+                                 causal=True, window=window,
                                  softcap=cfg.attn.attn_softcap)
             x, _, _, aux = _block(layer(params, i, cfg), cfg, x, positions,
                                   attend, mlp)
@@ -351,13 +401,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         W = cache["k_local"].shape[2]
         ring = ring_fill_positions(prompt_lens.to(x.device), W, S)
         ring = ring[:, :, None, None].expand(
-            B, ring.shape[1], cfg.num_kv_heads, cfg.resolved_head_dim)
+            B, ring.shape[1], cache["k_local"].shape[3],
+            cfg.resolved_head_dim)
 
     mlp = mlp or mlp_fn(cfg, with_aux=False)
     for i in range(cfg.num_layers):
         def attend(q, k, v, window=_sub_window(cfg, i % pl)):
-            return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous(), seg_ids=seg_ids,
+            return ops.flash_attention(q.contiguous(),
+                                       for_q(cfg, k).contiguous(),
+                                       for_q(cfg, v).contiguous(),
+                                       seg_ids=seg_ids,
                                        window=window,
                                        softcap=cfg.attn.attn_softcap)
         x, k, v, _ = _block(layer(params, i, cfg), cfg, x, positions, attend,
@@ -420,15 +473,42 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     b = torch.arange(token.shape[0], device=token.device)
     row = kv_len.long()
     n_valid = (kv_len + 1).contiguous()
+    # a placed cache split over its sequence axis: this rank holds rows
+    # [off, off + S_l), writes the new row only where it falls there, and
+    # the ranks' outputs are combined from the dense decode's lse
+    seq_axes = SH.cache_seq_axes("k")
+    mine = None
+    if seq_axes:
+        if cfg.attn.sliding_window:
+            raise NotImplementedError(
+                "decode over a sequence-split cache with a window")
+        S_l = cache["k"].shape[2]
+        off = SH.block_index(seq_axes) * S_l
+        mine = (row >= off) & (row < off + S_l)
+        b, row = b[mine], row[mine] - off
+        n_valid = (kv_len + 1 - off).clamp(0, S_l).to(torch.int32)
+        n_valid = n_valid.contiguous()
 
     def attend_layer(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[b, row] = k[:, 0].to(kc.dtype)
-        vc[b, row] = v[:, 0].to(vc.dtype)
-        o = ops.ragged_decode_attention(
-            q[:, 0].contiguous(), kc, vc, n_valid,
-            softcap=cfg.attn.attn_softcap, window=cfg.attn.sliding_window)
-        return o[:, None]
+        if for_q(cfg, kc).shape[2] != kc.shape[2]:
+            raise NotImplementedError(
+                "decode on a model axis whose ranks read a part of the "
+                "KV heads their cache holds")
+        kn, vn = k[:, 0], v[:, 0]
+        if mine is not None:
+            kn, vn = kn[mine], vn[mine]
+        kc[b, row] = kn.to(kc.dtype)
+        vc[b, row] = vn.to(vc.dtype)
+        q0 = q[:, 0].contiguous()
+        attn = dict(softcap=cfg.attn.attn_softcap,
+                    window=cfg.attn.sliding_window)
+        if not seq_axes:
+            return ops.ragged_decode_attention(q0, kc, vc, n_valid,
+                                               **attn)[:, None]
+        o, lse = ops.ragged_decode_attention(q0, kc, vc, n_valid,
+                                             return_lse=True, **attn)
+        return SH.combine_over(o, lse, seq_axes)[:, None]
 
     out = _decode_layers(params, cfg, token, kv_len, attend_layer,
                          return_hidden, mlp)

@@ -12,6 +12,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as SH
+
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
@@ -29,25 +31,40 @@ def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor
     """logits: (B, S, V) predicting token t+1 at position t.
     Returns log pi(tokens[t] | <t) aligned to positions (B, S): entry t is
     the log-prob OF token t (from logits at t-1); entry 0 is 0.  The
-    log-softmax runs in f32 over the whole vocabulary."""
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    lp_next = torch.gather(lp[:, :-1], 2,
-                           tokens[:, 1:, None].long())[..., 0]   # (B, S-1)
+    log-softmax runs in f32 over the whole vocabulary.
+
+    Where the head's vocabulary is split over the model axis of a
+    placement (``distributed/sharding.py``), ``logits`` is the rank's
+    block of it: the max and the sum of exponentials are taken over the
+    ranks and the target's logit comes from the rank that holds it, so
+    no rank holds the whole (B, S, V) f32 tensor."""
+    ax = SH.vocab_split()
+    if ax is None:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        lp_next = torch.gather(lp[:, :-1], 2,
+                               tokens[:, 1:, None].long())[..., 0]
+    else:
+        lf = logits[:, :-1].float()
+        lp_next = (SH.split_pick(lf, tokens[:, 1:], ax)
+                   - SH.split_logsumexp(lf, ax))              # (B, S-1)
     return torch.nn.functional.pad(lp_next, (1, 0))
 
 
 def ppo_clip_loss(new_logprobs: torch.Tensor, old_logprobs: torch.Tensor,
                   advantages: torch.Tensor, loss_mask: torch.Tensor,
-                  cfg: LossConfig
+                  cfg: LossConfig, den: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Eq. 1 with clip-higher.  All inputs (B, S); mask selects generated
-    tokens.  Returns (scalar loss, metrics)."""
+    tokens.  Returns (scalar loss, metrics).  ``den`` replaces the masked
+    means' denominator ``max(loss_mask.sum(), 1)``: a rank holding some
+    of a batch's rows passes the whole batch's, so its loss and metrics
+    are its rows' parts of the whole batch's."""
     ratio = torch.exp(new_logprobs - old_logprobs)
     unclipped = ratio * advantages
     clipped = torch.clamp(ratio, 1.0 - cfg.clip_eps_low,
                           1.0 + cfg.clip_eps_high) * advantages
     obj = torch.minimum(unclipped, clipped)
-    n = torch.clamp(loss_mask.sum(), min=1.0)
+    n = torch.clamp(loss_mask.sum(), min=1.0) if den is None else den
     loss = -(obj * loss_mask).sum() / n
     clip_frac = ((torch.abs(ratio - 1.0) > cfg.clip_eps_low)
                  * loss_mask).sum() / n
@@ -70,13 +87,23 @@ def total_loss(logits: torch.Tensor, aux: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor], cfg: LossConfig,
                values: Optional[torch.Tensor] = None,
                returns: Optional[torch.Tensor] = None,
+               den: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B,S), loss_mask (B,S), advantages (B,S),
-    old_logprobs (B,S)."""
+    old_logprobs (B,S).  ``den``: the policy loss's token count where the
+    batch is a rank's part of one (``ppo_clip_loss``)."""
     new_lp = token_logprobs(logits, batch["tokens"])
     loss, metrics = ppo_clip_loss(new_lp, batch["old_logprobs"],
                                   batch["advantages"], batch["loss_mask"],
-                                  cfg)
+                                  cfg, den=den)
+    if den is not None and (cfg.entropy_coef or values is not None):
+        raise NotImplementedError("total_loss: den with the entropy or "
+                                  "value terms")
+    if SH.batch_axes() and any(torch.is_tensor(aux.get(k))
+                               for k in ("load_balance", "router_z")):
+        raise NotImplementedError(
+            "total_loss: the routers' aux losses are the whole batch's; a "
+            "rank holding some of its rows cannot give them")
     if cfg.entropy_coef:
         p = torch.softmax(logits.float(), dim=-1)
         ent = -(p * torch.log(p + 1e-9)).sum(-1)

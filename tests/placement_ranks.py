@@ -1,0 +1,307 @@
+"""The port's side of ``tests/test_torch_placement*.py``: one gloo rank.
+
+    PYTHONPATH=src:tests python tests/placement_ranks.py DIR PART WORLD RANK
+
+joins a world of WORLD gloo ranks through a ``FileStore`` in DIR (60 s
+timeout), runs every case of ``PART`` (``main`` or ``steps``, as
+``placement_reference.py``) whose mesh has WORLD ranks on
+``make_compat_mesh(shape, ("data", "model"), "cpu")``, and pickles its
+results to ``DIR/port_<PART>_w<WORLD>_r<RANK>.pkl``.  One torch thread.
+It reads ``DIR/inputs.npz``.
+
+The placement cases cut the whole input trees with ``plans.place`` by
+the step's ``in_shardings`` and keep each leaf's digest; the step cases
+run the placed steps on the rank's blocks and gather their results
+(``plans.gather``) for the comparison, with a digest of the replicated
+parameters after each train step.
+"""
+import dataclasses
+import datetime
+import hashlib
+import pickle
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from placement_cases import (ARCHS, B, COMBINE, NARROW, PLACE_CASES,
+                             PREFILL_CASES, PREFILL_S, REPLICATED_TRAIN, SERVE_CASES, SERVE_S,
+                             SERVE_STEPS, TRAIN_CASES, TRAIN_S, TRAIN_STEPS,
+                             UPDATE_MESHES, UPDATE_MOE, UPDATE_VOCAB,
+                             batch_arrays, digest,
+                             draw, entries, flat, leaves, reward,
+                             shape_key, unflat, world_of)
+from repro_torch import convert
+from repro_torch.configs import base as TB
+from repro_torch.core.buffer import BufferEntry
+from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as TMESH
+from repro_torch.launch import plans as TP
+from repro_torch.launch import steps as TS
+from repro_torch.models import layers as L
+from repro_torch.models.model import build_model
+from repro_torch.rl import trainer as TT
+from repro_torch.train import optimizer as TO
+
+KIND = {"train_4k": ("train", TRAIN_S), "prefill_32k": ("prefill",
+                                                        PREFILL_S),
+        "decode_32k": ("decode", SERVE_S)}
+
+
+def config(key):
+    arch, extra = ARCHS[key]
+    return TB.get_smoke_config(arch).replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+        **dict(NARROW, **extra))
+
+
+def mesh_of(shape):
+    return TMESH.make_compat_mesh(shape, ("data", "model"), "cpu")
+
+
+def coords(mesh):
+    return (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+
+
+def spec_leaves(tree, specs, prefix=""):
+    """{path: spec tuple} beside ``leaves(tree)``."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k], specs[k]) for k in tree]
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", range(len(tree)))
+        items = list(zip(names, tree, specs))
+    else:
+        return {prefix.rstrip("/"): tuple(specs)}
+    out = {}
+    for k, t, s in items:
+        out.update(spec_leaves(t, s, f"{prefix}{k}/"))
+    return out
+
+
+def run_place(name, key, shape_name, mesh_shape):
+    cfg = config(key)
+    plan = TP.get_plan(ARCHS[key][0], shape_name)
+    kind, S = KIND[shape_name]
+    mesh = mesh_of(mesh_shape)
+    built = TS.build_step(cfg, TB.ShapeConfig(shape_name, S, B, kind), plan,
+                          mesh, False, device="cpu")
+    specs = leaves(built.in_specs)
+    shards = spec_leaves(built.in_specs, built.in_shardings)
+    out = {}
+    for path, meta in specs.items():
+        x = torch.from_numpy(draw(tuple(meta.shape), shape_key(path)))
+        out[path] = {coords(mesh): digest(TP.block(x, shards[path],
+                                                   mesh).numpy())}
+    return out
+
+
+def run_combine(inp):
+    Bc, H, Kh, D, R, n = COMBINE
+    mesh = mesh_of((1, n))
+    r = mesh.get_local_rank("model")
+    q = torch.from_numpy(inp["combine/q"])
+    k, v = (torch.from_numpy(inp[f"combine/{x}"])[:, r * R:(r + 1) * R]
+            .contiguous() for x in ("k", "v"))
+    kv = torch.from_numpy(inp["combine/kv_len"])
+    with SH.axis_rules(mesh, {}):
+        plain = L.decode_attention(q, k, v, kv, cache_offset=r * R,
+                                   combine_axis="model")
+    # the serve step's route: each block through the kernel's wrapper
+    # (its plain version on the CPU) with lse, combined over the ranks
+    local = (kv - r * R).clamp(0, R).to(torch.int32)
+    o, lse = ops.ragged_decode_attention(q, k, v, local, return_lse=True)
+    with SH.axis_rules(mesh, {}, SH.Placement()):
+        ax = SH.mesh_axis(mesh, "model")
+        kernel = SH.combine_over(o, lse, (ax,))
+    return {"plain": plain.numpy(), "kernel_route": kernel.numpy(),
+            "block_lse": lse.numpy()}
+
+
+def params_digest(params):
+    h = hashlib.sha256()
+    for leaf in TO.tree_leaves(params):
+        h.update(leaf.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+def update_config(which):
+    if which == "tiny":
+        return TB.tiny_lm_config(UPDATE_VOCAB, 64, 2)
+    return TB.get_smoke_config(UPDATE_MOE).replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+def run_update(inp, mesh_shape, which="tiny"):
+    model = build_model(update_config(which), device="cpu")
+    params = convert.from_jax_params(unflat(inp, f"{which}/"), device="cpu")
+    trainer = TT.RLTrainer(model, params, reward, pad_id=0, max_len=64,
+                           advantage_kind="grpo")
+    mesh = mesh_of(mesh_shape)
+    recs, digests, rows = [], [], []
+    seen = {}
+
+    real = TT.shard_update_batch
+
+    def spy(batch, pad_token=0, split=True):
+        out = real(batch, pad_token, split)
+        seen["rows"] = int(out["tokens"].shape[0])
+        return out
+    TT.shard_update_batch = spy
+    try:
+        with SH.axis_rules(mesh, SH.train_rules()):
+            for s in range(2):
+                recs.append(trainer.update(entries(BufferEntry, s), s))
+                digests.append(params_digest(trainer.params()))
+                rows.append(seen["rows"])
+    finally:
+        TT.shard_update_batch = real
+    out = {"recs": recs, "digests": digests, "rows": rows,
+           "coords": coords(mesh)}
+    out.update({f"param/{k}": v.detach().numpy()
+                for k, v in flat(trainer.params()).items()})
+    return out
+
+
+def train_plan(key, micro):
+    plan = TP.get_plan(ARCHS[key][0], "train_4k")
+    return plan if micro is None else dataclasses.replace(
+        plan, microbatches=micro)
+
+
+def replicated_digest(params, pleaves):
+    """sha256 of the leaves replicated on every rank (no axis in their
+    spec), in tree order."""
+    h = hashlib.sha256()
+    for leaf, spec in zip(TO.tree_leaves(params), pleaves):
+        if all(e is None for e in spec):
+            h.update(leaf.detach().float().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_train(inp, key, mesh_shape, micro, rows):
+    cfg = config(key)
+    plan = train_plan(key, micro)
+    mesh = mesh_of(mesh_shape)
+    built = TS.build_train_step(cfg, TB.ShapeConfig("train_4k", TRAIN_S, rows,
+                                                    "train"),
+                                plan, mesh, False, device="cpu")
+    pspecs, ospecs, bspecs = built.in_shardings
+    full = convert.from_jax_params(unflat(inp, f"params_{key}/"),
+                                   device="cpu")
+    params = TP.place(full, pspecs, mesh)
+    opt = TP.place(TO.init_opt_state(full, TO.AdamWConfig(
+        state_dtype=plan.opt_dtype)), ospecs, mesh)
+    batch = TP.place({k: torch.from_numpy(v) for k, v in
+                      batch_arrays("train", TRAIN_S, rows=rows).items()}, bspecs, mesh)
+    pleaves = TP.spec_leaves(pspecs)
+    out = {"coords": coords(mesh),
+           "local_shapes": {k: tuple(v.shape)
+                            for k, v in flat(params).items()}}
+    for i in range(TRAIN_STEPS):
+        params, opt, m = built.fn(params, opt, batch)
+        out[f"loss_{i}"] = float(m["loss"])
+        out[f"grad_norm_{i}"] = float(m["grad_norm"])
+        out[f"digest_{i}"] = replicated_digest(params, pleaves)
+    out["params"] = {k: v.float().numpy() for k, v in
+                     flat(TP.gather(params, pspecs, mesh)).items()}
+    out["moment_shapes"] = {k: tuple(v.shape)
+                            for k, v in flat(opt.m).items()}
+    return out
+
+
+def run_prefill(inp, key, mesh_shape):
+    cfg = config(key)
+    plan = TP.get_plan(ARCHS[key][0], "prefill_32k")
+    mesh = mesh_of(mesh_shape)
+    built = TS.build_prefill_step(
+        cfg, TB.ShapeConfig("prefill_32k", PREFILL_S, B, "prefill"), plan,
+        mesh, False, device="cpu")
+    pspecs, bspecs, cspecs = built.in_shardings
+    params = TP.place(convert.from_jax_params(
+        unflat(inp, f"params_{key}/"), device="cpu"), pspecs, mesh)
+    batch = TP.place({k: torch.from_numpy(v) for k, v in
+                      batch_arrays("prefill", PREFILL_S).items()},
+                     bspecs, mesh)
+    cache = TP.place(built.model.init_cache(B, TS._round_len(PREFILL_S + 8)),
+                     cspecs, mesh)
+    local = {k: tuple(v.shape) for k, v in cache.items()}
+    tok, cache = built.fn(params, batch, cache)
+    return {"token": tok.numpy(), "cache_local_shapes": local,
+            "cache": {k: v.numpy() for k, v in
+                      TP.gather(cache, cspecs, mesh).items()}}
+
+
+def run_serve(inp, key, mesh_shape):
+    cfg = config(key)
+    plan = TP.get_plan(ARCHS[key][0], "decode_32k")
+    mesh = mesh_of(mesh_shape)
+    built = TS.build_serve_step(
+        cfg, TB.ShapeConfig("decode_32k", SERVE_S, B, "decode"), plan, mesh,
+        False, device="cpu")
+    pspecs, tspec, cspecs, _ = built.in_shardings
+    params = TP.place(convert.from_jax_params(
+        unflat(inp, f"params_{key}/"), device="cpu"), pspecs, mesh)
+    cache = TP.place({k: torch.from_numpy(draw(tuple(v.shape),
+                                               shape_key(f"serve_cache/{k}")))
+                      for k, v in built.in_specs[2].items()}, cspecs, mesh)
+    step_in = {k: torch.from_numpy(v)
+               for k, v in batch_arrays("decode", SERVE_S).items()}
+    tok = TP.block(step_in["token"], tspec, mesh)
+    kv = TP.block(step_in["kv_len"], tspec, mesh)
+    out = {"cache_local_shapes": {k: tuple(v.shape)
+                                  for k, v in cache.items()}}
+    calls = []
+    real = ops.ragged_decode_attention
+
+    def counted(*a, **kw):
+        calls.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+    ops.ragged_decode_attention = counted
+    try:
+        for i in range(SERVE_STEPS):
+            tok, lp, cache = built.fn(params, tok, cache, kv)
+            out[f"token_{i}"] = TP.gather(tok, tspec, mesh).numpy()
+            out[f"logprob_{i}"] = TP.gather(lp, tspec, mesh).numpy()
+            kv = kv + 1
+    finally:
+        ops.ragged_decode_attention = real
+    out["decode_calls"] = calls
+    out["cache"] = {k: v.numpy() for k, v in
+                    TP.gather(cache, cspecs, mesh).items()}
+    return out
+
+
+def main(DIR, part, world, rank):
+    torch.set_num_threads(1)
+    store = dist.FileStore(str(Path(DIR) / f"store_{part}_w{world}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    inp = dict(np.load(Path(DIR) / "inputs.npz"))
+    out = {}
+    if part == "main":
+        if world == 4:
+            for case in PLACE_CASES:
+                out[case[0]] = run_place(*case)
+            out["combine"] = run_combine(inp)
+            out[REPLICATED_TRAIN[0]] = run_train(inp, *REPLICATED_TRAIN[1:])
+        for m in UPDATE_MESHES:
+            if world_of(m) == world:
+                out[f"update_m{m[0]}x{m[1]}"] = run_update(inp, m)
+                out[f"update_moe_m{m[0]}x{m[1]}"] = run_update(inp, m, "moe")
+    else:
+        for name, key, m, micro, rows in TRAIN_CASES:
+            out[name] = run_train(inp, key, m, micro, rows)
+        for name, key, m in PREFILL_CASES:
+            out[name] = run_prefill(inp, key, m)
+        for name, key, m in SERVE_CASES:
+            out[name] = run_serve(inp, key, m)
+    dist.destroy_process_group()
+    with open(Path(DIR) / f"port_{part}_w{world}_r{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))

@@ -83,8 +83,8 @@ def split_body_wrapper(torch, rdm, build, lib):
         rc = lib.ragged_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_len.data_ptr(), build.data_ptr(kv_start), out.data_ptr(),
-            build.data_ptr(ml), build.data_ptr(acc), None, None, B, H, S,
-            Kh, D, float(softcap), 1, build.stream_ptr(dev))
+            None, build.data_ptr(ml), build.data_ptr(acc), None, None, B, H,
+            S, Kh, D, float(softcap), 1, build.stream_ptr(dev))
         build.check(rc, "split_body")
         return out
     return call

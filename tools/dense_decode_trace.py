@@ -136,7 +136,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     so = build_traced(build)
     fn = so.ragged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     so.ragged_decode_workspace_floats.argtypes = [ctypes.c_int] * 3
     so.ragged_decode_workspace_floats.restype = ctypes.c_longlong
@@ -153,7 +153,7 @@ def main() -> int:
                          device=dev)
         cnt = torch.zeros(2 * B * Kh, dtype=torch.int32, device=dev)
         out = torch.empty_like(q)
-        args = [q, kc, vc, kv, st, out, None, None, ws, cnt]
+        args = [q, kc, vc, kv, st, out, None, None, None, ws, cnt]
         runs = []
         for _ in range(5):
             so.dd_trace_clear()
