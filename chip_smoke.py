@@ -49,8 +49,10 @@ Phases, each printing one JSON line:
    and at their edges (``family_shapes``); the launch path's long rows:
    the dense decode's lse output (``LSE_RULE``) at the serve shape, at
    one ``seqshard`` block of decode_32k (8,320 rows, a slot with none),
-   over one 33,280-row slot (every CTA's merge) and in f32, timed with
-   and without it; decode_32k's 33,280 rows cut into 4 blocks, each
+   over one 33,280-row slot (every CTA's merge), in f32, and at the
+   placed serve steps' blocks (``LSE_PLACED_CASES``: Gemma2's (256, 2)
+   under its softcap 50 over a long_500k block and a ring block,
+   Nemotron's (192, 12)), timed with and without it; decode_32k's 33,280 rows cut into 4 blocks, each
    through the kernel with its lse and combined, against one call
    (``DECODE_RULE``);
    flash at S = 32,768 (and 32,767), the dense decode over 33,280 rows
@@ -140,9 +142,12 @@ Phases, each printing one JSON line:
    ``mesh``: the dense family's placed launch steps on an NCCL world of
    one and the (1, 1) ``DeviceMesh``: Qwen3-0.6B at full width, bf16, 4
    layers, its train_4k (B 2, S 4096, 2 steps), prefill_32k (B 1) and
-   decode_32k (B 8, 4 steps) plans, each against the same step on
-   ``make_local_mesh()`` bit for bit (tokens, caches, loss, grad norm,
-   every leaf), flash and dense decode launches counted.
+   decode_32k (B 8, 4 steps) plans, Gemma2-2B's decode_32k (B 8) and
+   long_500k (B 1) serve steps over its ring and global caches, and the
+   ``decode_2d`` serve steps of Qwen1.5-110B (4 layers) and
+   Nemotron-4-340B (2 layers, B 8), each against the same step on
+   ``make_local_mesh()`` bit for bit (tokens, log-probs, caches, loss,
+   grad norm, every leaf), flash and dense decode launches counted.
    ``families``: Gemma2-2B at full width and depth (26 local/global
    layers, rings of 4096, the dense layout, 16 requests of 512-6144 ids
    in one 8192-wide wave), Qwen1.5-110B at full width cut to 4 layers and
@@ -627,18 +632,45 @@ def decode_excess(out, want):
 LSE_RULE = ("|lse - want| <= u * max over live rows of sum_d |q_d| |k_d| "
             "/ sqrt(D) + 1e-4, u = 2^-8 in bf16 (the plain version rounds "
             "q / sqrt(D) to bf16; the kernel scales the f32 product), 0 in "
-            "f32; -inf exactly where the plain version has it")
+            "f32; under a softcap |lse - want| <= LSE_CAP_TOL; -inf "
+            "exactly where the plain version has it; the output within "
+            "DECODE_RULE of the plain version's")
 # one seqshard block of decode_32k's 33,280 cache rows on 4 ranks, Qwen3's
 # heads (H 16, Kh 8, D 128): slot 3 has no live row in the block
 LSE_BLOCK_LENS = [8320, 8320, 5000, 0, 1, 17, 8320, 4000]
+# the placed serve steps' blocks, (name, dtype, kv_len, rows, H, Kh, D,
+# softcap): Gemma2's heads under its attention softcap 50 (q scaled by
+# LSE_CAP_QSCALE so that the scores reach the cap: the lse must be the
+# capped scores'), one long_500k block of 524,800 rows on 4 ranks and one
+# 1,024-row block of its 4,096-row ring on (1, 4) (slots 1 and 5 with no
+# live row there); Nemotron's (192, 12) at a decode_2d block of 8,320
+LSE_PLACED_CASES = (
+    ("gemma2_long_block_b1_s131200_bf16_cap50", "bfloat16", [131_200],
+     131_200, 8, 4, 256, 50.0),
+    ("gemma2_ring_block_b8_s1024_bf16_cap50", "bfloat16",
+     [1024, 0, 5, 1024, 300, 0, 1024, 17], 1024, 8, 4, 256, 50.0),
+    ("nemotron_block_b8_s8320_bf16", "bfloat16", LSE_BLOCK_LENS, 8320, 96,
+     8, 192, 0.0))
+LSE_CAP_QSCALE = 40.0
+# the capped cases' lse limit: the top scores sit near the cap, where
+# tanh' is near 0 and q's bf16 rounding barely moves them (an H100 gave
+# 1.1e-5); the uncapped bound, u * max sum_d |q_d| |k_d| / sqrt(D), is
+# about 1.7 nats there and would let scores capped from a wrong scale pass
+LSE_CAP_TOL = 1e-3
 COMBINE_ROWS, COMBINE_BLOCKS = 33_280, 4
 COMBINE_LENS = [33_272, 33_272, 20_000, 8_000, 1, 33_280, 12_345, 9_000]
 
 
-def lse_excess(torch, lse, want, q, k, kv_len, bf16):
+def lse_excess(torch, lse, want, q, k, kv_len, bf16, softcap=0.0):
     """Max of |lse - want| less ``LSE_RULE``'s bound over the heads with
-    live rows (<= 0 passes), and whether -inf sits exactly where
-    ``want`` has it."""
+    live rows (<= 0 passes; ``LSE_CAP_TOL`` under a softcap), and whether
+    -inf sits exactly where ``want`` has it."""
+    inf_equal = bool(torch.equal(torch.isneginf(lse), torch.isneginf(want)))
+    fin = torch.isfinite(want)
+    if softcap:
+        excess = float((lse - want).abs()[fin].max()) - LSE_CAP_TOL \
+            if fin.any() else 0.0
+        return excess, inf_equal
     B, H, D = q.shape
     S, Kh = k.shape[1], k.shape[2]
     qa = q.float().abs().reshape(B, Kh, H // Kh, D) / D ** 0.5
@@ -649,8 +681,6 @@ def lse_excess(torch, lse, want, q, k, kv_len, bf16):
             s = torch.einsum("kgd,skd->kgs", qa[b], k[b].float().abs())
             bound[b] = s[..., live[b]].amax(dim=-1).reshape(H)
     tol = (2.0 ** -8 if bf16 else 0.0) * bound + 1e-4
-    inf_equal = bool(torch.equal(torch.isneginf(lse), torch.isneginf(want)))
-    fin = torch.isfinite(want)
     excess = float(((lse - want).abs() - tol)[fin].max()) if fin.any() \
         else 0.0
     return excess, inf_equal
@@ -670,14 +700,19 @@ def dense_lse_checks(torch, dev, serve_args, report):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ragged_decode_attention as rdm
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("serve_b32_s2048_bf16", serve_args)]
-    for name, dt, lens, S, H, Kh, D in (
+    cases = [("serve_b32_s2048_bf16", serve_args, {})]
+    for name, dt, lens, S, H, Kh, D, cap in (
             ("seqshard_block_b8_s8320_bf16", bf16, LSE_BLOCK_LENS, 8320, 16,
-             8, 128),
-            ("one_slot_b1_s33280_bf16", bf16, [33_280], 33_280, 16, 8, 128),
+             8, 128, 0.0),
+            ("one_slot_b1_s33280_bf16", bf16, [33_280], 33_280, 16, 8, 128,
+             0.0),
             ("split_merge_b4_s4096_f32", f32, [4096, 0, 1, 3000], 4096, 16,
-             8, 128)):
-        cases.append((name, dense_inputs(torch, dev, dt, lens, S, H, Kh, D)))
+             8, 128, 0.0)) + LSE_PLACED_CASES:
+        dt = getattr(torch, dt) if isinstance(dt, str) else dt
+        args = dense_inputs(torch, dev, dt, lens, S, H, Kh, D)
+        if cap:                     # scores of a few caps' size: tanh bites
+            args = (args[0] * LSE_CAP_QSCALE,) + args[1:]
+        cases.append((name, args, {"softcap": cap} if cap else {}))
     pieces = ref.ragged_decode_work_plan(
         [33_280], None, 33_280, 8, rdm.hopper_ctas(128, 2),
         rdm.hopper_rows(128, 2), rdm.hopper_group(128, 2, 8))[1]
@@ -685,26 +720,31 @@ def dense_lse_checks(torch, dev, serve_args, report):
     check(spread >= 33, f"dense lse: the one-slot case's item has {spread} "
           "pieces, not the every-CTA merge's 33 or more")
     rows = []
-    for name, args in cases:
+    for name, args, kw in cases:
         q, k, v, kv = args
-        out, lse = ops.ragged_decode_attention(*args, return_lse=True)
-        plain = ops.ragged_decode_attention(*args)
-        want_o, want = ref.ragged_decode_attention_ref(*args, return_lse=True)
+        out, lse = ops.ragged_decode_attention(*args, return_lse=True, **kw)
+        plain = ops.ragged_decode_attention(*args, **kw)
+        want_o, want = ref.ragged_decode_attention_ref(*args, return_lse=True,
+                                                       **kw)
         torch.cuda.synchronize()
         excess, inf_equal = lse_excess(torch, lse, want, q, k, kv,
-                                       q.dtype == bf16)
+                                       q.dtype == bf16, kw.get("softcap", 0))
         row = {"case": name, "lse_excess": excess, "inf_equal": inf_equal,
                "out_equal_without_lse": bool(torch.equal(out, plain)),
+               "out_excess": decode_excess(out, want_o)[0],
                "lse_max_abs_err": float((lse - want)[torch.isfinite(want)]
                                         .abs().max())}
-        check(excess <= 0 and inf_equal and row["out_equal_without_lse"],
-              f"dense lse/{name}: {row}")
+        check(excess <= 0 and inf_equal and row["out_equal_without_lse"]
+              and row["out_excess"] <= 0, f"dense lse/{name}: {row}")
         empty = (kv == 0).nonzero()[:, 0]
         if len(empty):
             check(bool((out[empty] == 0).all())
                   and bool(torch.isneginf(lse[empty]).all()),
                   f"dense lse/{name}: a slot with no live row")
         rows.append(row)
+        del q, k, v, out, plain, want_o, lse, want
+    del cases, args
+    release(torch)
     ms = cuda_ms_cold(torch, lambda: ops.ragged_decode_attention(
         *serve_args))
     ms_lse = cuda_ms_cold(torch, lambda: ops.ragged_decode_attention(
@@ -5753,15 +5793,27 @@ def phase_moe_ep(torch, dev, launches):
 # The placed launch steps on an NCCL world of one
 # ---------------------------------------------------------------------------
 
-# shape -> (S, B): Qwen3-0.6B's plans at PERF.md section 4's cut batches
-# (train_4k 2 rows, prefill_32k 1, decode_32k 8) at MESH_DEPTH layers
-MESH_RUNS = {"train_4k": (4096, 2), "prefill_32k": (32_768, 1),
-             "decode_32k": (32_768, 8)}
 MESH_DEPTH = 4
+# label -> (arch, shape, S, B, layers): Qwen3-0.6B's plans at PERF.md
+# section 4's cut batches (train_4k 2 rows, prefill_32k 1, decode_32k 8);
+# the placed serve steps of Gemma2-2B's local/global cache (decode_32k at
+# B 8 of 128, long_500k at its B 1) and of decode_2d (Qwen1.5-110B and
+# Nemotron-4-340B at decode_32k, B 8 of 128); full widths, depth cut to
+# MESH_DEPTH layers (Nemotron to 2: 32.7 GB of bf16 weights, run twice)
+MESH_RUNS = {
+    "train_4k": ("qwen3_0_6b", "train_4k", 4096, 2, MESH_DEPTH),
+    "prefill_32k": ("qwen3_0_6b", "prefill_32k", 32_768, 1, MESH_DEPTH),
+    "decode_32k": ("qwen3_0_6b", "decode_32k", 32_768, 8, MESH_DEPTH),
+    "gemma2_decode_32k": ("gemma2_2b", "decode_32k", 32_768, 8, MESH_DEPTH),
+    "gemma2_long_500k": ("gemma2_2b", "long_500k", 524_288, 1, MESH_DEPTH),
+    "qwen1_5_decode_2d": ("qwen1_5_110b", "decode_32k", 32_768, 8,
+                          MESH_DEPTH),
+    "nemotron_decode_2d": ("nemotron_4_340b", "decode_32k", 32_768, 8, 2),
+}
 MESH_SERVE_STEPS = 4
 
 
-def mesh_step_run(torch, dev, cfg, shape_name, S, B, mesh):
+def mesh_step_run(torch, dev, cfg, arch, shape_name, S, B, mesh):
     """One ``MESH_RUNS`` step on ``mesh``: built there, its inputs from
     seeds (placed by the step's ``in_shardings`` where it has them), the
     launch counts zeroed just before the run and read just after; the
@@ -5771,7 +5823,7 @@ def mesh_step_run(torch, dev, cfg, shape_name, S, B, mesh):
     from repro_torch.launch import plans, steps, train
     from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
                                              tree_leaves)
-    plan = plans.get_plan("qwen3_0_6b", shape_name)
+    plan = plans.get_plan(arch, shape_name)
     kind = {"train_4k": "train", "prefill_32k": "prefill"}.get(shape_name,
                                                                "decode")
     built = steps.build_step(cfg, ShapeConfig(shape_name, S, B, kind), plan,
@@ -5846,21 +5898,23 @@ def mesh_step_run(torch, dev, cfg, shape_name, S, B, mesh):
 def phase_mesh(torch, dev, launches):
     """The dense family's placed launch steps on the card: an NCCL world
     of one through a ``FileStore`` (no network), the (1, 1) ``("data",
-    "model")`` ``DeviceMesh``; Qwen3-0.6B at full width, bf16,
-    ``MESH_DEPTH`` layers, its train_4k, prefill_32k and decode_32k plans
-    at ``MESH_RUNS``' cut batches, each step placed on the mesh and again
-    on ``make_local_mesh()`` from the same seeds: tokens, caches, loss,
-    grad norm and every leaf after ``LAUNCH_STEPS`` steps equal bit for
-    bit, and exactly the flash (prefill) and dense decode (serve) launches
-    (none in the train steps)."""
+    "model")`` ``DeviceMesh``; each ``MESH_RUNS`` run at full width, bf16,
+    its depth cut: Qwen3-0.6B's train_4k, prefill_32k and decode_32k
+    plans, Gemma2-2B's decode_32k and long_500k (its ring and global
+    caches under ``seqshard``) and the ``decode_2d`` serve steps of
+    Qwen1.5-110B and Nemotron-4-340B, each placed on the mesh and again
+    on ``make_local_mesh()`` from the same seeds: tokens, log-probs,
+    caches, loss, grad norm and every leaf after ``LAUNCH_STEPS`` steps
+    equal bit for bit, and exactly the flash (prefill) and dense decode
+    (serve: one a layer a step) launches (none in the train steps)."""
     import datetime
     import shutil
     import tempfile
 
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
+    from repro_torch.launch import plans
     from repro_torch.launch.mesh import make_compat_mesh, make_local_mesh
-    cfg = get_config("qwen3_0_6b").replace(num_layers=MESH_DEPTH)
     tmp = tempfile.mkdtemp(prefix="mesh_")
     store = dist.FileStore(str(Path(tmp) / "store"), 1)
     cuda = dev.type == "cuda"
@@ -5871,12 +5925,13 @@ def phase_mesh(torch, dev, launches):
     rows = []
     try:
         mesh = make_compat_mesh((1, 1), ("data", "model"), dev.type)
-        for shape_name, (S, B) in MESH_RUNS.items():
+        for run_label, (arch, shape_name, S, B, depth) in MESH_RUNS.items():
+            cfg = get_config(arch).replace(num_layers=depth)
             runs = {}
             for label, m in (("mesh", mesh), ("local", make_local_mesh())):
-                runs[label] = mesh_step_run(torch, dev, cfg, shape_name, S, B,
-                                            m)
-                launches[f"mesh_{shape_name}_{label}"] = runs[label]["counts"]
+                runs[label] = mesh_step_run(torch, dev, cfg, arch, shape_name,
+                                            S, B, m)
+                launches[f"mesh_{run_label}_{label}"] = runs[label]["counts"]
                 release(torch)
             a, b = runs["mesh"], runs["local"]
             equal = {"placed": a["placed"] and not b["placed"]}
@@ -5894,30 +5949,32 @@ def phase_mesh(torch, dev, launches):
                 equal["cache"] = all(torch.equal(a["cache"][k], b["cache"][k])
                                      for k in a["cache"])
             want = {"train_4k": {},
-                    "prefill_32k": {"flash_attention": cfg.num_layers},
-                    "decode_32k": {"ragged_decode_attention":
-                                   cfg.num_layers * MESH_SERVE_STEPS}}
+                    "prefill_32k": {"flash_attention": cfg.num_layers}
+                    }.get(shape_name, {"ragged_decode_attention":
+                                       cfg.num_layers * MESH_SERVE_STEPS})
             for label, r in runs.items():
-                check_launches(f"mesh {shape_name} on {label}", r["counts"],
-                               want[shape_name])
-            row = {"shape": shape_name, "seq": S, "batch": B,
+                check_launches(f"mesh {run_label} on {label}", r["counts"],
+                               want)
+            row = {"run": run_label, "model": cfg.name,
+                   "layers": cfg.num_layers, "shape": shape_name, "seq": S,
+                   "batch": B, "decode_2d": plans.get_plan(
+                       arch, shape_name).decode_2d,
                    "equal": equal,
                    "ms": {k: r["ms"] for k, r in runs.items()},
                    "loss": a.get("loss"), "grad_norm": a.get("grad_norm"),
                    "tokens": [t.tolist() for t in a.get("tokens", [])],
                    "launches": {k: r["counts"] for k, r in runs.items()}}
-            check(all(equal.values()), f"mesh {shape_name}: the placed step "
+            check(all(equal.values()), f"mesh {run_label}: the placed step "
                   f"differs from the local one {row}")
             rows.append(row)
-            del runs, a, b
+            del runs, a, b, r
             release(torch)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "mesh", "card": card_name_and_power(),
           "backend": "nccl" if cuda else "gloo", "mesh": [1, 1],
-          "model": cfg.name,
-          "layers": cfg.num_layers, "runs": rows})
+          "runs": rows})
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,11 @@ under a placement on a ``DeviceMesh``:
   sequence-parallel residual or all-reduced);
 * the batch's axes: a weight replicated over an axis the batch is split
   over gets a partial gradient on each rank, summed at the step's end
-  (:func:`sync_grads`); an FSDP weight's gather reduce-scatters it.
+  (:func:`sync_grads`); an FSDP weight's gather reduce-scatters it;
+* the axis the ``embed`` rule names (``data`` under ``decode_2d``,
+  :func:`embed_axis`): the residual holds the rank's block of d, a
+  product over d contracts it with the weight's block (``weight(...,
+  embed=)``) and sums its partial results (:func:`contract`).
 
 Gradients follow two rules, one per kind of axis.  Over the model axis a
 replicated tensor's gradient is the whole gradient on every rank (the
@@ -64,9 +68,14 @@ class _State:
     reference's is thread-local: JAX traces on the calling thread).
     ``placed`` is ``ctx`` where it holds a placement on a ``DeviceMesh``,
     else None: the one attribute every function here reads first, so that
-    outside a placement each costs the host one lookup."""
+    outside a placement each costs the host one lookup.  ``sizes`` and
+    ``axes`` keep the installed mesh's axis sizes and :class:`Axis`
+    records (a ``DeviceMesh`` works out its shape, groups and coordinates
+    anew at each ask, and the helpers ask hundreds of times a step)."""
     ctx = None
     placed = None
+    sizes = None
+    axes: Dict[str, Any] = {}
 
 
 _state = _State()
@@ -76,6 +85,8 @@ def _install(ctx) -> None:
     _state.ctx = ctx
     _state.placed = (ctx if ctx is not None and ctx[2] is not None
                      and is_device_mesh(ctx[0]) else None)
+    _state.sizes = axis_sizes(ctx[0]) if ctx is not None else None
+    _state.axes = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +156,24 @@ class Axis:
     rank: int
 
 
+def _sizes(mesh) -> Dict[str, int]:
+    """``axis_sizes(mesh)``, kept for the installed mesh (not to be
+    mutated)."""
+    ctx = _state.ctx
+    return _state.sizes if ctx is not None and mesh is ctx[0] \
+        else axis_sizes(mesh)
+
+
 def mesh_axis(mesh, name: str) -> Axis:
-    return Axis(name, axis_group(mesh, name), axis_sizes(mesh)[name],
-                mesh.get_local_rank(name))
+    ctx = _state.ctx
+    mine = ctx is not None and mesh is ctx[0]
+    ax = _state.axes.get(name) if mine else None
+    if ax is None:
+        ax = Axis(name, axis_group(mesh, name), _sizes(mesh)[name],
+                  mesh.get_local_rank(name))
+        if mine:
+            _state.axes[name] = ax
+    return ax
 
 
 def model_axis() -> Optional[Axis]:
@@ -158,7 +184,7 @@ def model_axis() -> Optional[Axis]:
         return None
     mesh, rules, _ = ctx
     name = rules.get("heads")
-    if name is None or axis_sizes(mesh)[name] == 1:
+    if name is None or _sizes(mesh)[name] == 1:
         return None
     return mesh_axis(mesh, name)
 
@@ -178,7 +204,7 @@ def batch_axes() -> Tuple[Axis, ...]:
         return ()
     mesh, _, placement = ctx
     return tuple(mesh_axis(mesh, a) for a in placement.batch_axes
-                 if axis_sizes(mesh)[a] > 1)
+                 if _sizes(mesh)[a] > 1)
 
 
 def sum_batch(x: torch.Tensor) -> torch.Tensor:
@@ -190,9 +216,77 @@ def sum_batch(x: torch.Tensor) -> torch.Tensor:
 def gather_batch(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Every rank's rows along ``dim`` gathered to the whole batch, in the
     batch spec's order (not autograd)."""
-    for a in reversed(batch_axes()):
+    return gather_over(x, batch_axes(), dim)
+
+
+def gather_over(x: torch.Tensor, axes: Sequence[Axis], dim: int = 0
+                ) -> torch.Tensor:
+    """The blocks of a dim split over ``axes`` (outermost first) gathered
+    back to the whole dim, innermost axis first (not autograd)."""
+    for a in reversed(axes):
         x = torch.cat(COL._gather(x, a.group), dim=dim)
     return x
+
+
+def block_over(x: torch.Tensor, axes: Sequence[Axis], dim: int = 0
+               ) -> torch.Tensor:
+    """This rank's block of ``x``'s dim ``dim`` split over ``axes``
+    (outermost first): the inverse of :func:`gather_over` (a view)."""
+    n = math.prod(a.size for a in axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"{n} blocks do not divide dim {dim} of "
+                         f"{tuple(x.shape)}")
+    w = x.shape[dim] // n
+    return x.narrow(dim, block_index(axes) * w, w)
+
+
+def step_axes(names: Sequence[str]) -> Tuple[Axis, ...]:
+    """The axes among ``names`` (a spec entry's mesh axes) of size > 1
+    that the activations' rows are not split over: a step's input split
+    over them is gathered to the activations' rows (``decode_2d``, whose
+    activations hold every row while its token and cache slots are split
+    over ``data``).  None outside a placement."""
+    ctx = _placed()
+    if ctx is None:
+        return ()
+    mesh, _, placement = ctx
+    return tuple(mesh_axis(mesh, a) for a in names
+                 if _sizes(mesh)[a] > 1
+                 and a not in placement.batch_axes)
+
+
+def embed_axis() -> Optional[Axis]:
+    """The axis the ``embed`` rule names where it splits anything (``data``
+    under the ``decode_2d`` rules): the residual then holds the rank's
+    block of d, a product over d contracts the rank's block of its weight
+    (:func:`weight`'s ``embed``) and sums the partial results over the
+    axis (:func:`contract`), and a norm sums its moments over it."""
+    ctx = _placed()
+    if ctx is None:
+        return None
+    mesh, rules, _ = ctx
+    name = rules.get("embed")
+    if name is None or _sizes(mesh)[name] == 1:
+        return None
+    return mesh_axis(mesh, name)
+
+
+def contract(x: torch.Tensor) -> torch.Tensor:
+    """The output of a product that contracted the rank's block of d,
+    summed over the embed axis in rank order; ``x`` without one."""
+    ax = embed_axis()
+    return x if ax is None else COL.all_reduce(x, ax.group)
+
+
+def embed_block(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The rank's block of ``x``'s d (dim ``dim``) over the embed axis, cut
+    from the whole (a looked-up row, a norm's scale); ``x`` without one."""
+    ax = embed_axis()
+    if ax is None:
+        return x
+    return COL.to_block(x, [(ax.group, dim % x.ndim)])
 
 
 # ---------------------------------------------------------------------------
@@ -209,19 +303,23 @@ def logical_constraint(x, logical: Sequence[Optional[str]],
     or with ``partial`` a partial sum over that axis (a row-parallel
     product's output).  A dim whose rule names the model axis is cut to
     the rank's block (a partial ``x`` reduce-scattered to it); a partial
-    ``x`` with no such dim is all-reduced.  The identity elsewhere, and
-    on the batch dims (their rows are placed with the step's inputs)."""
+    ``x`` with no such dim is all-reduced.  The identity elsewhere, on
+    the batch dims (their rows are placed with the step's inputs) and on
+    the ``embed`` dim where its rule names the embed axis (``decode_2d``:
+    the weights' blocks give the rank its block of d, :func:`embed_axis`).
+    """
     ax = model_axis()
     if ax is None:
         return x
-    rules = _current()[1]
+    mesh, rules, _ = _current()
+    held = ("batch", "embed") if embed_axis() is not None else ("batch",)
     dims = [i for i, name in enumerate(logical)
             if name not in (None, "batch")
             and ax.name in entry_axes(rules.get(name))]
     for i, name in enumerate(logical):
-        if name in (None, "batch") or i in dims:
+        if name is None or name in held or i in dims:
             continue
-        if entry_axes(rules.get(name)):
+        if any(_sizes(mesh)[a] > 1 for a in entry_axes(rules.get(name))):
             raise NotImplementedError(
                 f"logical_constraint: {name!r} over {rules.get(name)}")
     if not dims:
@@ -284,13 +382,17 @@ def param_spec(path: Sequence[str], ndim: int) -> Tuple:
 
 
 def weight(w: torch.Tensor, path: Sequence[str],
-           split: Optional[int] = None) -> torch.Tensor:
+           split: Optional[int] = None,
+           embed: Optional[int] = None) -> torch.Tensor:
     """The rank's view of weight ``w`` for a layer's product.
 
     Each dim stored split over an axis other than the model axis (FSDP
     over ``data``) is gathered over it: the backward reduce-scatters the
     gradient where the batch is split over that axis (each rank's is a
-    partial sum), else keeps the rank's block.  With the model axis
+    partial sum), else keeps the rank's block.  With the embed axis
+    active (``decode_2d``, :func:`embed_axis`) dim ``embed``, the
+    weight's d, is instead the rank's block of d over it: as stored where
+    the spec splits it so, else cut from the whole.  With the model axis
     active, dim ``split`` (heads, FFN columns, vocabulary) is the rank's
     block: as stored where the spec splits it, else cut from the
     replicated weight, whose gradient is then summed over the axis; with
@@ -304,15 +406,25 @@ def weight(w: torch.Tensor, path: Sequence[str],
     mesh = ctx[0]
     spec = param_spec(path, w.ndim)
     ax = model_axis()
+    ex = embed_axis()
     bnames = {a.name for a in batch_axes()}
-    sizes = axis_sizes(mesh)
+    sizes = _sizes(mesh)
     for dim in reversed(range(w.ndim)):
         for name in reversed(entry_axes(spec[dim])):
             if sizes[name] == 1 or (ax is not None and name == ax.name):
                 continue
+            if ex is not None and name == ex.name:
+                if dim != embed:
+                    raise NotImplementedError(
+                        f"weight {'/'.join(path)}: dim {dim} over the embed "
+                        f"axis {name!r} is not its d")
+                continue
             w = COL.all_gather(w, axis_group(mesh, name), dim,
                                "reduce_scatter" if name in bnames
                                else "slice")
+    if ex is not None and embed is not None \
+            and ex.name not in entry_axes(spec[embed]):
+        w = COL.to_block(w, [(ex.group, embed)])
     if ax is None:
         return w
     model_dims = [i for i, e in enumerate(spec) if ax.name in entry_axes(e)]
@@ -427,7 +539,18 @@ def cache_seq_axes(name: str = "k") -> Tuple[Axis, ...]:
     mesh, _, placement = ctx
     spec = placement.cache[name]
     return tuple(mesh_axis(mesh, a) for a in entry_axes(spec[2])
-                 if axis_sizes(mesh)[a] > 1)
+                 if _sizes(mesh)[a] > 1)
+
+
+def cache_slot_axes(name: str = "k") -> Tuple[Axis, ...]:
+    """The axes (size > 1, outermost first) the placed cache's leaf
+    ``name`` splits its slots (dim 1) over that the activations' rows are
+    not split over (:func:`step_axes`: ``decode_2d``'s ``data``); none
+    without a placement, or where the slots lie as the batch's rows."""
+    ctx = _placed()
+    if ctx is None or ctx[2].cache is None:
+        return ()
+    return step_axes(entry_axes(ctx[2].cache[name][1]))
 
 
 def block_index(axes: Sequence[Axis]) -> int:
@@ -522,7 +645,7 @@ def placed_global_norm(grads, specs) -> torch.Tensor:
         by_axes: Dict[Tuple[str, ...], list] = {}
         for i, spec in enumerate(specs):
             names = tuple(n for e in spec for n in entry_axes(e)
-                          if axis_sizes(mesh)[n] > 1)
+                          if _sizes(mesh)[n] > 1)
             if names:
                 by_axes.setdefault(names, []).append(i)
         for names, idx in by_axes.items():
@@ -541,7 +664,7 @@ def data_shard_count() -> int:
     if ctx is None:
         return 1
     mesh, rules = ctx[0], ctx[1]
-    sizes = axis_sizes(mesh)
+    sizes = _sizes(mesh)
     return math.prod(sizes[a] for a in entry_axes(rules.get("batch")))
 
 

@@ -24,9 +24,14 @@ device under their shardings:
   the batch over ``data``, and under train the sequence-parallel
   residual (``"seq" -> "model"``).
 * caches: ``kvheads`` (the KV heads over ``model`` where 16 divides
-  them) or ``seqshard`` (the cache's rows over ``model``: each rank runs
+  them) or ``seqshard`` (the cache's rows over ``model``, long_500k's
+  over ``("data", "model")``, Gemma2's ring among them: each rank runs
   the dense decode kernel on its block of rows and the ranks' outputs
-  are combined from the kernel's lse).
+  are combined from the kernel's lse);
+* ``decode_2d`` (the big dense models' decode): the activations hold
+  every slot and their d is split over ``data``; each product contracts
+  the rank's block of d and sums its partial results, no weight is
+  gathered (``build_serve_step``).
 
 The model code acts on the placement through ``distributed/
 sharding.py``.  On a ``LocalMesh`` every step is what it was: the plan
@@ -40,9 +45,11 @@ its block of the tokens and runs its ``E_local`` experts.  Their
 parameters (and moments) on a rank are then its slice
 (``moe.shard_experts``), the grad norm the unsharded tree's
 (``moe.ep_global_norm``).  The serve step stays on ``moe_mlp_dense``, as
-the reference's does.  The other families' steps run unplaced (whole
-trees on every rank) on a ``DeviceMesh``; their ``Built`` carries no
-placements.
+the reference's does.  The other families' train and prefill steps run
+unplaced (whole trees on every rank) on a ``DeviceMesh``, and their
+``Built`` carries no placements; their serve steps (the MoE family's
+``decode_2d`` among them) are not placed yet and raise when called
+there.
 
 The steps run on the device of the tensors they are given; the model is
 built on the card unless the caller passes ``device="cpu"`` (or
@@ -308,9 +315,19 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     (params, token, cache, kv_len) -> (argmax of the f32 logits (B,)
     int32, its f32 log-softmax (B,), cache).  Placed, the token, kv_len
     and outputs are the rank's rows and the cache its block (a
-    ``seqshard`` cache's rows combined over their axis from the dense
-    decode's lse); the local/global pattern and ``decode_2d`` are not
-    placed yet and raise."""
+    ``seqshard`` cache's rows, a ring's among them, combined over their
+    axes from the dense decode's lse; ``transformer.cache_attend``).
+
+    Under ``decode_2d`` the activations hold every row (the ``batch``
+    rule is None) and their d is split over ``data`` (the ``embed``
+    rule): each product contracts the rank's block of d and sums the
+    partial results, no weight is gathered.  The token and kv_len still
+    come in, and the outputs leave, as the rank's rows over ``data`` (the
+    reference's batch spec, reconciled by its compiler), so the step
+    gathers them first and returns its rows; the cache's slots are split
+    over ``data`` too, so each rank attends its own slots and the outputs
+    are gathered over ``data``.  On a ``DeviceMesh`` the other families'
+    serve steps are not placed yet and raise."""
     cfg = cfg.replace(remat=False)
     rules = activation_rules(plan, multi_pod, "decode")
     baxes = _batch_axes(multi_pod, plan)
@@ -327,17 +344,21 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     placed = _placed(cfg, mesh)
     placement = None
     if placed:
-        placement = Placement(_fit_batch_axes(B, baxes), pspecs, cspecs)
+        rows = _fit_batch_axes(B, baxes)
+        placement = Placement(() if plan.decode_2d else rows, pspecs, cspecs)
 
     @torch.no_grad()
     def serve_step(params, token, cache, kv_len):
+        if is_device_mesh(mesh) and not placed:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family's serve step is not "
+                "placed on a DeviceMesh yet")
         if placed:
-            if plan.decode_2d or set(cspecs) != {"k", "v"}:
-                raise NotImplementedError(
-                    f"{cfg.name}: the placed serve step takes the global "
-                    "pattern's {k, v} cache without decode_2d")
-            _check_cache_rows(cspecs, placement.batch_axes, "serve")
+            _check_cache_rows(cspecs, rows, "serve")
         with axis_rules(mesh, rules, placement):
+            io = SH.step_axes(SH.entry_axes(tspec[0]))
+            token, kv_len = SH.gather_over(token, io), SH.gather_over(kv_len,
+                                                                      io)
             logits, cache = model.decode_step(params, token, cache, kv_len)
             lf = logits.float()
             nxt = SH.split_argmax(lf)
@@ -347,7 +368,8 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
                     1, nxt[:, None])[:, 0]
             else:
                 lp = SH.split_pick(lf, nxt, ax) - SH.split_logsumexp(lf, ax)
-            return nxt.to(torch.int32), lp, cache
+            return (SH.block_over(nxt.to(torch.int32), io),
+                    SH.block_over(lp, io), cache)
 
     return Built(fn=serve_step,
                  in_specs=(params_shape, step["token"], cache_shape,

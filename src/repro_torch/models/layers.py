@@ -63,9 +63,27 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def norm(x, p: Params, kind: str, eps: float):
+    """The residual's norm; under a split of its d over the embed axis
+    (``decode_2d``, ``sharding.embed_axis``) an RMSNorm sums its squares
+    over the axis and cuts its scale to the rank's block of d."""
+    ax = SH.embed_axis()
+    if ax is not None:
+        if kind != "rmsnorm":
+            raise NotImplementedError(f"{kind} over a split d")
+        return _split_rmsnorm(x, p["scale"], eps, x.shape[-1] * ax.size)
     if kind == "rmsnorm":
         return rmsnorm(x, p["scale"], eps)
     return layernorm(x, p["scale"], p["bias"], eps)
+
+
+def _split_rmsnorm(x, scale, eps: float, d: int):
+    """``rmsnorm`` of the rank's block of a residual of width ``d``: the
+    block's sum of squares summed over the embed axis, then / d."""
+    dt = x.dtype
+    x = x.float()
+    var = SH.contract((x * x).sum(dim=-1, keepdim=True)) / d
+    return ((x * torch.rsqrt(var + eps))
+            * SH.embed_block(scale).float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -328,14 +346,17 @@ def qkv_project(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     is the column-parallel input (``sharding.enter_columns``), q holds
     the rank's block of the heads and k/v the KV heads of ``wk``/``wv``
     as the rank holds them (its block where the plan splits them, else
-    all of them): the reference's ``heads``/``kv_heads`` constraints."""
+    all of them): the reference's ``heads``/``kv_heads`` constraints.
+    With the embed axis (``decode_2d``) x is the rank's block of d and
+    each product's partial sums are summed over the axis before the
+    biases."""
     path = ("layers", "attn")
-    wq = SH.weight(p["wq"], path + ("wq",), split=1)
-    wk = SH.weight(p["wk"], path + ("wk",))
-    wv = SH.weight(p["wv"], path + ("wv",))
-    q = torch.einsum("bsd,dhk->bshk", x, wq)
-    k = torch.einsum("bsd,dhk->bshk", x, wk)
-    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    wq = SH.weight(p["wq"], path + ("wq",), split=1, embed=0)
+    wk = SH.weight(p["wk"], path + ("wk",), embed=0)
+    wv = SH.weight(p["wv"], path + ("wv",), embed=0)
+    q = SH.contract(torch.einsum("bsd,dhk->bshk", x, wq))
+    k = SH.contract(torch.einsum("bsd,dhk->bshk", x, wk))
+    v = SH.contract(torch.einsum("bsd,dhk->bshk", x, wv))
     if "bq" in p:
         q = q + SH.weight(p["bq"], path + ("bq",), split=0)
         k = k + SH.weight(p["bk"], path + ("bk",))
@@ -353,7 +374,7 @@ def attn_output(p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B, S, H or the rank's heads, D) -> (B, S, d), laid out as the
     residual (``("batch", "seq", "embed")``: a row-parallel product's
     partial sums reduced over the model axis)."""
-    wo = SH.weight(p["wo"], ("layers", "attn", "wo"), split=0)
+    wo = SH.weight(p["wo"], ("layers", "attn", "wo"), split=0, embed=2)
     out = torch.einsum("bshk,hkd->bsd", o, wo)
     return SH.logical_constraint(out, ("batch", "seq", "embed"),
                                  partial=SH.model_axis() is not None)
@@ -382,9 +403,11 @@ def mlp(p: Params, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     """``act(x @ w_in) * (x @ w_gate) @ w_out`` — the reference's naming,
     the opposite of the ``act(gate) * up`` habit elsewhere.  Under a
     placement with a model axis the rank's FFN columns (the reference's
-    ``ffn`` constraint), the output laid out as the residual."""
+    ``ffn`` constraint), the output laid out as the residual (with the
+    embed axis, the rank's block of d, as in ``qkv_project``)."""
     path = ("layers", "mlp")
-    h = x @ SH.weight(p["w_in"], path + ("w_in",), split=1)
+    h = SH.contract(x @ SH.weight(p["w_in"], path + ("w_in",), split=1,
+                                  embed=0))
     if act == "silu":
         a = F.silu(h)
     elif act == "relu2":
@@ -394,7 +417,8 @@ def mlp(p: Params, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     else:
         raise ValueError(act)
     if gated:
-        a = a * (x @ SH.weight(p["w_gate"], path + ("w_gate",), split=1))
-    out = a @ SH.weight(p["w_out"], path + ("w_out",), split=0)
+        a = a * SH.contract(x @ SH.weight(p["w_gate"], path + ("w_gate",),
+                                          split=1, embed=0))
+    out = a @ SH.weight(p["w_out"], path + ("w_out",), split=0, embed=1)
     return SH.logical_constraint(out, ("batch", "seq", "embed"),
                                  partial=SH.model_axis() is not None)

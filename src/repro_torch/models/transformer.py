@@ -151,16 +151,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               for _ in range(cfg.num_layers)]
     if pattern_len(cfg) == 2:             # (L/2, 2, ...), as the reference
         blocks = [stack(blocks[i:i + 2]) for i in range(0, len(blocks), 2)]
+    layers = stack(blocks)
+    del blocks          # the unstacked copies, before the f32 draws below
     params: Params = {
-        "embed": (torch.randn((cfg.vocab_size, d), generator=generator,
-                              device=device) / math.sqrt(d)).to(dtype),
-        "layers": stack(blocks),
+        "embed": torch.randn((cfg.vocab_size, d), generator=generator,
+                             device=device).div_(math.sqrt(d)).to(dtype),
+        "layers": layers,
         "final_norm": init_norm(cfg, dtype, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = (torch.randn(
-            (d, cfg.vocab_size), generator=generator, device=device)
-            / math.sqrt(d)).to(dtype)
+        params["lm_head"] = torch.randn(
+            (d, cfg.vocab_size), generator=generator, device=device
+        ).div_(math.sqrt(d)).to(dtype)
     return params
 
 
@@ -182,7 +184,8 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     with a model axis, as the embedding's spec holds it: vocabulary rows
     split (a tied head) -> a lookup masked to the rank's rows, summed
     over the axis; the model dim split (an untied one) -> the rank's
-    columns, gathered."""
+    columns, gathered.  With the embed axis (``decode_2d``) the rows are
+    then cut to the rank's block of d."""
     emb = params["embed"]
     ax = SH.model_axis()
     spec = SH.param_spec(("embed",), 2)
@@ -196,7 +199,7 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor
         x = COL.all_gather(emb[tokens.long()], ax.group, 2, grad="slice")
     else:
         x = emb[tokens.long()]
-    x = x.to(cfg.compute_dtype)
+    x = SH.embed_block(x).to(cfg.compute_dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -214,7 +217,9 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     """Final norm, head, softcap.  Under a placement the head is the
     rank's block of it (``sharding.weight``): with the vocabulary split
     over the model axis the logits are the rank's block of the
-    vocabulary, over the whole sequence."""
+    vocabulary, over the whole sequence; with the embed axis
+    (``decode_2d``) x is the rank's block of d, the head's too, and the
+    partial logits are summed over the axis before the softcap."""
     x = L.norm(x, SH.seq_shared(params["final_norm"]), cfg.norm_type,
                cfg.norm_eps)
     split = SH.vocab_split() is not None
@@ -222,11 +227,11 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
         x = SH.enter_columns(x)
     if cfg.tie_embeddings:
         w = SH.weight(params["embed"], ("embed",),
-                      split=0 if split else None).T
+                      split=0 if split else None, embed=1).T
     else:
         w = SH.weight(params["lm_head"], ("lm_head",),
-                      split=1 if split else None)
-    logits = x @ w.to(cfg.compute_dtype)
+                      split=1 if split else None, embed=0)
+    logits = SH.contract(x @ w.to(cfg.compute_dtype))
     if cfg.logit_softcap > 0:
         logits = L._softcap(logits.float(), cfg.logit_softcap)
     return logits
@@ -456,6 +461,75 @@ def _decode_layers(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return lm_logits(params, cfg, x[:, 0])
 
 
+def cache_attend(cfg: ModelConfig, cache: Dict[str, torch.Tensor],
+                 name: str, row: torch.Tensor, live: torch.Tensor,
+                 window: int = 0):
+    """``attend(q, k, v, kc, vc)`` for the layers of cache leaf ``name``
+    (``kc``/``vc`` a layer's (B, S, Kh, D) of it): each slot's new k/v
+    written at ``row`` (B,) of its slot, then the first ``live`` (B,) rows
+    attended through the dense decode kernel; returns (B, 1, heads, D),
+    the heads as the rank's q holds them.
+
+    Under a placement the cache is the rank's block of it (``distributed/
+    sharding.py``): its rows split over ``cache_seq_axes`` (rows [off,
+    off + S_l): a new row is written only where it falls there, the
+    block's live rows are attended with the kernel's lse and the ranks'
+    outputs combined over the axes, ``combine_over``), its slots split
+    over axes the activations' rows are not (``cache_slot_axes``:
+    ``decode_2d``'s ``data``; the rank's block of the slots written and
+    attended, the outputs gathered over them).  Every query head reads
+    every block of rows, so query heads split over the model axis are
+    gathered for the kernel and the combined output cut back to the
+    rank's heads.  Where the cache's rows and slots are whole, the rank's
+    query heads attend only the KV heads they read (``for_q``; all of
+    them where the cache's KV heads are split as the query heads).  A
+    window is applied by the unsplit path only."""
+    seq_axes = SH.cache_seq_axes(name)
+    slot_axes = SH.cache_slot_axes(name)
+    attn = dict(softcap=cfg.attn.attn_softcap, window=window)
+    if not (seq_axes or slot_axes):
+        b = torch.arange(row.shape[0], device=row.device)
+        live = live.to(torch.int32).contiguous()
+
+        def attend(q, k, v, kc, vc):
+            kc[b, row] = k[:, 0].to(kc.dtype)
+            vc[b, row] = v[:, 0].to(vc.dtype)
+            return ops.ragged_decode_attention(
+                q[:, 0].contiguous(), for_q(cfg, kc).contiguous(),
+                for_q(cfg, vc).contiguous(), live, **attn)[:, None]
+        return attend
+    if window:
+        raise NotImplementedError(
+            "decode over a split cache with a window")
+    heads = SH.model_axis()
+    heads = (heads,) if heads is not None else ()
+    row = SH.block_over(row, slot_axes)
+    S_l = cache[name].shape[2]
+    off = SH.block_index(seq_axes) * S_l
+    mine = (row >= off) & (row < off + S_l)
+    b = torch.arange(row.shape[0], device=row.device)[mine]
+    r = row[mine] - off
+    n_valid = (SH.block_over(live, slot_axes) - off).clamp(0, S_l)
+    n_valid = n_valid.to(torch.int32).contiguous()
+
+    def attend(q, k, v, kc, vc):
+        kn = SH.block_over(k[:, 0], slot_axes)
+        vn = SH.block_over(v[:, 0], slot_axes)
+        if kn.shape[1] != kc.shape[2]:
+            raise NotImplementedError(
+                "decode over a split cache from KV heads split over the "
+                "model axis")
+        kc[b, r] = kn[mine].to(kc.dtype)
+        vc[b, r] = vn[mine].to(vc.dtype)
+        q0 = SH.gather_over(q[:, 0], heads, dim=1)
+        q0 = SH.block_over(q0, slot_axes).contiguous()
+        o, lse = ops.ragged_decode_attention(q0, kc, vc, n_valid,
+                                             return_lse=True, **attn)
+        o = SH.gather_over(SH.combine_over(o, lse, seq_axes), slot_axes)
+        return SH.block_over(o, heads, dim=1)[:, None]
+    return attend
+
+
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, torch.Tensor], kv_len: torch.Tensor,
                 return_hidden: bool = False, mlp=None):
@@ -465,50 +539,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     Per layer, the new token's k/v are written in place at row ``kv_len``
     of the slot's rows (inactive slots have kv_len 0 and write their row
     0, as in the reference), then the dense decode kernel reads
-    ``kv_len + 1`` rows.  Returns (logits (B, V) or the final-normed
-    hidden (B, d) with ``return_hidden``, cache)."""
+    ``kv_len + 1`` rows (``cache_attend``: under a placement, the rank's
+    block of the cache, combined over the ranks).  Returns (logits (B, V)
+    or the final-normed hidden (B, d) with ``return_hidden``, cache)."""
     if pattern_len(cfg) == 2:
         raise ValueError("use decode_step_pattern for local/global archs")
     kv_len = kv_len.to(torch.int32)
-    b = torch.arange(token.shape[0], device=token.device)
-    row = kv_len.long()
-    n_valid = (kv_len + 1).contiguous()
-    # a placed cache split over its sequence axis: this rank holds rows
-    # [off, off + S_l), writes the new row only where it falls there, and
-    # the ranks' outputs are combined from the dense decode's lse
-    seq_axes = SH.cache_seq_axes("k")
-    mine = None
-    if seq_axes:
-        if cfg.attn.sliding_window:
-            raise NotImplementedError(
-                "decode over a sequence-split cache with a window")
-        S_l = cache["k"].shape[2]
-        off = SH.block_index(seq_axes) * S_l
-        mine = (row >= off) & (row < off + S_l)
-        b, row = b[mine], row[mine] - off
-        n_valid = (kv_len + 1 - off).clamp(0, S_l).to(torch.int32)
-        n_valid = n_valid.contiguous()
+    attend = cache_attend(cfg, cache, "k", kv_len.long(), kv_len + 1,
+                          window=cfg.attn.sliding_window)
 
     def attend_layer(i, q, k, v):
-        kc, vc = cache["k"][i], cache["v"][i]
-        if for_q(cfg, kc).shape[2] != kc.shape[2]:
-            raise NotImplementedError(
-                "decode on a model axis whose ranks read a part of the "
-                "KV heads their cache holds")
-        kn, vn = k[:, 0], v[:, 0]
-        if mine is not None:
-            kn, vn = kn[mine], vn[mine]
-        kc[b, row] = kn.to(kc.dtype)
-        vc[b, row] = vn.to(vc.dtype)
-        q0 = q[:, 0].contiguous()
-        attn = dict(softcap=cfg.attn.attn_softcap,
-                    window=cfg.attn.sliding_window)
-        if not seq_axes:
-            return ops.ragged_decode_attention(q0, kc, vc, n_valid,
-                                               **attn)[:, None]
-        o, lse = ops.ragged_decode_attention(q0, kc, vc, n_valid,
-                                             return_lse=True, **attn)
-        return SH.combine_over(o, lse, seq_axes)[:, None]
+        return attend(q, k, v, cache["k"][i], cache["v"][i])
 
     out = _decode_layers(params, cfg, token, kv_len, attend_layer,
                          return_hidden, mlp)
@@ -524,22 +565,20 @@ def decode_step_pattern(params: Params, cfg: ModelConfig,
     W)`` ring rows (the ring holds exactly the window's positions, so no
     window is applied), a global layer writes row ``kv_len`` and attends
     ``kv_len + 1`` rows; both through the dense decode kernel with the
-    attention softcap.  Returns (logits (B, V), cache)."""
+    attention softcap (``cache_attend``: under a placement each rank
+    holds a block of the ring's rows and of the global rows, W the whole
+    ring's).  Returns (logits (B, V), cache)."""
     kv_len = kv_len.to(torch.int32)
-    b = torch.arange(token.shape[0], device=token.device)
-    W = cache["k_local"].shape[2]
-    local = (kv_len % W).long(), torch.clamp(kv_len + 1, max=W).contiguous()
-    glob = kv_len.long(), (kv_len + 1).contiguous()
+    W = cache["k_local"].shape[2] * math.prod(
+        a.size for a in SH.cache_seq_axes("k_local"))
+    local = cache_attend(cfg, cache, "k_local", (kv_len % W).long(),
+                         torch.clamp(kv_len + 1, max=W))
+    glob = cache_attend(cfg, cache, "k_global", kv_len.long(), kv_len + 1)
 
     def attend_layer(i, q, k, v):
         kind = "local" if i % 2 == 0 else "global"
-        row, n_valid = local if kind == "local" else glob
-        kc, vc = cache[f"k_{kind}"][i // 2], cache[f"v_{kind}"][i // 2]
-        kc[b, row] = k[:, 0].to(kc.dtype)
-        vc[b, row] = v[:, 0].to(vc.dtype)
-        o = ops.ragged_decode_attention(q[:, 0].contiguous(), kc, vc, n_valid,
-                                        softcap=cfg.attn.attn_softcap)
-        return o[:, None]
+        return (local if kind == "local" else glob)(
+            q, k, v, cache[f"k_{kind}"][i // 2], cache[f"v_{kind}"][i // 2])
 
     return _decode_layers(params, cfg, token, kv_len, attend_layer,
                           False), cache

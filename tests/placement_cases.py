@@ -22,12 +22,23 @@ replicated while ``wq`` splits (the reference's specs).
 * serve: Qwen3's decode_32k plan (``dp``, ``seqshard``), B 16, 4 steps
   over 512 cache rows on (1, 4) and (2, 2), slots' lengths 1 to 500 (a
   block with no live row among them);
+* placed serve (``PLACED_SERVE_CASES``, part ``serve``): Gemma2's
+  decode_32k plan (``tp``, ``seqshard``: slots over ``data``, the ring's
+  and the global rows over ``model``) at B 16 on (2, 2) and (1, 4), and
+  its long_500k plan (one slot, both caches' rows over ``("data",
+  "model")``) on (2, 2), (1, 4) and (4, 1), the window cut to 256
+  (``gemma2_w256``: 16 blocks of it at the production mesh's 16, 256 at
+  its 16 x 16; once more at the smoke config's 16, a ring 16 x 16 does
+  not divide, so every rank holds it whole); Qwen1.5's and Nemotron's decode_32k plans (``decode_2d``)
+  at B 16 on (2, 2), (1, 4) and (4, 1); 4 steps each over 512 cache rows
+  (``serve_inputs``);
 * combine: ``decode_attention`` over 4 blocks of 128 rows;
 * update: ``RLTrainer.update`` of the tiny LM under ``train_rules()`` on
   (2, 1) and (4, 1), 6 rows (padded to the data shards); the same for
   Granite-MoE's smoke config (``UPDATE_MOE``), whose update keeps the
   whole padded batch on every rank.
 """
+import dataclasses
 import hashlib
 import types
 
@@ -38,6 +49,7 @@ NARROW = dict(num_layers=2, d_model=64, num_heads=16, num_kv_heads=8,
 ARCHS = {"qwen3": ("qwen3_0_6b", {}),
          "qwen3_kh16": ("qwen3_0_6b", {"num_kv_heads": 16}),
          "gemma2": ("gemma2_2b", {}),
+         "gemma2_w256": ("gemma2_2b", {"sliding_window": 256}),
          "qwen1_5": ("qwen1_5_110b", {}),
          "nemotron": ("nemotron_4_340b", {})}
 MESHES = ((2, 2), (1, 4), (4, 1))
@@ -53,6 +65,10 @@ PLACE_CASES = [(f"place_{a}_{sh}_m{m[0]}x{m[1]}", a, sh, m)
                for a in ("qwen3", "gemma2", "qwen1_5", "nemotron")
                for sh in ("train_4k", "prefill_32k", "decode_32k")
                for m in MESHES]
+PLACE_CASES += [(f"place_gemma2_long_500k_m{m[0]}x{m[1]}", "gemma2",
+                 "long_500k", m) for m in MESHES]
+# a shape's global batch where it is not B (long_500k serves one slot)
+SHAPE_BATCH = {"long_500k": 1}
 # (name, arch key, mesh, microbatches or None for the plan's, batch)
 TRAIN_CASES = [(f"train_{a}_m{m[0]}x{m[1]}", a, m, micro, B)
                for a, micro in (("qwen3", None), ("gemma2", 2),
@@ -66,6 +82,21 @@ PREFILL_CASES = [(f"prefill_{a}_m2x2", a, (2, 2))
                  for a in ("qwen3", "qwen3_kh16")]
 SERVE_CASES = [(f"serve_qwen3_m{m[0]}x{m[1]}", "qwen3", m)
                for m in ((1, 4), (2, 2))]
+# (name, arch key, shape name, mesh): the serve steps placed in part
+# ``serve`` (``test_torch_placement_serve.py``)
+PLACED_SERVE_CASES = (
+    [(f"serve_gemma2_decode_32k_m{m[0]}x{m[1]}", "gemma2_w256",
+      "decode_32k", m) for m in ((2, 2), (1, 4))]
+    + [(f"serve_gemma2_long_500k_m{m[0]}x{m[1]}", "gemma2_w256",
+        "long_500k", m) for m in MESHES]
+    # the smoke config's 16-row ring, which 16 x 16 does not divide: the
+    # ring whole on every rank, its query heads split over ``model``
+    + [("serve_gemma2_long_500k_ring16_m2x2", "gemma2", "long_500k",
+        (2, 2))]
+    + [(f"serve_{a}_decode_2d_m{m[0]}x{m[1]}", a, "decode_32k", m)
+       for a in ("qwen1_5", "nemotron") for m in MESHES])
+# the MoE family's serve step on a DeviceMesh raises (not placed yet)
+REFUSED_SERVE = ("qwen3_moe_235b_a22b", "decode_32k", (2, 2))
 # combine: (B, H, Kh, D, rows a block, blocks)
 COMBINE = (6, 8, 2, 16, 128, 4)
 UPDATE_MESHES = ((2, 1), (4, 1))
@@ -73,6 +104,36 @@ UPDATE_VOCAB = 61
 # the MoE family's update: its routers' capacities and aux losses are the
 # whole batch's, so each rank runs all the rows
 UPDATE_MOE = "granite_moe_3b_a800m"
+
+
+def narrow(cfg, key):
+    """Either package's smoke config of arch key ``key`` at the narrow
+    widths (``NARROW`` and the key's own; ``sliding_window`` replaces the
+    attention's window)."""
+    extra = dict(ARCHS[key][1])
+    window = extra.pop("sliding_window", None)
+    cfg = cfg.replace(**dict(NARROW, **extra))
+    if window is not None:
+        cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
+                                                   sliding_window=window))
+    return cfg
+
+
+def serve_inputs(rows: int, S: int = SERVE_S, window: int = 256,
+                 seed: int = 13):
+    """token and kv_len of a placed serve case: one slot at ``window`` +
+    44 (its ring wrapped; on 4 blocks of 128 global rows the last holds
+    none of its rows), or ``rows`` slots of random lengths on both sides
+    of the window with slot 0 at 5 (ring and global blocks with no live
+    row) and slot 1 at ``window`` - 2 (its ring wraps during the 4
+    steps)."""
+    rng = np.random.RandomState(seed)
+    token = rng.randint(1, 512, rows).astype(np.int32)
+    if rows == 1:
+        return {"token": token, "kv_len": np.array([window + 44], np.int32)}
+    lens = rng.randint(1, S, size=rows).astype(np.int32)
+    lens[0], lens[1] = 5, window - 2
+    return {"token": token, "kv_len": lens}
 
 
 def world_of(shape) -> int:

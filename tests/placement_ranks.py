@@ -7,7 +7,8 @@ timeout), runs every case of ``PART`` (``main`` or ``steps``, as
 ``placement_reference.py``) whose mesh has WORLD ranks on
 ``make_compat_mesh(shape, ("data", "model"), "cpu")``, and pickles its
 results to ``DIR/port_<PART>_w<WORLD>_r<RANK>.pkl``.  One torch thread.
-It reads ``DIR/inputs.npz``.
+It reads ``DIR/inputs.npz``.  Part ``serve`` runs the placed serve
+cases (``PLACED_SERVE_CASES``) and the MoE family's refused serve step.
 
 The placement cases cut the whole input trees with ``plans.place`` by
 the step's ``in_shardings`` and keep each leaf's digest; the step cases
@@ -26,7 +27,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from placement_cases import (ARCHS, B, COMBINE, NARROW, PLACE_CASES,
+from placement_cases import (ARCHS, B, COMBINE, PLACE_CASES,
+                             PLACED_SERVE_CASES, REFUSED_SERVE, SHAPE_BATCH,
+                             narrow, serve_inputs,
                              PREFILL_CASES, PREFILL_S, REPLICATED_TRAIN, SERVE_CASES, SERVE_S,
                              SERVE_STEPS, TRAIN_CASES, TRAIN_S, TRAIN_STEPS,
                              UPDATE_MESHES, UPDATE_MOE, UPDATE_VOCAB,
@@ -48,14 +51,12 @@ from repro_torch.train import optimizer as TO
 
 KIND = {"train_4k": ("train", TRAIN_S), "prefill_32k": ("prefill",
                                                         PREFILL_S),
-        "decode_32k": ("decode", SERVE_S)}
+        "decode_32k": ("decode", SERVE_S), "long_500k": ("decode", SERVE_S)}
 
 
 def config(key):
-    arch, extra = ARCHS[key]
-    return TB.get_smoke_config(arch).replace(
-        param_dtype=torch.float32, compute_dtype=torch.float32,
-        **dict(NARROW, **extra))
+    return narrow(TB.get_smoke_config(ARCHS[key][0]).replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32), key)
 
 
 def mesh_of(shape):
@@ -86,8 +87,9 @@ def run_place(name, key, shape_name, mesh_shape):
     plan = TP.get_plan(ARCHS[key][0], shape_name)
     kind, S = KIND[shape_name]
     mesh = mesh_of(mesh_shape)
-    built = TS.build_step(cfg, TB.ShapeConfig(shape_name, S, B, kind), plan,
-                          mesh, False, device="cpu")
+    built = TS.build_step(cfg, TB.ShapeConfig(
+        shape_name, S, SHAPE_BATCH.get(shape_name, B), kind), plan, mesh,
+        False, device="cpu")
     specs = leaves(built.in_specs)
     shards = spec_leaves(built.in_specs, built.in_shardings)
     out = {}
@@ -234,12 +236,31 @@ def run_prefill(inp, key, mesh_shape):
                       TP.gather(cache, cspecs, mesh).items()}}
 
 
-def run_serve(inp, key, mesh_shape):
+def counting_decode():
+    """(calls, restore): ``ops.ragged_decode_attention`` made to record
+    each call's ``return_lse``."""
+    calls, real = [], ops.ragged_decode_attention
+
+    def counted(*a, **kw):
+        calls.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+    ops.ragged_decode_attention = counted
+    return calls, lambda: setattr(ops, "ragged_decode_attention", real)
+
+
+def placed_serve(inp, key, shape_name, mesh_shape, step_in):
+    """``SERVE_STEPS`` placed serve steps of arch ``key``'s
+    ``shape_name`` plan from the reference's weights, a drawn cache and
+    ``step_in`` (token, kv_len): (the built step, its mesh, the rank's
+    parameters and cache after them, and a dict of each step's tokens and
+    log-probs gathered, the cache's local shapes and the dense decode's
+    calls)."""
     cfg = config(key)
-    plan = TP.get_plan(ARCHS[key][0], "decode_32k")
+    plan = TP.get_plan(ARCHS[key][0], shape_name)
     mesh = mesh_of(mesh_shape)
+    rows = len(step_in["token"])
     built = TS.build_serve_step(
-        cfg, TB.ShapeConfig("decode_32k", SERVE_S, B, "decode"), plan, mesh,
+        cfg, TB.ShapeConfig(shape_name, SERVE_S, rows, "decode"), plan, mesh,
         False, device="cpu")
     pspecs, tspec, cspecs, _ = built.in_shardings
     params = TP.place(convert.from_jax_params(
@@ -247,19 +268,11 @@ def run_serve(inp, key, mesh_shape):
     cache = TP.place({k: torch.from_numpy(draw(tuple(v.shape),
                                                shape_key(f"serve_cache/{k}")))
                       for k, v in built.in_specs[2].items()}, cspecs, mesh)
-    step_in = {k: torch.from_numpy(v)
-               for k, v in batch_arrays("decode", SERVE_S).items()}
-    tok = TP.block(step_in["token"], tspec, mesh)
-    kv = TP.block(step_in["kv_len"], tspec, mesh)
+    tok = TP.block(torch.from_numpy(step_in["token"]), tspec, mesh)
+    kv = TP.block(torch.from_numpy(step_in["kv_len"]), tspec, mesh)
     out = {"cache_local_shapes": {k: tuple(v.shape)
                                   for k, v in cache.items()}}
-    calls = []
-    real = ops.ragged_decode_attention
-
-    def counted(*a, **kw):
-        calls.append(kw.get("return_lse", False))
-        return real(*a, **kw)
-    ops.ragged_decode_attention = counted
+    calls, restore = counting_decode()
     try:
         for i in range(SERVE_STEPS):
             tok, lp, cache = built.fn(params, tok, cache, kv)
@@ -267,11 +280,52 @@ def run_serve(inp, key, mesh_shape):
             out[f"logprob_{i}"] = TP.gather(lp, tspec, mesh).numpy()
             kv = kv + 1
     finally:
-        ops.ragged_decode_attention = real
+        restore()
     out["decode_calls"] = calls
+    return built, mesh, params, cache, out
+
+
+def run_serve(inp, key, mesh_shape):
+    built, mesh, _, cache, out = placed_serve(
+        inp, key, "decode_32k", mesh_shape, batch_arrays("decode", SERVE_S))
     out["cache"] = {k: v.numpy() for k, v in
-                    TP.gather(cache, cspecs, mesh).items()}
+                    TP.gather(cache, built.in_shardings[2], mesh).items()}
     return out
+
+
+def run_placed_serve(inp, key, shape_name, mesh_shape):
+    """4 placed serve steps (``placed_serve``) with the rank's cache
+    blocks after them, its parameter blocks' shapes and the step's spec
+    trees."""
+    built, mesh, params, cache, out = placed_serve(
+        inp, key, shape_name, mesh_shape,
+        serve_inputs(SHAPE_BATCH.get(shape_name, B)))
+    _, token_shape, cache_shape, kv_shape = built.in_specs
+    out.update(
+        coords=coords(mesh),
+        in_shardings=spec_leaves(built.in_specs, built.in_shardings),
+        out_shardings=spec_leaves((token_shape, kv_shape, cache_shape),
+                                  built.out_shardings),
+        local_shapes={k: tuple(v.shape) for k, v in flat(params).items()},
+        cache_blocks={k: v.numpy() for k, v in cache.items()})
+    return out
+
+
+def run_refused_serve():
+    """The MoE family's serve step on a ``DeviceMesh``: the error it
+    raises when called."""
+    arch, shape_name, mesh_shape = REFUSED_SERVE
+    cfg = TB.get_smoke_config(arch).replace(param_dtype=torch.float32,
+                                            compute_dtype=torch.float32)
+    built = TS.build_serve_step(
+        cfg, TB.ShapeConfig(shape_name, SERVE_S, B, "decode"),
+        TP.get_plan(arch, shape_name), mesh_of(mesh_shape), False,
+        device="cpu")
+    try:
+        built.fn(None, None, None, None)
+    except NotImplementedError as e:
+        return {"error": str(e), "placed": built.in_shardings is not None}
+    return {"error": None, "placed": built.in_shardings is not None}
 
 
 def main(DIR, part, world, rank):
@@ -291,6 +345,10 @@ def main(DIR, part, world, rank):
             if world_of(m) == world:
                 out[f"update_m{m[0]}x{m[1]}"] = run_update(inp, m)
                 out[f"update_moe_m{m[0]}x{m[1]}"] = run_update(inp, m, "moe")
+    elif part == "serve":
+        for name, key, shape_name, m in PLACED_SERVE_CASES:
+            out[name] = run_placed_serve(inp, key, shape_name, m)
+        out["refused"] = run_refused_serve()
     else:
         for name, key, m, micro, rows in TRAIN_CASES:
             out[name] = run_train(inp, key, m, micro, rows)

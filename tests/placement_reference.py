@@ -22,6 +22,9 @@ n of the four devices.  Parts:
   grad norm) and the parameters after them; per prefill case the tokens
   and the cache; per serve case 4 steps' tokens, log-probs and the cache
   after them.
+* ``serve``: per placed serve case 4 jitted steps' tokens and log-probs,
+  each cache leaf's ``addressable_shards`` after them keyed by the
+  device's mesh coordinates, and the step's spec trees.
 """
 import dataclasses
 import pickle
@@ -33,7 +36,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from placement_cases import (ARCHS, B, COMBINE, NARROW, PLACE_CASES,
+from placement_cases import (ARCHS, B, COMBINE, PLACE_CASES,
+                             PLACED_SERVE_CASES, SHAPE_BATCH, narrow,
+                             serve_inputs,
                              PREFILL_CASES, PREFILL_S, REPLICATED_TRAIN, SERVE_CASES, SERVE_S,
                              SERVE_STEPS, TRAIN_CASES, TRAIN_S, TRAIN_STEPS,
                              UPDATE_MESHES, UPDATE_MOE, UPDATE_VOCAB,
@@ -53,7 +58,7 @@ from repro.train import optimizer as JO
 
 KIND = {"train_4k": ("train", TRAIN_S), "prefill_32k": ("prefill",
                                                         PREFILL_S),
-        "decode_32k": ("decode", SERVE_S)}
+        "decode_32k": ("decode", SERVE_S), "long_500k": ("decode", SERVE_S)}
 
 
 def mesh_of(shape):
@@ -63,10 +68,8 @@ def mesh_of(shape):
 
 
 def config(key):
-    arch, extra = ARCHS[key]
-    return JB.get_smoke_config(arch).replace(
-        param_dtype=jnp.float32, compute_dtype=jnp.float32,
-        **dict(NARROW, **extra))
+    return narrow(JB.get_smoke_config(ARCHS[key][0]).replace(
+        param_dtype=jnp.float32, compute_dtype=jnp.float32), key)
 
 
 def coords(mesh, device):
@@ -80,8 +83,9 @@ def run_place(name, key, shape_name, mesh_shape):
     plan = JP.get_plan(ARCHS[key][0], shape_name)
     kind, S = KIND[shape_name]
     mesh = mesh_of(mesh_shape)
-    built = JS.build_step(cfg, JB.ShapeConfig(shape_name, S, B, kind), plan,
-                          mesh, False)
+    built = JS.build_step(cfg, JB.ShapeConfig(
+        shape_name, S, SHAPE_BATCH.get(shape_name, B), kind), plan, mesh,
+        False)
     specs = leaves(built.in_specs)
     shards = leaves(built.in_shardings)
     out = {}
@@ -209,6 +213,47 @@ def run_serve(inp, key, mesh_shape):
     return out
 
 
+def spec_tuples(shapes, shardings):
+    """{path: spec tuple, padded with None to the leaf's rank} of a tree
+    of ``NamedSharding`` beside its shapes."""
+    out = {}
+    for path, ns in leaves(shardings).items():
+        spec = tuple(tuple(e) if isinstance(e, (tuple, list)) else e
+                     for e in ns.spec)
+        nd = len(leaves(shapes)[path].shape)
+        out[path] = spec + (None,) * (nd - len(spec))
+    return out
+
+
+def run_placed_serve(inp, key, shape_name, mesh_shape):
+    cfg = config(key)
+    plan = JP.get_plan(ARCHS[key][0], shape_name)
+    rows = SHAPE_BATCH.get(shape_name, B)
+    mesh = mesh_of(mesh_shape)
+    built = JS.build_serve_step(
+        cfg, JB.ShapeConfig(shape_name, SERVE_S, rows, "decode"), plan, mesh,
+        False)
+    params = jax.tree.map(jnp.asarray, unflat(inp, f"params_{key}/"))
+    _, token_shape, cache_shape, kv_shape = built.in_specs
+    cache = {k: jnp.asarray(draw(v.shape, shape_key(f"serve_cache/{k}")))
+             for k, v in cache_shape.items()}
+    step_in = serve_inputs(rows)
+    tok, kv = jnp.asarray(step_in["token"]), jnp.asarray(step_in["kv_len"])
+    step = jit(built)
+    out = {"in_shardings": spec_tuples(built.in_specs, built.in_shardings),
+           "out_shardings": spec_tuples(
+               (token_shape, kv_shape, cache_shape), built.out_shardings)}
+    for i in range(SERVE_STEPS):
+        tok, lp, cache = step(params, tok, cache, kv)
+        out[f"token_{i}"] = np.asarray(tok)
+        out[f"logprob_{i}"] = np.asarray(lp)
+        kv = kv + 1
+    out["cache_blocks"] = {
+        k: {coords(mesh, s.device): np.asarray(s.data)
+            for s in v.addressable_shards} for k, v in cache.items()}
+    return out
+
+
 if __name__ == "__main__":
     DIR, PART = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -222,6 +267,9 @@ if __name__ == "__main__":
         for m in UPDATE_MESHES:
             res[f"update_m{m[0]}x{m[1]}"] = run_update(inp, m)
             res[f"update_moe_m{m[0]}x{m[1]}"] = run_update(inp, m, "moe")
+    elif PART == "serve":
+        for name, key, shape_name, m in PLACED_SERVE_CASES:
+            res[name] = run_placed_serve(inp, key, shape_name, m)
     else:
         for name, key, m, micro, rows in TRAIN_CASES:
             res[name] = run_train(inp, key, m, micro, rows)
