@@ -132,13 +132,11 @@ Phases, each printing one JSON line:
    ``moe_ep``: an NCCL world of one (a ``FileStore`` in a temporary
    directory, no network) and the (1, 1) ``("data", "model")``
    ``DeviceMesh`` on the card; the reference's expert-parallel layer
-   (``moe_mlp_ep``: ``all_to_all_single`` over the model axis) at that
-   width against ``moe_mlp_dense`` (idx and keep equal, y within 1e-4 of
-   the largest |y|, aux within 1e-6, each call timed), then Granite's
-   bf16 ``build_prefill_step`` (the flash kernel at every layer) and 2
-   ``build_train_step`` steps at ``LAUNCH_DEPTH`` layers on that mesh
-   against the same steps on ``make_local_mesh()`` (``MOE_EP_TOL``); the
-   group destroyed at the end.
+   (``moe_mlp_ep``: ``all_to_all_single`` over the model axis, under the
+   placement a placed step installs) at that width against
+   ``moe_mlp_dense`` (idx and keep equal, y within 1e-4 of the largest
+   |y|, aux within 1e-6, each call timed); the group destroyed at the
+   end.  Granite's placed train and prefill steps over it are ``mesh``'s.
    ``mesh``: the dense family's placed launch steps on an NCCL world of
    one and the (1, 1) ``DeviceMesh``: Qwen3-0.6B at full width, bf16, 4
    layers, its train_4k (B 2, S 4096, 2 steps), prefill_32k (B 1) and
@@ -650,7 +648,16 @@ LSE_PLACED_CASES = (
     ("gemma2_ring_block_b8_s1024_bf16_cap50", "bfloat16",
      [1024, 0, 5, 1024, 300, 0, 1024, 17], 1024, 8, 4, 256, 50.0),
     ("nemotron_block_b8_s8320_bf16", "bfloat16", LSE_BLOCK_LENS, 8320, 96,
-     8, 192, 0.0))
+     8, 192, 0.0),
+    # the MoE serve steps on (2, 2): Granite-MoE's seqshard block (8 of 16
+    # slots, 16,640 of 33,280 rows; the 24 query heads gathered over
+    # model for the kernel, the 8 KV heads whole: G 3 at D 64) and
+    # Qwen3-MoE's decode_2d block (4 of 8 slots; 64 heads over 4 KV
+    # heads: G 16 at D 128)
+    ("granite_moe_block_b8_s16640_bf16", "bfloat16",
+     [16_640, 16_640, 9000, 0, 1, 17, 16_640, 5000], 16_640, 24, 8, 64, 0.0),
+    ("qwen3_moe_block_b4_s16640_bf16", "bfloat16", [16_640, 0, 3, 12_000],
+     16_640, 64, 4, 128, 0.0))
 LSE_CAP_QSCALE = 40.0
 # the capped cases' lse limit: the top scores sit near the cap, where
 # tanh' is near 0 and q's bf16 rounding barely moves them (an H100 gave
@@ -5551,12 +5558,15 @@ def moe_layer_check(torch, dev):
 # moe_ep: the expert-parallel layer against the dense one on the NCCL
 # (1, 1) mesh, where the two are the same arithmetic.  The layer: y within
 # 1e-4 of the largest |y| and the aux within 1e-6 (moe_layer's rule, f32,
-# TF32 off); the steps: loss and grad norm within LAUNCH_STEP_TOL, every
-# parameter and cache leaf within one bf16 rounding of its largest value
-# (2^-7 relative), prefill tokens equal.
+# TF32 off); the placed steps over it (``mesh``'s Granite train and
+# prefill, beside their bit-equality): loss and grad norm within
+# LAUNCH_STEP_TOL, every parameter and cache leaf within one bf16
+# rounding of its largest value (2^-7 relative), prefill tokens equal.
 MOE_EP_TOL = {"y_rel": 1e-4, "aux_abs": 1e-6, "bf16_rel": 2.0 ** -7}
-MOE_EP_TRAIN = ("train_4k", 2048, 4)     # shape, S, B (train_4k's S halved)
-MOE_EP_PREFILL = ("prefill_32k", 4096, 2)
+# one MoE layer's specs as Granite's plans place them (its 40 experts
+# whole on ``model``, FSDP over ``data``)
+MOE_EP_SPECS = {"router": (None, None), "w_in": (None, "data", None),
+                "w_gate": (None, "data", None), "w_out": (None, None, "data")}
 
 
 class DispatchRecord:
@@ -5568,8 +5578,8 @@ class DispatchRecord:
         self.MOE, real = MOE, MOE._dispatch_indices
         self.real, self.calls = real, []
 
-        def recorded(idx, E, C):
-            pos, keep = real(idx, E, C)
+        def recorded(idx, E, C, *args):
+            pos, keep = real(idx, E, C, *args)
             self.calls.append((idx.cpu(), keep.cpu()))
             return pos, keep
         MOE._dispatch_indices = recorded
@@ -5591,35 +5601,39 @@ def moe_ep_layer(torch, dev, mesh):
     Granite-MoE-3B-A800M's width (d 1536, 40 experts top-8, cf 1.25), f32,
     one random layer from a seed, at moe_layer's T = 32 and 4 x 256: idx
     and keep equal, y and aux within ``MOE_EP_TOL``; each call timed
-    (CUDA events) and profiled once (``profile_call``)."""
+    (CUDA events) and profiled once (``profile_call``).  The layer runs
+    under the placement a placed step installs (``MOE_EP_SPECS``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.distributed import collectives as COL
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import moe as MOE
     cfg = get_config("granite_moe_3b_a800m").replace(
         param_dtype=torch.float32, compute_dtype=torch.float32)
     p = MOE.init_moe_mlp(torch.Generator(device=dev).manual_seed(5), cfg,
                          torch.float32, dev)
-    tree = MOE.shard_experts({"layers": {"mlp": {
-        k: v[None] for k, v in p.items()}}}, cfg, mesh)["layers"]["mlp"]
-    p_ep = {k: v[0] for k, v in tree.items()}
+    placement = SH.Placement(batch_axes=("data",),
+                             params={"layers": {"mlp": MOE_EP_SPECS}})
+
+    def ep(x):
+        with SH.axis_rules(mesh, SH.train_rules(), placement):
+            return MOE.moe_mlp_ep(p, cfg, x, mesh)
     rows = []
     for B, S in ((32, 1), (4, 256)):
         x = torch.randn((B, S, cfg.d_model),
                         generator=torch.Generator().manual_seed(B * S)).to(dev)
         a2a = COL.CALLS["all_to_all_single"]
         with torch.no_grad(), DispatchRecord() as rec:
-            y_ep, aux_ep = MOE.moe_mlp_ep(p_ep, cfg, x, mesh)
+            y_ep, aux_ep = ep(x)
             y, aux = MOE.moe_mlp_dense(p, cfg, x)
         exchanges = COL.CALLS["all_to_all_single"] - a2a
         (idx_ep, keep_ep), (idx, keep) = rec.calls
         err, rel = leaf_gap(torch, y, y_ep)
         aux_err = max(abs(float(aux_ep[k]) - float(aux[k])) for k in aux)
         with torch.no_grad():
-            ep_ms = cuda_ms(torch, lambda: MOE.moe_mlp_ep(p_ep, cfg, x, mesh))
+            ep_ms = cuda_ms(torch, lambda: ep(x))
             dense_ms = cuda_ms(torch, lambda: MOE.moe_mlp_dense(p, cfg, x))
             profiles = {
-                "ep": profile_call(torch, lambda: MOE.moe_mlp_ep(
-                    p_ep, cfg, x, mesh)),
+                "ep": profile_call(torch, lambda: ep(x)),
                 "dense": profile_call(torch, lambda: MOE.moe_mlp_dense(
                     p, cfg, x))}
         row = {"T": B * S, "B": B, "S": S,
@@ -5641,128 +5655,11 @@ def moe_ep_layer(torch, dev, mesh):
     return rows
 
 
-def moe_ep_steps(torch, dev, mesh, launches):
-    """Granite-MoE-3B-A800M in bf16 at ``LAUNCH_DEPTH`` layers: its
-    ``build_prefill_step`` (``MOE_EP_PREFILL``, the flash kernel at every
-    layer, counted) and ``LAUNCH_STEPS`` steps of ``build_train_step``
-    (``MOE_EP_TRAIN``, its train_4k plan: remat, 4 microbatches) on
-    ``mesh``, where the MoE layers are ``moe_mlp_ep``, and again on
-    ``make_local_mesh()`` (``moe_mlp_dense``), from the same weights and
-    batch; held by ``MOE_EP_TOL``."""
-    from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.distributed import collectives as COL
-    from repro_torch.kernels import ops
-    from repro_torch.launch import steps, train
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.plans import get_plan
-    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
-                                             tree_leaves)
-    arch = "granite_moe_3b_a800m"
-    cfg = get_config(arch).replace(num_layers=LAUNCH_DEPTH["granite_moe"])
-    out = {"model": cfg.name, "layers": cfg.num_layers}
-
-    shape_name, S, B = MOE_EP_PREFILL
-    plan = get_plan(arch, shape_name)
-    runs = {}
-    for label, m in (("mesh", mesh), ("local", make_local_mesh())):
-        built = steps.build_prefill_step(
-            cfg, ShapeConfig(shape_name, S, B, "prefill"), plan, m, False,
-            device=dev)
-        params = built.model.init_params(
-            torch.Generator(device=dev).manual_seed(0))
-        g = torch.Generator(device=dev).manual_seed(3)
-        batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
-                                         generator=g, device=dev,
-                                         dtype=torch.int32),
-                 "prompt_lens": torch.full((B,), S, dtype=torch.int32,
-                                           device=dev)}
-        cache = built.model.init_cache(B, built.in_specs[2]["k"].shape[2])
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        a2a = COL.CALLS["all_to_all_single"]
-        (tok, cache), t = timed_call(torch, built.fn, params, batch, cache)
-        counts = ops.launch_counts()
-        runs[label] = {"token": tok.cpu(), "cache": cache, "ms": t,
-                       "exchanges": COL.CALLS["all_to_all_single"] - a2a}
-        launches[f"moe_ep_prefill_{label}"] = counts
-        check_launches(f"moe_ep prefill on {label}", counts,
-                       {"flash_attention": cfg.num_layers})
-        del params, built
-    gaps = {k: leaf_gap(torch, runs["local"]["cache"][k],
-                        runs["mesh"]["cache"][k])[1]
-            for k in runs["local"]["cache"]}
-    prefill = {"seq": S, "batch": B, "step_ms": {k: r["ms"] for k, r in
-                                                 runs.items()},
-               "token_mesh": runs["mesh"]["token"].tolist(),
-               "token_local": runs["local"]["token"].tolist(),
-               "cache_rel_gap": gaps,
-               "cache_bit_equal": all(torch.equal(
-                   runs["mesh"]["cache"][k], runs["local"]["cache"][k])
-                   for k in gaps),
-               "all_to_all_single": {k: r["exchanges"]
-                                     for k, r in runs.items()}}
-    check(torch.equal(runs["mesh"]["token"], runs["local"]["token"]),
-          f"moe_ep prefill: tokens differ {prefill}")
-    check(max(gaps.values()) <= MOE_EP_TOL["bf16_rel"]
-          and prefill["all_to_all_single"] == {"mesh": 2 * cfg.num_layers,
-                                                "local": 0},
-          f"moe_ep prefill: {prefill}")
-    out["prefill"] = prefill
-    del runs
-    release(torch)
-
-    shape_name, S, B = MOE_EP_TRAIN
-    plan = get_plan(arch, shape_name)
-    runs = {}
-    for label, m in (("mesh", mesh), ("local", make_local_mesh())):
-        built = steps.build_train_step(
-            cfg, ShapeConfig(shape_name, S, B, "train"), plan, m, False,
-            device=dev)
-        params = built.model.init_params(
-            torch.Generator(device=dev).manual_seed(0))
-        opt = init_opt_state(params, AdamWConfig(state_dtype=plan.opt_dtype))
-        batch = train.make_batch(cfg, B, S, dev,
-                                 torch.Generator().manual_seed(1))
-        ops.reset_launch_counts()
-        ms, losses, gnorms = [], [], []
-        for _ in range(LAUNCH_STEPS):
-            (params, opt, metrics), t = timed_call(torch, built.fn, params,
-                                                   opt, batch)
-            ms.append(t)
-            losses.append(float(metrics["loss"]))
-            gnorms.append(float(metrics["grad_norm"]))
-        counts = ops.launch_counts()
-        check(not any(counts.values()), f"moe_ep train on {label}: {counts}")
-        runs[label] = {"params": tree_leaves(params), "update_ms": ms,
-                       "loss": losses, "grad_norm": gnorms}
-        del opt, built, batch
-    rel = max(leaf_gap(torch, a, b)[1] for a, b in zip(
-        runs["local"]["params"], runs["mesh"]["params"]))
-    bit_equal = all(torch.equal(a, b) for a, b in zip(
-        runs["local"]["params"], runs["mesh"]["params"]))
-    steps_ok = all(math.isclose(a, b, rel_tol=LAUNCH_STEP_TOL["rtol"],
-                                abs_tol=LAUNCH_STEP_TOL["atol"])
-                   for k in ("loss", "grad_norm")
-                   for a, b in zip(runs["local"][k], runs["mesh"][k]))
-    train_row = {"seq": S, "batch": B, "plan": {
-        "remat": plan.remat, "microbatches": plan.microbatches},
-        "params_rel_gap": rel, "params_bit_equal": bit_equal,
-        **{f"{k}_{label}": r[k] for label, r in runs.items()
-           for k in ("loss", "grad_norm", "update_ms")}}
-    check(steps_ok and rel <= MOE_EP_TOL["bf16_rel"]
-          and all(math.isfinite(x) for x in runs["mesh"]["loss"]),
-          f"moe_ep train: {train_row}")
-    out["train"] = train_row
-    del runs
-    release(torch)
-    return out
-
-
 def phase_moe_ep(torch, dev, launches):
     """The expert-parallel MoE on the card: an NCCL world of one through a
     ``FileStore`` in a temporary directory (no network), the (1, 1)
-    ``("data", "model")`` mesh on ``cuda``, then ``moe_ep_layer`` and
-    ``moe_ep_steps``; the group destroyed at the end."""
+    ``("data", "model")`` mesh on ``cuda``, then ``moe_ep_layer``; the
+    group destroyed at the end."""
     import datetime
     import shutil
     import tempfile
@@ -5779,14 +5676,12 @@ def phase_moe_ep(torch, dev, launches):
     try:
         mesh = make_compat_mesh((1, 1), ("data", "model"), dev.type)
         layer = moe_ep_layer(torch, dev, mesh)
-        steps = moe_ep_steps(torch, dev, mesh, launches)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "moe_ep", "card": card_name_and_power(),
           "backend": dist.Backend.NCCL if cuda else dist.Backend.GLOO,
-          "mesh": [1, 1], "tol": MOE_EP_TOL,
-          "step_tol": LAUNCH_STEP_TOL, "layer": layer, **steps})
+          "mesh": [1, 1], "tol": MOE_EP_TOL, "layer": layer})
 
 
 # ---------------------------------------------------------------------------
@@ -5794,13 +5689,27 @@ def phase_moe_ep(torch, dev, launches):
 # ---------------------------------------------------------------------------
 
 MESH_DEPTH = 4
-# label -> (arch, shape, S, B, layers): Qwen3-0.6B's plans at PERF.md
-# section 4's cut batches (train_4k 2 rows, prefill_32k 1, decode_32k 8);
-# the placed serve steps of Gemma2-2B's local/global cache (decode_32k at
-# B 8 of 128, long_500k at its B 1) and of decode_2d (Qwen1.5-110B and
-# Nemotron-4-340B at decode_32k, B 8 of 128); full widths, depth cut to
-# MESH_DEPTH layers (Nemotron to 2: 32.7 GB of bf16 weights, run twice)
+MOE_MESH_DEPTH = 8
+# label -> (arch, shape, S, B, layers): the MoE family's placed steps
+# (Granite-MoE-3B-A800M's train_4k at B 4 of 256, its 4 microbatches of
+# one row, prefill_32k at 1 of 32 and its seqshard decode_32k at 8 of
+# 128, at MOE_MESH_DEPTH of 32 layers; Qwen3-MoE-235B-A22B's decode_2d at
+# 8 of 128 and 4 of 94 layers, 19.3 GB of experts), Qwen3-0.6B's plans
+# at PERF.md section 4's cut batches (train_4k 2 rows, prefill_32k 1,
+# decode_32k 8); the placed serve steps of Gemma2-2B's local/global cache
+# (decode_32k at B 8 of 128, long_500k at its B 1) and of decode_2d
+# (Qwen1.5-110B and Nemotron-4-340B at decode_32k, B 8 of 128); full
+# widths, depth cut to MESH_DEPTH layers (Nemotron to 2: 32.7 GB of bf16
+# weights, run twice)
 MESH_RUNS = {
+    "granite_train_4k": ("granite_moe_3b_a800m", "train_4k", 4096, 4,
+                         MOE_MESH_DEPTH),
+    "granite_prefill_32k": ("granite_moe_3b_a800m", "prefill_32k", 32_768,
+                            1, MOE_MESH_DEPTH),
+    "granite_decode_32k": ("granite_moe_3b_a800m", "decode_32k", 32_768, 8,
+                           MOE_MESH_DEPTH),
+    "qwen3_moe_decode_2d": ("qwen3_moe_235b_a22b", "decode_32k", 32_768, 8,
+                            MESH_DEPTH),
     "train_4k": ("qwen3_0_6b", "train_4k", 4096, 2, MESH_DEPTH),
     "prefill_32k": ("qwen3_0_6b", "prefill_32k", 32_768, 1, MESH_DEPTH),
     "decode_32k": ("qwen3_0_6b", "decode_32k", 32_768, 8, MESH_DEPTH),
@@ -5819,13 +5728,14 @@ def mesh_step_run(torch, dev, cfg, arch, shape_name, S, B, mesh):
     launch counts zeroed just before the run and read just after; the
     results gathered back to whole trees."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives as COL
     from repro_torch.kernels import ops
     from repro_torch.launch import plans, steps, train
     from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
                                              tree_leaves)
     plan = plans.get_plan(arch, shape_name)
-    kind = {"train_4k": "train", "prefill_32k": "prefill"}.get(shape_name,
-                                                               "decode")
+    kind = kind_of(shape_name)
+    a2a = COL.CALLS["all_to_all_single"]
     built = steps.build_step(cfg, ShapeConfig(shape_name, S, B, kind), plan,
                              mesh, False, device=dev)
     sh = built.in_shardings or (None,) * 4
@@ -5855,7 +5765,8 @@ def mesh_step_run(torch, dev, cfg, arch, shape_name, S, B, mesh):
             gnorms.append(float(m["grad_norm"]))
             ms.append(t)
         out.update(counts=ops.launch_counts(), loss=losses, grad_norm=gnorms,
-                   ms=ms, leaves=tree_leaves(whole(params, sh[0])))
+                   ms=ms, leaves=tree_leaves(whole(params, sh[0])),
+                   exchanges=COL.CALLS["all_to_all_single"] - a2a)
         return out
     rows = max(t.shape[2] for t in built.in_specs[2].values())
     cache = built.model.init_cache(B, rows)
@@ -5871,7 +5782,8 @@ def mesh_step_run(torch, dev, cfg, arch, shape_name, S, B, mesh):
         ops.reset_launch_counts()
         (tok, cache), t = timed_call(torch, built.fn, params, batch, cache)
         out.update(counts=ops.launch_counts(), tokens=[tok.cpu()], ms=[t],
-                   cache=whole(cache, sh[2]))
+                   cache=whole(cache, sh[2]),
+                   exchanges=COL.CALLS["all_to_all_single"] - a2a)
         return out
     for t in cache.values():
         t.normal_(generator=gen).mul_(LAUNCH_CACHE_SCALE)
@@ -5891,15 +5803,26 @@ def mesh_step_run(torch, dev, cfg, arch, shape_name, S, B, mesh):
         ms.append(t)
         kv = kv + 1
     out.update(counts=ops.launch_counts(), tokens=toks, logprobs=lps, ms=ms,
-               cache=whole(cache, sh[2]))
+               cache=whole(cache, sh[2]),
+               exchanges=COL.CALLS["all_to_all_single"] - a2a)
     return out
 
 
+def kind_of(shape_name: str) -> str:
+    return {"train_4k": "train", "prefill_32k": "prefill"}.get(shape_name,
+                                                               "decode")
+
+
 def phase_mesh(torch, dev, launches):
-    """The dense family's placed launch steps on the card: an NCCL world
-    of one through a ``FileStore`` (no network), the (1, 1) ``("data",
-    "model")`` ``DeviceMesh``; each ``MESH_RUNS`` run at full width, bf16,
-    its depth cut: Qwen3-0.6B's train_4k, prefill_32k and decode_32k
+    """The dense and MoE families' placed launch steps on the card: an
+    NCCL world of one through a ``FileStore`` (no network), the (1, 1)
+    ``("data", "model")`` ``DeviceMesh``; each ``MESH_RUNS`` run at full
+    width, bf16, its depth cut: Granite-MoE-3B-A800M's train_4k,
+    prefill_32k (the expert-parallel layer on the mesh, two
+    ``all_to_all_single`` a layer a microbatch, against the dense layer
+    on the local mesh, held also by ``MOE_EP_TOL``) and seqshard
+    decode_32k, Qwen3-MoE-235B-A22B's
+    ``decode_2d``, Qwen3-0.6B's train_4k, prefill_32k and decode_32k
     plans, Gemma2-2B's decode_32k and long_500k (its ring and global
     caches under ``seqshard``) and the ``decode_2d`` serve steps of
     Qwen1.5-110B and Nemotron-4-340B, each placed on the mesh and again
@@ -5955,6 +5878,21 @@ def phase_mesh(torch, dev, launches):
             for label, r in runs.items():
                 check_launches(f"mesh {run_label} on {label}", r["counts"],
                                want)
+            # the expert-parallel layer on the mesh only: the prefill's two
+            # exchanges a layer; the train's in whole passes of two a layer
+            # a microbatch a step (forward, backward, remat's recompute)
+            kind = kind_of(shape_name)
+            per = 2 * cfg.num_layers * (1 if kind == "prefill" else
+                                        LAUNCH_STEPS * plans.get_plan(
+                                            arch, shape_name).microbatches)
+            if cfg.family == "moe" and kind != "decode":
+                equal["exchanges"] = (a["exchanges"] > 0
+                                      and a["exchanges"] % per == 0
+                                      and (kind == "train"
+                                           or a["exchanges"] == per)
+                                      and b["exchanges"] == 0)
+            else:
+                equal["exchanges"] = a["exchanges"] == b["exchanges"] == 0
             row = {"run": run_label, "model": cfg.name,
                    "layers": cfg.num_layers, "shape": shape_name, "seq": S,
                    "batch": B, "decode_2d": plans.get_plan(
@@ -5963,7 +5901,28 @@ def phase_mesh(torch, dev, launches):
                    "ms": {k: r["ms"] for k, r in runs.items()},
                    "loss": a.get("loss"), "grad_norm": a.get("grad_norm"),
                    "tokens": [t.tolist() for t in a.get("tokens", [])],
-                   "launches": {k: r["counts"] for k, r in runs.items()}}
+                   "launches": {k: r["counts"] for k, r in runs.items()},
+                   "all_to_all_single": {k: r["exchanges"]
+                                         for k, r in runs.items()}}
+            if cfg.family == "moe" and kind != "decode":
+                # the expert-parallel step's own tolerances (MOE_EP_TOL),
+                # beside the bits
+                if kind == "train":
+                    gap = max(leaf_gap(torch, y, x)[1]
+                              for x, y in zip(a["leaves"], b["leaves"]))
+                    near = all(math.isclose(
+                        x, y, rel_tol=LAUNCH_STEP_TOL["rtol"],
+                        abs_tol=LAUNCH_STEP_TOL["atol"])
+                        for k in ("loss", "grad_norm")
+                        for x, y in zip(a[k], b[k]))
+                else:
+                    gap = max(leaf_gap(torch, b["cache"][k], a["cache"][k])[1]
+                              for k in a["cache"])
+                    near = equal["tokens"]
+                row["moe_ep_tol"] = {"rel_gap": gap, "steps_or_tokens": near,
+                                     "tol": MOE_EP_TOL["bf16_rel"]}
+                check(near and gap <= MOE_EP_TOL["bf16_rel"],
+                      f"mesh {run_label}: past MOE_EP_TOL {row}")
             check(all(equal.values()), f"mesh {run_label}: the placed step "
                   f"differs from the local one {row}")
             rows.append(row)

@@ -94,10 +94,12 @@ class Placement:
     """What a placed step holds on each rank: ``batch_axes`` the mesh
     axes its batch rows are split over (data-major, as a ``PartitionSpec``
     entry), ``params`` the parameter tree's specs (None: every parameter
-    replicated) and ``cache`` the cache tree's (None: no cache)."""
+    replicated), ``cache`` the cache tree's (None: no cache) and ``vocab``
+    the model's vocabulary (None: any the model axis divides)."""
     batch_axes: Tuple[str, ...] = ()
     params: Any = None
     cache: Any = None
+    vocab: Optional[int] = None
 
 
 def _current() -> Optional[Tuple[object, Dict[str, object], Any]]:
@@ -211,6 +213,40 @@ def sum_batch(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the batch's axes in rank order (not autograd):
     the whole batch's value of a per-rank partial."""
     return COL.sum_over(x, [a.group for a in batch_axes()])
+
+
+def batch_count() -> int:
+    """The number of blocks the batch rows are split into (1 outside a
+    placement)."""
+    return math.prod(a.size for a in batch_axes())
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over dim 0 of ``x``'s rows over the whole batch:
+    ``x.mean(0)`` without batch axes; else the rank's rows' sum, summed
+    over the batch's axes in rank order (the same bits on every rank),
+    over every rank's count.  Autograd: each rank's loss is its rows'
+    part of the whole (module docstring), so the backward sums the
+    gradient over the axes (the gather's reduce-scatter): a whole-batch
+    statistic such as the routers' density enters every rank's part."""
+    n = batch_count()
+    if n == 1:
+        return x.mean(0)
+    total = x.sum(0)
+    for a in reversed(batch_axes()):
+        total = COL.all_gather(total[None], a.group, 0).sum(0)
+    return total / (x.shape[0] * n)
+
+
+def batch_offset(counts: torch.Tensor) -> torch.Tensor:
+    """The sum of ``counts`` over the batch blocks before this rank's, in
+    the batch spec's block order (zeros without batch axes; not autograd):
+    where this rank's rows start in a whole-batch running count."""
+    axes = batch_axes()
+    if not axes:
+        return torch.zeros_like(counts)
+    every = gather_over(counts[None], axes)
+    return every[:block_index(axes)].sum(0)
 
 
 def gather_batch(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -383,7 +419,8 @@ def param_spec(path: Sequence[str], ndim: int) -> Tuple:
 
 def weight(w: torch.Tensor, path: Sequence[str],
            split: Optional[int] = None,
-           embed: Optional[int] = None) -> torch.Tensor:
+           embed: Optional[int] = None,
+           sum_model: bool = True) -> torch.Tensor:
     """The rank's view of weight ``w`` for a layer's product.
 
     Each dim stored split over an axis other than the model axis (FSDP
@@ -397,7 +434,9 @@ def weight(w: torch.Tensor, path: Sequence[str],
     block: as stored where the spec splits it, else cut from the
     replicated weight, whose gradient is then summed over the axis; with
     ``split`` None a weight stored replicated over the model axis keeps
-    its whole extent, its gradient summed over the axis (``shared``),
+    its whole extent, its gradient summed over the axis (``shared``;
+    not with ``sum_model`` False, where the layer's computation on it is
+    the same on every rank of the axis, so its gradient is whole there),
     and one stored split keeps its block (a KV projection whose heads
     the cache holds split)."""
     ctx = _placed()
@@ -429,7 +468,8 @@ def weight(w: torch.Tensor, path: Sequence[str],
         return w
     model_dims = [i for i, e in enumerate(spec) if ax.name in entry_axes(e)]
     if split is None:
-        return w if model_dims else COL.sum_grad(w, [ax.group])
+        return w if model_dims or not sum_model else COL.sum_grad(
+            w, [ax.group])
     if split in model_dims:
         return w
     n = w.shape[split]
@@ -481,11 +521,26 @@ def kv_heads_for_q(H: int, Kh: int, k_heads: int) -> Tuple[int, int]:
 
 def vocab_split() -> Optional[Axis]:
     """The model axis where the ``vocab`` rule names it (the head's
-    logits are then the rank's block of the vocabulary)."""
+    logits are then the rank's block of the vocabulary) and its ranks
+    divide the vocabulary; where they do not (Granite-MoE's 49,155 on 2
+    or 4), every rank computes the whole vocabulary's logits, as the
+    reference's compiler gives each device the whole where the specs
+    replicate the head."""
     ax = model_axis()
     if ax is None or _current()[1].get("vocab") != ax.name:
         return None
-    return ax
+    V = _current()[2].vocab
+    return ax if V is None or V % ax.size == 0 else None
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The sequence-parallel residual's block (dim 1) gathered to the
+    whole sequence for a computation every rank of the model axis runs
+    alike (the backward keeps the rank's block of the gradient, which is
+    the same on every rank); ``x`` elsewhere."""
+    if not seq_parallel():
+        return x
+    return COL.all_gather(x, model_axis().group, 1, grad="slice")
 
 
 def split_logsumexp(lf: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -637,7 +692,8 @@ def sync_grads(grads, specs) -> list:
 def placed_global_norm(grads, specs) -> torch.Tensor:
     """The global gradient norm of the unsharded tree on every rank: each
     leaf's sum of squares summed over the axes its spec splits it over (a
-    replicated leaf counted once), in ``tree_leaves`` order."""
+    replicated leaf counted once: the MoE experts every rank of the model
+    axis holds whole among them), in ``tree_leaves`` order."""
     ctx = _placed()
     sq = [torch.sum(torch.square(g.float())) for g in grads]
     if ctx is not None and specs is not None:
@@ -697,22 +753,22 @@ def pad_update_batch(batch: Dict[str, object], multiple: int,
     return out
 
 
-def shard_update_batch(batch: Dict[str, object], pad_token: int = 0,
-                       split: bool = True) -> Dict[str, object]:
+def shard_update_batch(batch: Dict[str, object], pad_token: int = 0
+                       ) -> Dict[str, object]:
     """The update batch padded to a multiple of :func:`data_shard_count`
     with inert rows (:func:`pad_update_batch`) inside an
-    :func:`axis_rules` context; on a ``DeviceMesh`` with ``split`` each
-    array then keeps the rank's contiguous slice of its leading dim, the
-    block the reference's ``NamedSharding(mesh, P(batch, ...))`` gives the
-    device at the rank's coordinates (the ``batch`` rule's axes, outermost
-    first).  On a ``LocalMesh``, or without ``split``, the padded batch;
-    outside any context the batch itself."""
+    :func:`axis_rules` context; on a ``DeviceMesh`` each array then keeps
+    the rank's contiguous slice of its leading dim, the block the
+    reference's ``NamedSharding(mesh, P(batch, ...))`` gives the device at
+    the rank's coordinates (the ``batch`` rule's axes, outermost first).
+    On a ``LocalMesh`` the padded batch; outside any context the batch
+    itself."""
     ctx = _current()
     if ctx is None:
         return batch
     batch = pad_update_batch(batch, data_shard_count(), pad_token)
     mesh, rules = ctx[0], ctx[1]
-    if not split or not is_device_mesh(mesh):
+    if not is_device_mesh(mesh):
         return batch
     axes = [mesh_axis(mesh, a) for a in entry_axes(rules.get("batch"))]
     n, i = math.prod(a.size for a in axes), block_index(axes)

@@ -8,11 +8,11 @@ and outputs (``in_shardings``, ``out_shardings``: trees of spec tuples,
 ``launch/plans.py``; the reference's ``NamedSharding`` trees), the
 activation rules it installs, the mesh and the model.
 
-The dense family on a ``DeviceMesh`` runs placed: each rank holds the
-blocks the specs give it at its mesh coordinates (``plans.place`` of
-the whole trees; ``plans.gather`` brings them back) and computes on
-them, one program a rank, as the reference's steps compute on each
-device under their shardings:
+The dense and MoE families on a ``DeviceMesh`` run placed: each rank
+holds the blocks the specs give it at its mesh coordinates
+(``plans.place`` of the whole trees; ``plans.gather`` brings them back)
+and computes on them, one program a rank, as the reference's steps
+compute on each device under their shardings:
 
 * ``dp``: the batch rows over the fitted batch axes (``_batch_spec``),
   parameters replicated; each rank's loss is its rows' part of the
@@ -23,32 +23,32 @@ device under their shardings:
   dim gathered where a layer uses it, its gradient reduce-scattered),
   the batch over ``data``, and under train the sequence-parallel
   residual (``"seq" -> "model"``).
+* the MoE family's train and prefill steps take the reference's
+  expert-parallel layer (``moe.moe_mlp_ep``) on the placed residual: its
+  ``shard_map`` block is the rank's rows and, under sequence
+  parallelism, its block of the sequence; the experts are split over
+  ``model`` where 16 divides them (else every rank holds them all and
+  runs its ``E_local``) and FSDP over ``data``.  Its serve step takes the
+  dense-dispatch layer (``moe.moe_mlp_dense``), as the reference's does,
+  with the whole batch's capacity and slots over split rows.
 * caches: ``kvheads`` (the KV heads over ``model`` where 16 divides
   them) or ``seqshard`` (the cache's rows over ``model``, long_500k's
   over ``("data", "model")``, Gemma2's ring among them: each rank runs
   the dense decode kernel on its block of rows and the ranks' outputs
   are combined from the kernel's lse);
-* ``decode_2d`` (the big dense models' decode): the activations hold
-  every slot and their d is split over ``data``; each product contracts
-  the rank's block of d and sums its partial results, no weight is
-  gathered (``build_serve_step``).
+* ``decode_2d`` (the big models' decode): the activations hold every
+  slot and their d is split over ``data``; each product contracts the
+  rank's block of d and sums its partial results, no weight is gathered
+  (``build_serve_step``; the MoE layer's experts each on their ``model``
+  rank).
 
 The model code acts on the placement through ``distributed/
 sharding.py``.  On a ``LocalMesh`` every step is what it was: the plan
 acts only through ``remat``, ``microbatches`` and ``opt_dtype``.
 
-The MoE family's train and prefill steps take the reference's
-expert-parallel layer (``moe_mlp_ep``) when ``mesh`` is a ``DeviceMesh``,
-as the reference does: every rank runs the whole step on the whole
-batch, replicated, except inside the MoE layers, where each rank routes
-its block of the tokens and runs its ``E_local`` experts.  Their
-parameters (and moments) on a rank are then its slice
-(``moe.shard_experts``), the grad norm the unsharded tree's
-(``moe.ep_global_norm``).  The serve step stays on ``moe_mlp_dense``, as
-the reference's does.  The other families' train and prefill steps run
-unplaced (whole trees on every rank) on a ``DeviceMesh``, and their
-``Built`` carries no placements; their serve steps (the MoE family's
-``decode_2d`` among them) are not placed yet and raise when called
+The other families' train and prefill steps run unplaced (whole trees
+on every rank) on a ``DeviceMesh``, and their ``Built`` carries no
+placements; their serve steps are not placed yet and raise when called
 there.
 
 The steps run on the device of the tensors they are given; the model is
@@ -70,7 +70,6 @@ from repro_torch.launch.mesh import is_device_mesh
 from repro_torch.launch.plans import (Plan, activation_rules, cache_specs_for,
                                       param_specs, spec_leaves)
 from repro_torch.models import model as model_lib
-from repro_torch.models import moe as MOE
 from repro_torch.rl.losses import LossConfig, total_loss
 from repro_torch.rl.trainer import value_and_grad
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_update,
@@ -137,9 +136,12 @@ def _batch_specs(batch_shape: Dict[str, torch.Tensor], axes
                 )[:v.ndim] for k, v in batch_shape.items()}
 
 
+PLACED_FAMILIES = ("dense", "moe")
+
+
 def _placed(cfg: ModelConfig, mesh) -> bool:
-    """The dense family's steps on a ``DeviceMesh`` run placed."""
-    return cfg.family == "dense" and is_device_mesh(mesh)
+    """The steps of ``PLACED_FAMILIES`` on a ``DeviceMesh`` run placed."""
+    return cfg.family in PLACED_FAMILIES and is_device_mesh(mesh)
 
 
 def _ep_mesh(cfg: ModelConfig, mesh):
@@ -173,8 +175,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     cfg = cfg.replace(remat=plan.remat)
     rules = activation_rules(plan, multi_pod, "train")
     baxes = _batch_axes(multi_pod, plan)
-    ep_mesh = _ep_mesh(cfg, mesh)
-    model = model_lib.build_model(cfg, device=device, ep_mesh=ep_mesh,
+    model = model_lib.build_model(cfg, device=device,
+                                  ep_mesh=_ep_mesh(cfg, mesh),
                                   data_axes=baxes)
     loss_cfg = LossConfig()
     opt_cfg = AdamWConfig(state_dtype=plan.opt_dtype)
@@ -186,8 +188,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
                                         shape.global_batch, "train")
     bspecs = _batch_specs(batch_shape, baxes)
     placed = _placed(cfg, mesh)
-    placement = (Placement(_fit_batch_axes(shape.global_batch, baxes), pspecs)
-                 if placed else None)
+    placement = (Placement(_fit_batch_axes(shape.global_batch, baxes), pspecs,
+                           vocab=cfg.vocab_size) if placed else None)
     pleaves = spec_leaves(pspecs) if placed else None
 
     def loss_fn(params, batch, den):
@@ -229,12 +231,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
                 loss = loss / nmicro
                 metrics = {}
             grads = SH.sync_grads(grads, pleaves)
-            if ep_mesh is not None:
-                gnorm = MOE.ep_global_norm(params, grads, ep_mesh)
-            elif placed:
-                gnorm = SH.placed_global_norm(grads, pleaves)
-            else:
-                gnorm = None
+            gnorm = SH.placed_global_norm(grads, pleaves) if placed else None
             params, opt_state, om = adamw_update(params, grads, opt_state,
                                                  opt_cfg, gnorm=gnorm)
             metrics.update(om)
@@ -277,8 +274,8 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     bspecs = _batch_specs(batch_shape, baxes)
     cspecs = cache_specs_for(cache_shape, cfg, plan, B, multi_pod)
     placed = _placed(cfg, mesh)
-    placement = (Placement(_fit_batch_axes(B, baxes), pspecs, cspecs) if placed
-                 else None)
+    placement = (Placement(_fit_batch_axes(B, baxes), pspecs, cspecs,
+                           cfg.vocab_size) if placed else None)
 
     @torch.no_grad()
     def prefill_step(params, batch, cache):
@@ -326,8 +323,10 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     reference's batch spec, reconciled by its compiler), so the step
     gathers them first and returns its rows; the cache's slots are split
     over ``data`` too, so each rank attends its own slots and the outputs
-    are gathered over ``data``.  On a ``DeviceMesh`` the other families'
-    serve steps are not placed yet and raise."""
+    are gathered over ``data``.  The MoE layers are the dense-dispatch
+    layer, placed (``moe.moe_mlp_dense``).  On a ``DeviceMesh`` the
+    serve steps of the families outside ``PLACED_FAMILIES`` are not
+    placed yet and raise."""
     cfg = cfg.replace(remat=False)
     rules = activation_rules(plan, multi_pod, "decode")
     baxes = _batch_axes(multi_pod, plan)
@@ -345,7 +344,8 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     placement = None
     if placed:
         rows = _fit_batch_axes(B, baxes)
-        placement = Placement(() if plan.decode_2d else rows, pspecs, cspecs)
+        placement = Placement(() if plan.decode_2d else rows, pspecs, cspecs,
+                              cfg.vocab_size)
 
     @torch.no_grad()
     def serve_step(params, token, cache, kv_len):

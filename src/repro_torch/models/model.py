@@ -34,10 +34,10 @@ on one device, the card unless the caller passes ``device="cpu"``.
 
 ``ep_mesh`` (a ``DeviceMesh``, the MoE family only) is the reference's
 expert parallelism: every block's MLP is ``moe_mlp_ep`` over it (with
-``data_axes`` the batch's mesh axes), ``init_params`` returns this
-rank's tree, its experts cut by ``moe.shard_experts`` (a tree from
-elsewhere, ``convert.from_jax_params``'s, is cut the same way, once),
-and there is no paged decode (the reference has none for it).
+``data_axes`` the batch's mesh axes), and there is no paged decode (the
+reference has none for it), and the steps run it under a placement.
+``init_params`` returns the whole tree; a placed step takes each rank's
+blocks of it (``launch/plans.py`` ``place``).
 """
 from __future__ import annotations
 
@@ -49,7 +49,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as HY
-from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
 from repro_torch.models import whisper as WH
 from repro_torch.models import xlstm as XL
@@ -99,10 +98,7 @@ def build_model(cfg: ModelConfig, device=None, ep_mesh=None,
                        for aux in (True, False))
 
     def init_params(generator: torch.Generator):
-        params = TF.init_params(cfg, generator, dev)
-        if ep_mesh is not None:
-            params = MOE.shard_experts(params, cfg, ep_mesh)
-        return params
+        return TF.init_params(cfg, generator, dev)
 
     def forward(params, batch):
         return TF.forward(params, cfg, batch["tokens"],

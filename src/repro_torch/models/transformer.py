@@ -219,18 +219,20 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
     over the model axis the logits are the rank's block of the
     vocabulary, over the whole sequence; with the embed axis
     (``decode_2d``) x is the rank's block of d, the head's too, and the
-    partial logits are summed over the axis before the softcap."""
+    partial logits are summed over the axis before the softcap.  A
+    vocabulary the model axis does not divide is computed whole on every
+    rank of the axis (``sharding.vocab_split``)."""
     x = L.norm(x, SH.seq_shared(params["final_norm"]), cfg.norm_type,
                cfg.norm_eps)
     split = SH.vocab_split() is not None
-    if split:
-        x = SH.enter_columns(x)
+    x = SH.enter_columns(x) if split else SH.gather_seq(x)
     if cfg.tie_embeddings:
         w = SH.weight(params["embed"], ("embed",),
-                      split=0 if split else None, embed=1).T
+                      split=0 if split else None, embed=1,
+                      sum_model=split).T
     else:
         w = SH.weight(params["lm_head"], ("lm_head",),
-                      split=1 if split else None, embed=0)
+                      split=1 if split else None, embed=0, sum_model=split)
     logits = SH.contract(x @ w.to(cfg.compute_dtype))
     if cfg.logit_softcap > 0:
         logits = L._softcap(logits.float(), cfg.logit_softcap)
@@ -239,19 +241,22 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
 
 def mlp_fn(cfg: ModelConfig, with_aux: bool = True, ep_mesh=None,
            data_axes=("data",)):
-    """``fn(params, h) -> (y, aux)``, the block's MLP (the reference's
-    ``_apply_mlp`` and ``_moe_mlp_fn``): the expert layer for the MoE
-    family (aux None when ``with_aux`` is off), ``moe_mlp_ep`` over
-    ``ep_mesh`` when one is given, else ``moe_mlp_dense``; the dense MLP
-    with ``ZERO_AUX`` for the other families."""
+    """``fn(params, h) -> (y, aux)``, the block's MLP on the normed
+    residual ``h`` as the rank holds it (the reference's ``_apply_mlp``
+    and ``_moe_mlp_fn``): the expert layer for the MoE family (aux None
+    when ``with_aux`` is off), ``moe_mlp_ep`` over ``ep_mesh`` when one
+    is given, else ``moe_mlp_dense``, each placed under a placement
+    (``models/moe.py``); the dense MLP with ``ZERO_AUX`` for the other
+    families, its columns over the model axis (``sharding.enter_columns``
+    hands it the residual)."""
     if cfg.family == "moe" and ep_mesh is not None:
         return lambda p, h: MOE.moe_mlp_ep(p, cfg, h, ep_mesh,
                                            data_axes=data_axes,
                                            with_aux=with_aux)
     if cfg.family == "moe":
         return lambda p, h: MOE.moe_mlp_dense(p, cfg, h, with_aux=with_aux)
-    return lambda p, h: (L.mlp(p, h, cfg.mlp_act, cfg.gated_mlp),
-                         dict(ZERO_AUX))
+    return lambda p, h: (L.mlp(p, SH.enter_columns(h), cfg.mlp_act,
+                               cfg.gated_mlp), dict(ZERO_AUX))
 
 
 def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -261,12 +266,12 @@ def _block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
     its query heads read).  Under a placement (``distributed/
     sharding.py``) x is the residual as the rank holds it (its block of
     the sequence under sequence parallelism) and the products run on the
-    rank's heads and FFN columns."""
+    rank's heads and FFN columns (the MoE layers on their own blocks)."""
     h = L.norm(x, SH.seq_shared(bp["ln1"]), cfg.norm_type, cfg.norm_eps)
     q, k, v = L.qkv_project(bp["attn"], cfg, SH.enter_columns(h), positions)
     x = x + L.attn_output(bp["attn"], attend(q, k, v))
     h = L.norm(x, SH.seq_shared(bp["ln2"]), cfg.norm_type, cfg.norm_eps)
-    y, aux = mlp(bp["mlp"], SH.enter_columns(h))
+    y, aux = mlp(bp["mlp"], h)
     return x + y, k, v, aux
 
 

@@ -91,7 +91,9 @@ def total_loss(logits: torch.Tensor, aux: Dict[str, torch.Tensor],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B,S), loss_mask (B,S), advantages (B,S),
     old_logprobs (B,S).  ``den``: the policy loss's token count where the
-    batch is a rank's part of one (``ppo_clip_loss``)."""
+    batch is a rank's part of one (``ppo_clip_loss``); there ``aux``, the
+    whole batch's router losses, enters with weight 1 / the number of
+    the batch's blocks."""
     new_lp = token_logprobs(logits, batch["tokens"])
     loss, metrics = ppo_clip_loss(new_lp, batch["old_logprobs"],
                                   batch["advantages"], batch["loss_mask"],
@@ -99,11 +101,6 @@ def total_loss(logits: torch.Tensor, aux: Dict[str, torch.Tensor],
     if den is not None and (cfg.entropy_coef or values is not None):
         raise NotImplementedError("total_loss: den with the entropy or "
                                   "value terms")
-    if SH.batch_axes() and any(torch.is_tensor(aux.get(k))
-                               for k in ("load_balance", "router_z")):
-        raise NotImplementedError(
-            "total_loss: the routers' aux losses are the whole batch's; a "
-            "rank holding some of its rows cannot give them")
     if cfg.entropy_coef:
         p = torch.softmax(logits.float(), dim=-1)
         ent = -(p * torch.log(p + 1e-9)).sum(-1)
@@ -115,7 +112,11 @@ def total_loss(logits: torch.Tensor, aux: Dict[str, torch.Tensor],
         vl = value_loss(values, returns, batch["loss_mask"])
         loss = loss + cfg.value_coef * vl
         metrics["value_loss"] = vl
-    loss = (loss + cfg.aux_load_balance * aux.get("load_balance", 0.0)
-            + cfg.aux_router_z * aux.get("router_z", 0.0))
+    # the routers' losses are the whole batch's on every rank of a split
+    # batch (``models/moe.py``): each rank's loss carries its share, so
+    # the loss summed over the ranks takes them once
+    n = SH.batch_count()
+    loss = (loss + cfg.aux_load_balance / n * aux.get("load_balance", 0.0)
+            + cfg.aux_router_z / n * aux.get("router_z", 0.0))
     metrics["total_loss"] = loss
     return loss, metrics

@@ -22,7 +22,8 @@ then keeps its slice of the rows and the update runs data-parallel: the
 loss's masked means take the whole batch's token count, the gradients
 are summed over the batch's axes in rank order and the parameters end
 the same bits on every rank (``make_train_step``).  The MoE family's
-update keeps the whole padded batch on every rank (``rows_split``).
+routers take the whole batch's capacity, drops and aux losses there, as
+the reference's (``models/moe.py`` ``moe_mlp_dense``).
 The Trainer protocol (``make_trainer`` etc.) is re-exported from
 :mod:`repro_torch.rl.trainer_api`.
 """
@@ -64,20 +65,10 @@ class TrainState:
 RewardFn = Callable[[Sequence[int], object], float]
 
 
-def rows_split(model: Model) -> bool:
-    """Whether the model's update runs data-parallel under ``axis_rules``
-    on a ``DeviceMesh`` (each rank its rows of the batch): where its loss
-    is a sum over the batch's rows.  Not for the MoE family: its routers'
-    capacities and aux losses are the whole batch's, so each of its ranks
-    runs the whole padded batch."""
-    return model.cfg.family != "moe"
-
-
 def entries_to_batch(entries: Sequence[BufferEntry], reward_fn: RewardFn,
                      pad_id: int, max_len: int,
                      advantage_kind: str = "reinforce_pp", *,
                      current_version: Optional[int] = None, device=None,
-                     split_rows: bool = True,
                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, float]]:
     """Pad trajectories to a common width and build the update batch on
     ``device`` (the card unless the caller passes ``device="cpu"``).
@@ -87,9 +78,8 @@ def entries_to_batch(entries: Sequence[BufferEntry], reward_fn: RewardFn,
     is measured against ``current_version``, the trainer's policy version
     at update time; entries whose prompt leaves no room for generated
     tokens are skipped with a warning (they would train on an all-zero
-    loss mask).  ``split_rows``: on a ``DeviceMesh`` each rank keeps its
-    slice of the padded rows (``shard_update_batch``); False keeps them
-    all (``rows_split``).
+    loss mask).  On a ``DeviceMesh`` each rank keeps its slice of the
+    padded rows (``shard_update_batch``).
     """
     dev = resolve_device(device)
     kept, skipped = [], []
@@ -152,7 +142,7 @@ def entries_to_batch(entries: Sequence[BufferEntry], reward_fn: RewardFn,
     }
     # identity outside an axis_rules context; inside one, inert pad rows
     # up to the data shards' count (after the advantages, as the reference)
-    batch = shard_update_batch(batch, pad_token=pad_id, split=split_rows)
+    batch = shard_update_batch(batch, pad_token=pad_id)
     info = {
         "reward_mean": float(rewards.mean()),
         "reward_std": float(rewards.std()),
@@ -184,14 +174,12 @@ def make_train_step(model: Model, loss_cfg: LossConfig, opt_cfg: AdamWConfig):
     """Returns (params, opt_state, batch) -> (params, opt_state, metrics):
     the loss on ``model.forward``, its gradient through autograd, then
     AdamW in place; data-parallel under ``axis_rules`` on a
-    ``DeviceMesh`` where ``rows_split(model)`` (the rank's rows of the
-    batch, the module docstring).  A vision-language batch with
+    ``DeviceMesh`` (the rank's rows of the batch, the module docstring).  A vision-language batch with
     ``patch_embeds`` scores only its token positions, as the reference's
     does; ``entries_to_batch`` builds none, so the trainer scores the
     tokens without the stub rows the engine served them after (the
     reference's behaviour, kept)."""
 
-    split = rows_split(model)
 
     def loss_fn(params, batch, den):
         logits, aux = model.forward(params, batch)
@@ -200,7 +188,7 @@ def make_train_step(model: Model, loss_cfg: LossConfig, opt_cfg: AdamWConfig):
         return total_loss(logits, aux, batch, loss_cfg, den=den)
 
     def train_step(params, opt_state, batch):
-        placement = SH.update_placement() if split else None
+        placement = SH.update_placement()
         if placement is None:
             return step(params, opt_state, batch, None)
         mesh, rules, _ = SH._current()
@@ -251,7 +239,7 @@ class RLTrainer:
         batch, info = entries_to_batch(
             entries, self.reward_fn, self.pad_id, self.max_len,
             self.advantage_kind, current_version=version,
-            device=self.model.device, split_rows=rows_split(self.model))
+            device=self.model.device)
         params, opt_state, metrics = self._step(
             self.state.params, self.state.opt_state, batch)
         self.state = TrainState(params, opt_state, self.state.step + 1)

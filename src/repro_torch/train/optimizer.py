@@ -93,8 +93,8 @@ def adamw_update(params: Any, grads: Any, state: OptState, cfg: AdamWConfig,
     list of its leaves in ``tree_leaves`` order.  Parameters and moments
     are updated in place; returns (params, new state, {"grad_norm",
     "lr"}).  ``gnorm`` replaces ``global_norm(grads)`` where the tree is
-    a rank's part of a larger one (``moe.ep_global_norm``,
-    ``sharding.placed_global_norm``): the update is elementwise, so on a
+    a rank's part of a larger one (``sharding.placed_global_norm``): the
+    update is elementwise, so on a
     rank's blocks of a placed tree, with moments placed as the
     parameters, it is the whole tree's update cut to those blocks."""
     flat_g = tree_leaves(grads)

@@ -27,6 +27,16 @@ STEP_CASES = [(f"train_{arch.split('_')[0]}_m{a}x{b}", arch, (a, b), 3)
 PREFILL_CASES = [("prefill_granite_m2x2", "granite_moe_3b_a800m", (2, 2))]
 
 
+def layer_specs(E: int, shape):
+    """One MoE layer's parameter specs on a ``shape`` mesh, as a placed
+    step's tree holds them (the reference's plans: the experts split over
+    ``model``, FSDP over ``data`` on d; the router whole): the experts
+    whole on ``model`` where its ranks do not divide E."""
+    M = "model" if E % shape[1] == 0 else None
+    return {"router": (None, None), "w_in": (M, "data", None),
+            "w_gate": (M, "data", None), "w_out": (M, None, "data")}
+
+
 def world_of(shape) -> int:
     return int(np.prod(shape))
 

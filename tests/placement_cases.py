@@ -35,8 +35,19 @@ replicated while ``wq`` splits (the reference's specs).
 * combine: ``decode_attention`` over 4 blocks of 128 rows;
 * update: ``RLTrainer.update`` of the tiny LM under ``train_rules()`` on
   (2, 1) and (4, 1), 6 rows (padded to the data shards); the same for
-  Granite-MoE's smoke config (``UPDATE_MOE``), whose update keeps the
-  whole padded batch on every rank.
+  Granite-MoE's smoke config (``UPDATE_MOE``), its rows split too, its
+  routers on the whole batch;
+* MoE (parts ``moe_<key>``, ``test_torch_placement_moe.py``): two MoE configs
+  at ``NARROW`` widths (``MOE_ARCHS``: Granite-MoE with 6 experts, which
+  the specs replicate over ``model``, and Qwen3-MoE with 16, which they
+  split), top-2 at cf 1.25: every block of their train_4k, prefill_32k
+  and decode_32k plans on the three meshes; 3 train steps (micro 2, B 16,
+  S 64) on (2, 2) and (1, 4); the prefill on (2, 2); 4 serve steps
+  (Granite ``seqshard`` on (2, 2) and (1, 4), Qwen3-MoE ``decode_2d`` on
+  the three meshes); token ids drawn from ``MOE_IDS`` so that the
+  routers crowd a few experts and drop pairs; Granite's train and
+  prefill again at vocabulary 515, which 2 and 4 do not divide
+  (``MOE_WHOLE_VOCAB``).
 """
 import dataclasses
 import hashlib
@@ -52,6 +63,25 @@ ARCHS = {"qwen3": ("qwen3_0_6b", {}),
          "gemma2_w256": ("gemma2_2b", {"sliding_window": 256}),
          "qwen1_5": ("qwen1_5_110b", {}),
          "nemotron": ("nemotron_4_340b", {})}
+# the MoE configs: the moe entry replaces fields of the config's MoE
+MOE_ARCHS = {
+    "granite_e6": ("granite_moe_3b_a800m",
+                   {"moe": dict(num_experts=6, experts_per_token=2,
+                                capacity_factor=1.25)}),
+    "qwen3_moe_e16": ("qwen3_moe_235b_a22b",
+                      {"moe": dict(num_experts=16, experts_per_token=2,
+                                   capacity_factor=1.25)})}
+# Granite-MoE again at a vocabulary the model axis does not divide (515
+# on 2 or 4, as its published 49,155 is on 2 or 4): every rank computes
+# the whole vocabulary's logits (``sharding.vocab_split``); train and
+# prefill only, a part of its own
+MOE_WHOLE_VOCAB = {
+    "granite_e6_v515": ("granite_moe_3b_a800m",
+                        {"moe": MOE_ARCHS["granite_e6"][1]["moe"],
+                         "vocab_size": 515})}
+MOE_PARTS = (*MOE_ARCHS, *MOE_WHOLE_VOCAB)
+ARCHS.update(MOE_ARCHS)
+ARCHS.update(MOE_WHOLE_VOCAB)
 MESHES = ((2, 2), (1, 4), (4, 1))
 B = 16
 TRAIN_S = 64
@@ -95,8 +125,25 @@ PLACED_SERVE_CASES = (
         (2, 2))]
     + [(f"serve_{a}_decode_2d_m{m[0]}x{m[1]}", a, "decode_32k", m)
        for a in ("qwen1_5", "nemotron") for m in MESHES])
-# the MoE family's serve step on a DeviceMesh raises (not placed yet)
-REFUSED_SERVE = ("qwen3_moe_235b_a22b", "decode_32k", (2, 2))
+# the serve steps of the families not placed yet raise on a DeviceMesh
+REFUSED_SERVE = {"vlm": "phi_3_vision_4_2b", "audio": "whisper_small",
+                 "hybrid": "zamba2_1_2b", "ssm": "xlstm_125m"}
+REFUSED_MESH = (2, 2)
+# the MoE part's cases
+MOE_PLACE_CASES = [(f"place_{a}_{sh}_m{m[0]}x{m[1]}", a, sh, m)
+                   for a in MOE_ARCHS
+                   for sh in ("train_4k", "prefill_32k", "decode_32k")
+                   for m in MESHES]
+MOE_TRAIN_CASES = [(f"train_{a}_m{m[0]}x{m[1]}", a, m, 2, B)
+                   for a in MOE_PARTS for m in ((2, 2), (1, 4))]
+MOE_PREFILL_CASES = [(f"prefill_{a}_m2x2", a, (2, 2)) for a in MOE_PARTS]
+MOE_SERVE_CASES = (
+    [(f"serve_granite_e6_seqshard_m{m[0]}x{m[1]}", "granite_e6",
+      "decode_32k", m) for m in ((2, 2), (1, 4))]
+    + [(f"serve_qwen3_moe_e16_decode_2d_m{m[0]}x{m[1]}", "qwen3_moe_e16",
+        "decode_32k", m) for m in MESHES])
+# token ids of the MoE cases' batches: few, so that the routers crowd
+MOE_IDS = 6
 # combine: (B, H, Kh, D, rows a block, blocks)
 COMBINE = (6, 8, 2, 16, 128, 4)
 UPDATE_MESHES = ((2, 1), (4, 1))
@@ -112,7 +159,10 @@ def narrow(cfg, key):
     attention's window)."""
     extra = dict(ARCHS[key][1])
     window = extra.pop("sliding_window", None)
+    moe = extra.pop("moe", None)
     cfg = cfg.replace(**dict(NARROW, **extra))
+    if moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     if window is not None:
         cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
                                                    sliding_window=window))

@@ -8,7 +8,10 @@ timeout), runs every case of ``PART`` (``main`` or ``steps``, as
 ``make_compat_mesh(shape, ("data", "model"), "cpu")``, and pickles its
 results to ``DIR/port_<PART>_w<WORLD>_r<RANK>.pkl``.  One torch thread.
 It reads ``DIR/inputs.npz``.  Part ``serve`` runs the placed serve
-cases (``PLACED_SERVE_CASES``) and the MoE family's refused serve step.
+cases (``PLACED_SERVE_CASES``) and the refused serve steps of the
+families not placed yet; part ``moe_<key>`` the MoE cases
+(``MOE_*_CASES``) of arch key ``key``, each with every MoE call's
+``idx``/``keep`` as the rank dispatched them.
 
 The placement cases cut the whole input trees with ``plans.place`` by
 the step's ``in_shardings`` and keep each leaf's digest; the step cases
@@ -27,8 +30,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from placement_cases import (ARCHS, B, COMBINE, PLACE_CASES,
-                             PLACED_SERVE_CASES, REFUSED_SERVE, SHAPE_BATCH,
+from placement_cases import (ARCHS, B, COMBINE, MOE_IDS, MOE_PLACE_CASES,
+                             MOE_PREFILL_CASES, MOE_SERVE_CASES,
+                             MOE_TRAIN_CASES, PLACE_CASES,
+                             PLACED_SERVE_CASES, REFUSED_MESH, REFUSED_SERVE,
+                             SHAPE_BATCH,
                              narrow, serve_inputs,
                              PREFILL_CASES, PREFILL_S, REPLICATED_TRAIN, SERVE_CASES, SERVE_S,
                              SERVE_STEPS, TRAIN_CASES, TRAIN_S, TRAIN_STEPS,
@@ -45,6 +51,7 @@ from repro_torch.launch import mesh as TMESH
 from repro_torch.launch import plans as TP
 from repro_torch.launch import steps as TS
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import build_model
 from repro_torch.rl import trainer as TT
 from repro_torch.train import optimizer as TO
@@ -136,6 +143,54 @@ def update_config(which):
         param_dtype=torch.float32, compute_dtype=torch.float32)
 
 
+class Dispatches:
+    """While installed, ``repro_torch.models.moe._dispatch_indices``
+    keeps each call's (idx, keep) as this rank computed them."""
+
+    def __enter__(self):
+        self.calls, self.real = [], MOE._dispatch_indices
+        real, calls = self.real, self.calls
+
+        def recorded(idx, E, C, *args):
+            pos, keep = real(idx, E, C, *args)
+            calls.append((idx.numpy().astype(np.int64), keep.numpy()))
+            return pos, keep
+        MOE._dispatch_indices = recorded
+        return self
+
+    def __exit__(self, *exc):
+        MOE._dispatch_indices = self.real
+
+
+def split_aux(cfg, params, mesh):
+    """The MoE forward's router losses and dispatch on this rank's rows of
+    an update batch under the trainer's placement, and on the whole padded
+    batch unplaced (the rank's rows of its dispatch kept); at cf 0.5, so
+    that pairs are dropped."""
+    model = build_model(cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5)), device="cpu")
+    with SH.axis_rules(mesh, SH.train_rules()):
+        batch, _ = TT.entries_to_batch(entries(BufferEntry, 7), reward, 0,
+                                       64, "grpo", device="cpu")
+        n = SH.data_shard_count()
+        with SH.axis_rules(mesh, SH.train_rules(), SH.update_placement()), \
+                torch.no_grad(), Dispatches() as split:
+            _, aux = model.forward(params, batch)
+            i = SH.block_index(SH.batch_axes())
+    whole, _ = TT.entries_to_batch(entries(BufferEntry, 7), reward, 0, 64,
+                                   "grpo", device="cpu")
+    whole = SH.pad_update_batch(whole, n)
+    with torch.no_grad(), Dispatches() as rec:
+        _, aux_whole = model.forward(params, whole)
+    rows = batch["tokens"].numel()
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "aux_whole": {k: float(v) for k, v in aux_whole.items()},
+            "dispatch": split.calls,
+            "dispatch_whole_rows": [(idx[i * rows:(i + 1) * rows],
+                                     keep[i * rows:(i + 1) * rows])
+                                    for idx, keep in rec.calls]}
+
+
 def run_update(inp, mesh_shape, which="tiny"):
     model = build_model(update_config(which), device="cpu")
     params = convert.from_jax_params(unflat(inp, f"{which}/"), device="cpu")
@@ -147,8 +202,8 @@ def run_update(inp, mesh_shape, which="tiny"):
 
     real = TT.shard_update_batch
 
-    def spy(batch, pad_token=0, split=True):
-        out = real(batch, pad_token, split)
+    def spy(batch, pad_token=0):
+        out = real(batch, pad_token)
         seen["rows"] = int(out["tokens"].shape[0])
         return out
     TT.shard_update_batch = spy
@@ -162,6 +217,8 @@ def run_update(inp, mesh_shape, which="tiny"):
         TT.shard_update_batch = real
     out = {"recs": recs, "digests": digests, "rows": rows,
            "coords": coords(mesh)}
+    if which == "moe":
+        out["split_aux"] = split_aux(model.cfg, trainer.params(), mesh)
     out.update({f"param/{k}": v.detach().numpy()
                 for k, v in flat(trainer.params()).items()})
     return out
@@ -183,7 +240,7 @@ def replicated_digest(params, pleaves):
     return h.hexdigest()
 
 
-def run_train(inp, key, mesh_shape, micro, rows):
+def run_train(inp, key, mesh_shape, micro, rows, vocab=512):
     cfg = config(key)
     plan = train_plan(key, micro)
     mesh = mesh_of(mesh_shape)
@@ -197,7 +254,8 @@ def run_train(inp, key, mesh_shape, micro, rows):
     opt = TP.place(TO.init_opt_state(full, TO.AdamWConfig(
         state_dtype=plan.opt_dtype)), ospecs, mesh)
     batch = TP.place({k: torch.from_numpy(v) for k, v in
-                      batch_arrays("train", TRAIN_S, rows=rows).items()}, bspecs, mesh)
+                      batch_arrays("train", TRAIN_S, vocab=vocab,
+                                   rows=rows).items()}, bspecs, mesh)
     pleaves = TP.spec_leaves(pspecs)
     out = {"coords": coords(mesh),
            "local_shapes": {k: tuple(v.shape)
@@ -214,7 +272,7 @@ def run_train(inp, key, mesh_shape, micro, rows):
     return out
 
 
-def run_prefill(inp, key, mesh_shape):
+def run_prefill(inp, key, mesh_shape, vocab=512):
     cfg = config(key)
     plan = TP.get_plan(ARCHS[key][0], "prefill_32k")
     mesh = mesh_of(mesh_shape)
@@ -225,13 +283,15 @@ def run_prefill(inp, key, mesh_shape):
     params = TP.place(convert.from_jax_params(
         unflat(inp, f"params_{key}/"), device="cpu"), pspecs, mesh)
     batch = TP.place({k: torch.from_numpy(v) for k, v in
-                      batch_arrays("prefill", PREFILL_S).items()},
+                      batch_arrays("prefill", PREFILL_S,
+                                   vocab=vocab).items()},
                      bspecs, mesh)
     cache = TP.place(built.model.init_cache(B, TS._round_len(PREFILL_S + 8)),
                      cspecs, mesh)
     local = {k: tuple(v.shape) for k, v in cache.items()}
     tok, cache = built.fn(params, batch, cache)
     return {"token": tok.numpy(), "cache_local_shapes": local,
+            "coords": coords(mesh),
             "cache": {k: v.numpy() for k, v in
                       TP.gather(cache, cspecs, mesh).items()}}
 
@@ -293,13 +353,15 @@ def run_serve(inp, key, mesh_shape):
     return out
 
 
-def run_placed_serve(inp, key, shape_name, mesh_shape):
-    """4 placed serve steps (``placed_serve``) with the rank's cache
-    blocks after them, its parameter blocks' shapes and the step's spec
+def run_placed_serve(inp, key, shape_name, mesh_shape, step_in=None):
+    """4 placed serve steps (``placed_serve``; ``step_in`` the token and
+    kv_len, ``serve_inputs`` by default) with the rank's cache blocks
+    after them, its parameter blocks' shapes and the step's spec
     trees."""
+    if step_in is None:
+        step_in = serve_inputs(SHAPE_BATCH.get(shape_name, B))
     built, mesh, params, cache, out = placed_serve(
-        inp, key, shape_name, mesh_shape,
-        serve_inputs(SHAPE_BATCH.get(shape_name, B)))
+        inp, key, shape_name, mesh_shape, step_in)
     _, token_shape, cache_shape, kv_shape = built.in_specs
     out.update(
         coords=coords(mesh),
@@ -312,20 +374,46 @@ def run_placed_serve(inp, key, shape_name, mesh_shape):
 
 
 def run_refused_serve():
-    """The MoE family's serve step on a ``DeviceMesh``: the error it
-    raises when called."""
-    arch, shape_name, mesh_shape = REFUSED_SERVE
-    cfg = TB.get_smoke_config(arch).replace(param_dtype=torch.float32,
-                                            compute_dtype=torch.float32)
-    built = TS.build_serve_step(
-        cfg, TB.ShapeConfig(shape_name, SERVE_S, B, "decode"),
-        TP.get_plan(arch, shape_name), mesh_of(mesh_shape), False,
-        device="cpu")
-    try:
-        built.fn(None, None, None, None)
-    except NotImplementedError as e:
-        return {"error": str(e), "placed": built.in_shardings is not None}
-    return {"error": None, "placed": built.in_shardings is not None}
+    """The serve steps of the families not placed yet on a
+    ``DeviceMesh``: {family: (placed, the error each raises when
+    called)}."""
+    out = {}
+    for family, arch in REFUSED_SERVE.items():
+        cfg = TB.get_smoke_config(arch).replace(param_dtype=torch.float32,
+                                                compute_dtype=torch.float32)
+        built = TS.build_serve_step(
+            cfg, TB.ShapeConfig("decode_32k", SERVE_S, B, "decode"),
+            TP.get_plan(arch, "decode_32k"), mesh_of(REFUSED_MESH), False,
+            device="cpu")
+        try:
+            built.fn(None, None, None, None)
+            error = None
+        except NotImplementedError as e:
+            error = str(e)
+        out[family] = (built.in_shardings is not None, error)
+    return out
+
+
+def run_moe(inp, arch):
+    """The MoE part of arch key ``arch``: placement digests, then each
+    step case with its dispatches recorded."""
+    out = {case[0]: run_place(*case) for case in MOE_PLACE_CASES
+           if case[1] == arch}
+    runs = ([(name, run_train, (inp, key, m, micro, rows, MOE_IDS))
+             for name, key, m, micro, rows in MOE_TRAIN_CASES]
+            + [(name, run_prefill, (inp, key, m, MOE_IDS))
+               for name, key, m in MOE_PREFILL_CASES]
+            + [(name, run_placed_serve,
+                (inp, key, shape_name, m,
+                 batch_arrays("decode", SERVE_S, vocab=MOE_IDS)))
+               for name, key, shape_name, m in MOE_SERVE_CASES])
+    for name, fn, args in runs:
+        if args[1] != arch:
+            continue
+        with Dispatches() as rec:
+            out[name] = fn(*args)
+        out[name]["dispatch"] = rec.calls
+    return out
 
 
 def main(DIR, part, world, rank):
@@ -349,6 +437,8 @@ def main(DIR, part, world, rank):
         for name, key, shape_name, m in PLACED_SERVE_CASES:
             out[name] = run_placed_serve(inp, key, shape_name, m)
         out["refused"] = run_refused_serve()
+    elif part.startswith("moe_"):
+        out = run_moe(inp, part[len("moe_"):])
     else:
         for name, key, m, micro, rows in TRAIN_CASES:
             out[name] = run_train(inp, key, m, micro, rows)

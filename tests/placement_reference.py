@@ -25,6 +25,14 @@ n of the four devices.  Parts:
 * ``serve``: per placed serve case 4 jitted steps' tokens and log-probs,
   each cache leaf's ``addressable_shards`` after them keyed by the
   device's mesh coordinates, and the step's spec trees.
+* ``moe_<key>``: the MoE cases (``MOE_*_CASES``) of arch key ``key``:
+  the placement digests, and
+  the train, prefill and serve steps as above (the train's loss also on
+  each device: its aux is the device's data shard's), each with every
+  MoE call's ``idx``/``keep`` (``_dispatch_indices`` recorded through
+  ``jax.debug.callback``: the whole call's under the compiler's
+  partitioning, a device's block inside the expert-parallel
+  ``shard_map``, keyed by its mesh coordinates).
 """
 import dataclasses
 import pickle
@@ -36,7 +44,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from placement_cases import (ARCHS, B, COMBINE, PLACE_CASES,
+from placement_cases import (ARCHS, B, COMBINE, MOE_IDS, MOE_PLACE_CASES,
+                             MOE_PREFILL_CASES, MOE_SERVE_CASES,
+                             MOE_TRAIN_CASES, PLACE_CASES,
                              PLACED_SERVE_CASES, SHAPE_BATCH, narrow,
                              serve_inputs,
                              PREFILL_CASES, PREFILL_S, REPLICATED_TRAIN, SERVE_CASES, SERVE_S,
@@ -51,6 +61,7 @@ from repro.distributed.sharding import axis_rules, train_rules
 from repro.launch import plans as JP
 from repro.launch import steps as JS
 from repro.models import layers as JL
+from repro.models import moe as JMOE
 from repro.models.model import build_model
 from repro.rl import trainer as JT
 from repro.rl.session import tiny_lm_config
@@ -151,7 +162,45 @@ def train_plan(key, micro):
         plan, microbatches=micro)
 
 
-def run_train(inp, key, mesh_shape, micro, rows):
+class Dispatches:
+    """While installed, ``repro.models.moe._dispatch_indices`` hands each
+    call's (idx, keep) to the host with ``jax.debug.callback``, with the
+    device's (data, model) coordinates inside a ``shard_map`` and (-1,
+    -1) for a call the compiler partitions (whose arrays are the whole
+    call's)."""
+
+    def __enter__(self):
+        self.calls, self.real = [], JMOE._dispatch_indices
+        real, calls = self.real, self.calls
+
+        def keep(idx, k, a, b):
+            calls.append(((int(a), int(b)), np.asarray(idx, np.int64),
+                          np.asarray(k)))
+
+        def recorded(idx, E, C):
+            pos, kp = real(idx, E, C)
+            try:
+                where = (jax.lax.axis_index("data"),
+                         jax.lax.axis_index("model"))
+            except Exception:
+                where = (jnp.int32(-1), jnp.int32(-1))
+            jax.debug.callback(keep, idx, kp, *where)
+            return pos, kp
+        JMOE._dispatch_indices = recorded
+        return self
+
+    def __exit__(self, *exc):
+        jax.effects_barrier()
+        JMOE._dispatch_indices = self.real
+
+
+def per_device(a):
+    """A "replicated" output's value on each device, in device order."""
+    shards = sorted(a.addressable_shards, key=lambda s: s.device.id)
+    return np.array([np.asarray(s.data) for s in shards])
+
+
+def run_train(inp, key, mesh_shape, micro, rows, vocab=512):
     cfg = config(key)
     plan = train_plan(key, micro)
     built = JS.build_train_step(cfg, JB.ShapeConfig("train_4k", TRAIN_S, rows,
@@ -161,19 +210,21 @@ def run_train(inp, key, mesh_shape, micro, rows):
     opt = JO.init_opt_state(params, JO.AdamWConfig(
         state_dtype=plan.opt_dtype))
     batch = {k: jnp.asarray(v)
-             for k, v in batch_arrays("train", TRAIN_S, rows=rows).items()}
+             for k, v in batch_arrays("train", TRAIN_S, vocab=vocab,
+                                      rows=rows).items()}
     step = jit(built)
     out = {}
     for i in range(TRAIN_STEPS):
         params, opt, m = step(params, opt, batch)
         out[f"loss_{i}"] = float(m["loss"])
+        out[f"loss_devices_{i}"] = per_device(m["loss"])
         out[f"grad_norm_{i}"] = float(m["grad_norm"])
     out.update({f"param/{k}": np.asarray(v, dtype=np.float32)
                 for k, v in flat(params).items()})
     return out
 
 
-def run_prefill(inp, key, mesh_shape):
+def run_prefill(inp, key, mesh_shape, vocab=512):
     cfg = config(key)
     plan = JP.get_plan(ARCHS[key][0], "prefill_32k")
     built = JS.build_prefill_step(
@@ -181,7 +232,8 @@ def run_prefill(inp, key, mesh_shape):
         mesh_of(mesh_shape), False)
     params = jax.tree.map(jnp.asarray, unflat(inp, f"params_{key}/"))
     batch = {k: jnp.asarray(v)
-             for k, v in batch_arrays("prefill", PREFILL_S).items()}
+             for k, v in batch_arrays("prefill", PREFILL_S,
+                                      vocab=vocab).items()}
     max_len = JS._round_len(PREFILL_S + 8)
     tok, cache = jit(built)(params, batch,
                             built.model.init_cache(B, max_len))
@@ -225,7 +277,7 @@ def spec_tuples(shapes, shardings):
     return out
 
 
-def run_placed_serve(inp, key, shape_name, mesh_shape):
+def run_placed_serve(inp, key, shape_name, mesh_shape, step_in=None):
     cfg = config(key)
     plan = JP.get_plan(ARCHS[key][0], shape_name)
     rows = SHAPE_BATCH.get(shape_name, B)
@@ -237,7 +289,7 @@ def run_placed_serve(inp, key, shape_name, mesh_shape):
     _, token_shape, cache_shape, kv_shape = built.in_specs
     cache = {k: jnp.asarray(draw(v.shape, shape_key(f"serve_cache/{k}")))
              for k, v in cache_shape.items()}
-    step_in = serve_inputs(rows)
+    step_in = serve_inputs(rows) if step_in is None else step_in
     tok, kv = jnp.asarray(step_in["token"]), jnp.asarray(step_in["kv_len"])
     step = jit(built)
     out = {"in_shardings": spec_tuples(built.in_specs, built.in_shardings),
@@ -270,6 +322,25 @@ if __name__ == "__main__":
     elif PART == "serve":
         for name, key, shape_name, m in PLACED_SERVE_CASES:
             res[name] = run_placed_serve(inp, key, shape_name, m)
+    elif PART.startswith("moe_"):
+        arch = PART[len("moe_"):]
+        for case in MOE_PLACE_CASES:
+            if case[1] == arch:
+                res[case[0]] = run_place(*case)
+        runs = ([(name, run_train, (inp, key, m, micro, rows, MOE_IDS))
+                 for name, key, m, micro, rows in MOE_TRAIN_CASES]
+                + [(name, run_prefill, (inp, key, m, MOE_IDS))
+                   for name, key, m in MOE_PREFILL_CASES]
+                + [(name, run_placed_serve,
+                    (inp, key, shape_name, m,
+                     batch_arrays("decode", SERVE_S, vocab=MOE_IDS)))
+                   for name, key, shape_name, m in MOE_SERVE_CASES])
+        for name, fn, args in runs:
+            if args[1] != arch:
+                continue
+            with Dispatches() as rec:
+                res[name] = fn(*args)
+            res[name]["dispatch"] = rec.calls
     else:
         for name, key, m, micro, rows in TRAIN_CASES:
             res[name] = run_train(inp, key, m, micro, rows)

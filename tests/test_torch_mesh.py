@@ -6,9 +6,10 @@ move no data), in a subprocess: a process group is per process.
   ``("data", "model")`` ``DeviceMesh``, ``multi_pod=True`` at 512 a
   (2, 16, 16) ``("pod", "data", "model")`` one; worlds of 255 and 1 (and
   no process group at all) raise, naming the world's size;
-* ``moe_mlp_ep`` on the (16, 16) mesh at Granite-MoE-3B-A800M's full
-  width pads its 40 experts to 48, 3 a rank: the shapes only (the fake
-  collectives return uninitialised data);
+* ``moe_mlp_ep`` placed on the (16, 16) mesh at Granite-MoE-3B-A800M's
+  full width pads its 40 experts to 48, 3 a rank, and gathers their
+  FSDP d: the shapes only (the fake collectives return uninitialised
+  data);
 * ``data_shard_count`` reads a ``DeviceMesh`` as it reads a
   ``LocalMesh`` of the same sizes; ``axis_size`` and ``axis_group`` take
   both.
@@ -76,10 +77,12 @@ out["single"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
 cfg = get_config("granite_moe_3b_a800m").replace(param_dtype=torch.float32,
                                                  compute_dtype=torch.float32)
 E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
-full = {"router": torch.zeros(d, E), "w_in": torch.zeros(1, E, d, f),
-        "w_gate": torch.zeros(1, E, d, f), "w_out": torch.zeros(1, E, f, d)}
-mlp = MOE.shard_experts({"layers": {"mlp": full}}, cfg, mesh)["layers"]["mlp"]
-p = {k: v if k == "router" else v[0] for k, v in mlp.items()}
+# the rank's blocks as the plans place them: 16 does not divide the 40
+# experts, so they are whole on model; d FSDP over data
+specs = {"router": (None, None), "w_in": (None, "data", None),
+         "w_gate": (None, "data", None), "w_out": (None, None, "data")}
+p = {"router": torch.zeros(d, E), "w_in": torch.zeros(E, d // 16, f),
+     "w_gate": torch.zeros(E, d // 16, f), "w_out": torch.zeros(E, f, d // 16)}
 seen = {}
 dispatch, ffn = MOE._dispatch_indices, MOE._expert_ffn
 
@@ -96,7 +99,9 @@ def rec_ffn(w, xe, act):
 
 
 MOE._dispatch_indices, MOE._expert_ffn = rec_dispatch, rec_ffn
-y, aux = MOE.moe_mlp_ep(p, cfg, torch.randn(16, 32, d), mesh)
+with SH.axis_rules(mesh, SH.train_rules(), SH.Placement(
+        batch_axes=("data",), params={"layers": {"mlp": specs}})):
+    y, aux = MOE.moe_mlp_ep(p, cfg, torch.randn(1, 32, d), mesh)
 seen["y"] = list(y.shape)
 seen["aux"] = sorted(aux)
 seen["padding"] = list(MOE.expert_padding(E, 16))
@@ -148,15 +153,16 @@ def test_other_worlds_raise_naming_the_size(fake, key, n):
 
 
 def test_ep_layer_shapes_on_the_production_mesh(fake):
-    """Granite's 40 experts pad to 48 on the 16-way model axis, 3 a rank;
-    a rank's block of x (16, 32, 1536) is 1 x 2 tokens, capacity 4, and
-    its experts see 16 sources' buffers."""
+    """Granite's 40 experts pad to 48 on the 16-way model axis, 3 a rank,
+    their d gathered over data; a rank's data block of x (1, 32, 1536) is
+    1 x 2 tokens after its model cut, capacity 4, its experts see 16
+    sources' buffers, and y leaves as the data block."""
     ep = fake["ep"]
     assert ep["padding"] == [48, 3] and ep["E_pad"] == 48 and ep["C"] == 4
     assert ep["w"] == {"w_in": [3, 1536, 512], "w_gate": [3, 1536, 512],
                        "w_out": [3, 512, 1536]}
     assert ep["xe"] == [3, 16 * 4, 1536]
-    assert ep["y"] == [16, 32, 1536]
+    assert ep["y"] == [1, 32, 1536]
     assert ep["aux"] == ["load_balance", "router_z"]
 
 

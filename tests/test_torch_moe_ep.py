@@ -10,16 +10,22 @@ numpy inputs from a seed and start together, and the fixture joins them
 within ``LIMIT_S`` and fails on the first process that exits non-zero.
 The cases are ``moe_ep_cases.LAYER_CASES``: the (1, 2), (2, 2), (1, 4)
 and (4, 1) meshes at capacity factors 1.0 and 8.0, and 5 experts on
-(1, 3) (``E_pad`` 6).
+(1, 3) (``E_pad`` 6).  The port's layer runs placed, as the train and
+prefill steps run it: each rank holds its data block of x's rows and
+its blocks of the weights (``moe_ep_cases.layer_specs``: the experts
+split over ``model`` where its ranks divide E, else whole there, and
+FSDP over ``data``), and y leaves as its data block.
 
 * y within 2e-5 (the reference's ``test_ep_path_matches_dense_single_
-  device``), the same bits on every rank;
+  device``), the data blocks gathered, the same bits on every rank of a
+  data block;
 * each (data, model) block's routing (``idx``) and drops (``keep``) as
   the layer dispatched them equal the reference's on that block, over
   ``E_pad`` experts with the block's capacity;
 * the gradients of ``sum(y * c) + load_balance + router_z`` for x, the
-  router and the three expert weights within rtol 1e-4, atol 1e-6 (the
-  experts' assembled from the ranks' slices, the padded ones zero);
+  router and the three expert weights within rtol 1e-4, atol 1e-6 (x's
+  and the experts' assembled from the ranks' blocks, the router's summed
+  over the batch's axes as a step's end sums it);
 * the aux is the mean over the mesh of what each device of the
   reference holds;
 * each rank's experts are (E_local, ...) and see n_model * C tokens,
@@ -45,7 +51,7 @@ import pytest
 import torch
 
 import torch_cpu  # noqa: F401
-from moe_ep_cases import LAYER_CASES, layer_inputs, world_of
+from moe_ep_cases import LAYER_CASES, layer_inputs, layer_specs, world_of
 from repro_torch.configs import base as TB
 from repro_torch.launch import mesh as TMESH
 from repro_torch.models import moe as MOE
@@ -125,13 +131,23 @@ def case_of(layer, name):
     return ref[name], port[name], CASES[name]
 
 
+def by_data(ranks, key):
+    """The ranks' data blocks of ``key`` (dim 0) gathered, the ranks of
+    one data block holding the same bits."""
+    blocks = {}
+    for r in ranks:
+        i = r["coords"][0]
+        if i in blocks:
+            np.testing.assert_array_equal(r[key], blocks[i])
+        blocks[i] = r[key]
+    return np.concatenate([blocks[i] for i in sorted(blocks)])
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_output_matches_reference_on_every_rank(layer, name):
     ref, ranks, (shape, cf, E) = case_of(layer, name)
     assert len(ranks) == world_of(shape)
-    for r in ranks:
-        np.testing.assert_array_equal(r["y"], ranks[0]["y"])
-    np.testing.assert_allclose(ranks[0]["y"], ref["y"], **Y_TOL)
+    np.testing.assert_allclose(by_data(ranks, "y"), ref["y"], **Y_TOL)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -152,33 +168,38 @@ def test_routing_and_drops_equal_per_block(layer, name):
         assert not ref["keep"].all(), "cf 1.0 should drop pairs"
 
 
-def experts(ranks, key):
-    """The ranks' expert slices along the model axis, concatenated (every
-    data row's slice equal)."""
-    by_model = {}
+def experts(ranks, key, E, shape):
+    """The ranks' blocks of an expert weight's gradient assembled by
+    ``layer_specs``: d over ``data``, the experts over ``model`` where
+    they are split there (else every rank of a data block equal)."""
+    spec = layer_specs(E, shape)[key[2:]]
+    d_dim = spec.index("data")
+    split = spec[0] == "model"
+    blocks = {}
     for r in ranks:
-        j = r["coords"][1]
-        if j in by_model:
-            np.testing.assert_array_equal(r[key], by_model[j])
-        by_model[j] = r[key]
-    return np.concatenate([by_model[j] for j in sorted(by_model)])
+        i, j = r["coords"]
+        at = (i, j if split else 0)
+        if at in blocks:
+            np.testing.assert_array_equal(r[key], blocks[at])
+        blocks[at] = r[key]
+    cols = sorted({j for _, j in blocks})
+    return np.concatenate([np.concatenate(
+        [blocks[i, j] for i in range(shape[0])], d_dim) for j in cols])
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_gradients_match_reference(layer, name):
     ref, ranks, (shape, cf, E) = case_of(layer, name)
     for r in ranks:
-        np.testing.assert_array_equal(r["g_x"], ranks[0]["g_x"])
         np.testing.assert_array_equal(r["g_router"], ranks[0]["g_router"])
-    np.testing.assert_allclose(ranks[0]["g_x"], ref["g_x"], **GRAD_TOL)
+    np.testing.assert_allclose(by_data(ranks, "g_x"), ref["g_x"],
+                               **GRAD_TOL)
     np.testing.assert_allclose(ranks[0]["g_router"], ref["g_router"],
                                **GRAD_TOL)
     for k in ("w_in", "w_gate", "w_out"):
-        g = experts(ranks, f"g_{k}")
-        assert g.shape[0] == MOE.expert_padding(E, shape[1])[0]
-        np.testing.assert_allclose(g[:E], ref[f"g_{k}"], err_msg=k,
-                                   **GRAD_TOL)
-        assert not g[E:].any(), f"{k}: a padded expert got a gradient"
+        g = experts(ranks, f"g_{k}", E, shape)
+        assert g.shape == ref[f"g_{k}"].shape, k
+        np.testing.assert_allclose(g, ref[f"g_{k}"], err_msg=k, **GRAD_TOL)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -210,7 +231,7 @@ def test_against_the_dense_layer(layer, name):
     capacity at cf 1.0, in both packages; with no drops (cf 8.0) the two
     layers agree."""
     ref, ranks, (shape, cf, E) = case_of(layer, name)
-    y, dense = ranks[0]["y"], ranks[0]["y_dense"]
+    y, dense = by_data(ranks, "y"), ranks[0]["y_dense"]
     np.testing.assert_allclose(dense, ref["y_dense"], **Y_TOL)
     if cf == 8.0:
         np.testing.assert_allclose(y, dense, **Y_TOL)

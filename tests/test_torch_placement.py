@@ -30,9 +30,11 @@ cases are in ``placement_cases.py``.
   on (2, 1) and (4, 1), 6 rows padded to the data shards: every metric
   within ``STEP_TOL``, the parameters within ``PARAM_TOL`` of the
   reference's on its mesh after 2 updates, and the same bits on every
-  rank; for Granite-MoE's smoke config too, each rank running the whole
-  padded batch (its routers' capacities and aux losses are the whole
-  batch's).
+  rank; for Granite-MoE's smoke config too, its rows split as well (its
+  routers on the whole batch: capacity, slots and aux losses);
+* split aux: the MoE forward on a rank's rows of an update batch under
+  the trainer's placement gives the whole batch's router losses and the
+  whole batch's routing and drops for those rows.
 """
 import os
 import pickle
@@ -70,20 +72,23 @@ def env():
                 XLA_FLAGS="--xla_force_host_platform_device_count=4")
 
 
-def run_sides(d: Path, part: str, worlds) -> None:
-    """The reference's process and every world's gloo ranks on ``part``,
-    all started together; fails on the first to exit non-zero (the others
-    killed) or when ``LIMIT_S`` runs out."""
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "placement_reference.py"),
-         str(d), part], env=env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT)]
-    for w in worlds:
-        procs += [subprocess.Popen(
-            [sys.executable, str(ROOT / "tests" / "placement_ranks.py"),
-             str(d), part, str(w), str(r)], env=env(),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(w)]
+def run_sides(d: Path, parts, worlds) -> None:
+    """The reference's process and every world's gloo ranks on each of
+    ``parts`` (a part or a list of them), all started together; fails on
+    the first to exit non-zero (the others killed) or when ``LIMIT_S``
+    runs out."""
+    procs = []
+    for part in [parts] if isinstance(parts, str) else parts:
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "tests" / "placement_reference.py"),
+             str(d), part], env=env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+        for w in worlds:
+            procs += [subprocess.Popen(
+                [sys.executable, str(ROOT / "tests" / "placement_ranks.py"),
+                 str(d), part, str(w), str(r)], env=env(),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                for r in range(w)]
     deadline = time.monotonic() + LIMIT_S
     try:
         while any(p.poll() is None for p in procs):
@@ -92,7 +97,7 @@ def run_sides(d: Path, part: str, worlds) -> None:
                 raise AssertionError(" ".join(bad[0].args) + "\n"
                                      + bad[0].stdout.read().decode()[-4000:])
             if time.monotonic() > deadline:
-                raise AssertionError(f"{part}: not done in {LIMIT_S} s")
+                raise AssertionError(f"{parts}: not done in {LIMIT_S} s")
             time.sleep(0.2)
         for p in procs:
             assert p.returncode == 0, (p.args,
@@ -272,18 +277,18 @@ def test_update_matches_reference(sides, mesh):
 
 
 @pytest.mark.parametrize("mesh", UPDATE_MESHES)
-def test_moe_update_keeps_the_whole_batch(sides, mesh):
+def test_moe_update_splits_rows(sides, mesh):
     """The MoE family's update under ``train_rules()`` on a
-    ``DeviceMesh``: every rank runs the whole padded batch (its routers'
-    capacities and aux losses are the whole batch's, which no rank's rows
-    give), so the aux loss enters once and ``total_loss`` equals the
-    reference's."""
+    ``DeviceMesh``: each rank updates its slice of the padded rows, its
+    routers taking the whole batch's capacity, slots and aux losses, so
+    the metrics and parameters are the reference's and the same bits on
+    every rank."""
     ref_res, port = sides
     name = f"update_moe_m{mesh[0]}x{mesh[1]}"
     want, ranks = ref_res[name], port[name]
     assert len(ranks) == world_of(mesh)
     for r in ranks:
-        assert r["rows"] == [-(-6 // mesh[0]) * mesh[0]] * 2
+        assert r["rows"] == [-(-6 // mesh[0])] * 2
         assert r["digests"] == ranks[0]["digests"]
         for got, exp in zip(r["recs"], want["recs"]):
             assert set(got) == set(exp)
@@ -295,24 +300,29 @@ def test_moe_update_keeps_the_whole_batch(sides, mesh):
             np.testing.assert_allclose(v, want[k], err_msg=k, **PARAM_TOL)
 
 
-def test_aux_refused_over_a_split_batch(monkeypatch):
-    """``total_loss`` refuses router aux losses where the batch's rows
-    are split over ranks (a rank's rows cannot give them), and takes the
-    dense family's zero aux there."""
-    from repro_torch.rl import losses
-    B, S, V = 2, 4, 8
-    batch = {"tokens": torch.zeros(B, S, dtype=torch.int32),
-             "loss_mask": torch.ones(B, S), "advantages": torch.ones(B, S),
-             "old_logprobs": torch.zeros(B, S)}
-    aux = {"load_balance": torch.tensor(1.0), "router_z": torch.tensor(0.5)}
-    monkeypatch.setattr(SH, "batch_axes",
-                        lambda: (SH.Axis("data", None, 2, 0),))
-    with pytest.raises(NotImplementedError, match="aux"):
-        losses.total_loss(torch.zeros(B, S, V), aux, batch,
-                          losses.LossConfig(), den=torch.tensor(8.0))
-    losses.total_loss(torch.zeros(B, S, V), dict(load_balance=0.0,
-                                                  router_z=0.0), batch,
-                      losses.LossConfig(), den=torch.tensor(8.0))
+@pytest.mark.parametrize("mesh", UPDATE_MESHES)
+def test_split_batch_aux_equals_whole_batch(sides, mesh):
+    """The MoE forward on a rank's rows of an update batch (the trainer's
+    placement) against the same forward on the whole padded batch: the
+    router losses within f32 summation order, every call's ``idx`` and
+    ``keep`` for the rank's rows exactly the whole batch's (the capacity
+    the whole batch's, each expert's slots after the rows before), at a
+    capacity factor of 0.5 that drops pairs."""
+    _, port = sides
+    ranks = port[f"update_moe_m{mesh[0]}x{mesh[1]}"]
+    dropped = 0
+    for r in ranks:
+        got = r["split_aux"]
+        for k, v in got["aux_whole"].items():
+            np.testing.assert_allclose(got["aux"][k], v, rtol=1e-6, atol=0,
+                                       err_msg=k)
+        assert len(got["dispatch"]) == len(got["dispatch_whole_rows"]) > 0
+        for (i0, k0), (i1, k1) in zip(got["dispatch"],
+                                      got["dispatch_whole_rows"]):
+            np.testing.assert_array_equal(i0, i1)
+            np.testing.assert_array_equal(k0, k1)
+            dropped += int((~k0).sum())
+    assert dropped > 0
 
 
 def test_logical_constraint_is_identity_without_a_placement():

@@ -20,8 +20,8 @@ reference's ``init_params`` at ``NARROW`` widths, carried over with
 rank's cache blocks within ``CACHE_TOL`` of the reference's
 ``addressable_shards`` at the rank's mesh coordinates; every decode call
 over a split cache asks for the lse; the step's ``in_shardings``/``out_shardings`` equal the
-reference's spec trees.  The MoE family's serve step on a ``DeviceMesh``
-raises, naming the family.  The dense decode's lse at Gemma2's head
+reference's spec trees.  The serve steps of the families not placed yet
+raise on a ``DeviceMesh``, naming the family.  The dense decode's lse at Gemma2's head
 (D 256, G 2) under its softcap 50 is that of the capped scores.
 """
 import jax
@@ -32,6 +32,7 @@ import torch
 
 import torch_cpu  # noqa: F401
 from placement_cases import (ARCHS, B, NARROW, PLACED_SERVE_CASES,
+                             REFUSED_SERVE,
                              SERVE_STEPS, SHAPE_BATCH, flat, narrow,
                              serve_inputs)
 from repro.configs import base as JB
@@ -151,11 +152,16 @@ def test_serve_inputs_cross_the_window():
     assert 256 < serve_inputs(1)["kv_len"][0] < 512 - 128
 
 
-def test_moe_serve_step_refused_on_a_device_mesh(serve):
+@pytest.mark.parametrize("family", sorted(REFUSED_SERVE))
+def test_unplaced_family_serve_step_refused_on_a_device_mesh(serve, family):
+    """The serve steps of the families not placed yet (vlm, audio,
+    hybrid, ssm) carry no placements on a ``DeviceMesh`` and raise when
+    called, naming the family."""
     _, port = serve
     for r in port["refused"]:
-        assert not r["placed"]
-        assert r["error"] is not None and "moe" in r["error"], r["error"]
+        placed, error = r[family]
+        assert not placed
+        assert error is not None and family in error, error
 
 
 @pytest.mark.parametrize("D,G,cap,scale", [(256, 2, 50.0, 40.0),
